@@ -1,0 +1,57 @@
+"""Internal runtime API: profile override and the inference workflow.
+
+Counterpart of ``ser_tpu/_internal/api/runtime.py`` (``apply_cli_profile_override``
+and ``infer``) for the ported profiles.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from pathlib import Path
+
+from ser_tpu_torch._internal.config.schema import AppConfig
+from ser_tpu_torch._internal.runtime.pipeline import create_runtime_pipeline
+from ser_tpu_torch.profiles import PROFILE_NAMES, ProfileName
+from ser_tpu_torch.runtime.contracts import InferenceExecution, InferenceRequest, SubtitleFormat
+
+def apply_cli_profile_override(settings: AppConfig, profile: ProfileName | None) -> AppConfig:
+    """Projects one requested profile into the settings' runtime flags."""
+    if profile is None:
+        return settings
+    if profile not in PROFILE_NAMES:
+        raise ValueError(f"Unknown profile {profile!r}. Expected one of {PROFILE_NAMES}.")
+    flags = dataclasses.replace(
+        settings.runtime_flags,
+        profile_pipeline=True,
+        medium_profile=profile == "medium",
+        accurate_profile=profile == "accurate",
+        accurate_research_profile=profile == "accurate-research",
+    )
+    return dataclasses.replace(settings, runtime_flags=flags)
+
+
+def infer(
+    file_path: str | Path,
+    *,
+    profile: ProfileName | None = None,
+    language: str | None = None,
+    save_transcript: bool = False,
+    include_transcript: bool = False,
+    subtitle_output_path: str | None = None,
+    subtitle_format: SubtitleFormat | None = None,
+    settings: AppConfig,
+) -> InferenceExecution:
+    """Library inference entry point: one request through the runtime pipeline."""
+    resolved = apply_cli_profile_override(settings, profile)
+    request = InferenceRequest(
+        file_path=str(file_path),
+        language=language if language is not None else resolved.default_language,
+        save_transcript=save_transcript,
+        include_transcript=include_transcript,
+        subtitle_output_path=subtitle_output_path,
+        subtitle_format=subtitle_format,
+    )
+    return create_runtime_pipeline(resolved).run_inference(request)
+
+
+__all__ = ["apply_cli_profile_override", "infer"]

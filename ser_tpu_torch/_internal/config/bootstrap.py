@@ -1,0 +1,143 @@
+"""Environment capture into the port's settings snapshot.
+
+Counterpart of ``ser_tpu/_internal/config/{settings_inputs,settings_builder,
+bootstrap}.py`` for the fields the accurate inference path reads. The same
+``SER_*`` variables are honoured with the same meaning, so one environment
+configures both packages: ``SER_ENABLE_ACCURATE_PROFILE``,
+``SER_MODELS_FOLDER`` (alias ``SER_MODELS_DIR``), ``SER_CACHE_DIR``,
+``SER_DATA_DIR``, ``SER_MODEL_CACHE_DIR``, ``SER_ACCURATE_MODEL_ID``,
+``SER_OUTPUT_SCHEMA_VERSION``, ``SER_TORCH_DEVICE``, ``SER_TORCH_DTYPE``,
+``SER_DEFAULT_LANGUAGE`` and the ``SER_ACCURATE_<KNOB>`` runtime overrides.
+``SER_ALLOW_RANDOM_INIT`` / ``SER_RANDOM_INIT_SIZE`` are read where the
+weights are resolved, as in the JAX package.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+from collections.abc import Callable, Mapping
+from pathlib import Path
+
+from ser_tpu_torch._internal.config.schema import AppConfig
+
+_TRUTHY = {"1", "true", "yes", "on"}
+_FALSY = {"0", "false", "no", "off"}
+
+
+class SettingsInputError(ValueError):
+    """Raised when an environment variable holds an unparseable value."""
+
+
+def _str(env: Mapping[str, str], name: str) -> str | None:
+    raw = env.get(name)
+    if raw is None:
+        return None
+    return raw.strip() or None
+
+
+def _bool(env: Mapping[str, str], name: str) -> bool | None:
+    raw = _str(env, name)
+    if raw is None:
+        return None
+    if raw.lower() in _TRUTHY:
+        return True
+    if raw.lower() in _FALSY:
+        return False
+    raise SettingsInputError(f"Env var {name}={raw!r} is not a boolean.")
+
+
+def _number(kind: Callable[[str], object]):
+    def read(env: Mapping[str, str], name: str):
+        raw = _str(env, name)
+        if raw is None:
+            return None
+        try:
+            return kind(raw)
+        except ValueError as err:
+            raise SettingsInputError(f"Env var {name}={raw!r} is not {kind.__name__}.") from err
+
+    return read
+
+
+def _path(env: Mapping[str, str], name: str) -> Path | None:
+    raw = _str(env, name)
+    return Path(raw).expanduser() if raw is not None else None
+
+
+#: The accurate runtime's knobs this path reads, each from ``SER_ACCURATE_<KNOB>``.
+_KNOB_READERS = {
+    "pool_window_size_seconds": _number(float),
+    "pool_window_stride_seconds": _number(float),
+    "post_smoothing_window_frames": _number(int),
+    "post_hysteresis_enter_confidence": _number(float),
+    "post_hysteresis_exit_confidence": _number(float),
+    "post_min_segment_duration_seconds": _number(float),
+}
+
+
+def _changes(**values: object) -> dict[str, object]:
+    return {name: value for name, value in values.items() if value is not None}
+
+
+def build_settings(env: Mapping[str, str] | None = None) -> AppConfig:
+    """Builds one settings snapshot from ``env`` (default: ``os.environ``)."""
+    env = dict(os.environ) if env is None else env
+    base = AppConfig()
+
+    cache_root = _path(env, "SER_CACHE_DIR")
+    data_root = _path(env, "SER_DATA_DIR")
+    model_cache_dir = _path(env, "SER_MODEL_CACHE_DIR")
+    if model_cache_dir is None and cache_root is not None:
+        model_cache_dir = cache_root / "model-cache"
+    models_folder = _path(env, "SER_MODELS_FOLDER") or _path(env, "SER_MODELS_DIR")
+    if models_folder is None and data_root is not None:
+        models_folder = data_root / "models"
+    models = dataclasses.replace(
+        base.models,
+        **_changes(
+            folder=models_folder,
+            model_cache_dir=model_cache_dir,
+            accurate_model_id=_str(env, "SER_ACCURATE_MODEL_ID"),
+        ),
+    )
+
+    flags = dataclasses.replace(
+        base.runtime_flags,
+        profile_pipeline=bool(_bool(env, "SER_ENABLE_PROFILE_PIPELINE")),
+        medium_profile=bool(_bool(env, "SER_ENABLE_MEDIUM_PROFILE")),
+        accurate_profile=bool(_bool(env, "SER_ENABLE_ACCURATE_PROFILE")),
+        accurate_research_profile=bool(_bool(env, "SER_ENABLE_ACCURATE_RESEARCH_PROFILE")),
+    )
+
+    accurate_runtime = dataclasses.replace(
+        base.accurate_runtime,
+        **_changes(
+            **{knob: read(env, f"SER_ACCURATE_{knob.upper()}") for knob, read in _KNOB_READERS.items()}
+        ),
+    )
+
+    schema = dataclasses.replace(
+        base.schema, **_changes(output_schema_version=_str(env, "SER_OUTPUT_SCHEMA_VERSION"))
+    )
+    torch_runtime = dataclasses.replace(
+        base.torch_runtime,
+        **_changes(device=_str(env, "SER_TORCH_DEVICE"), dtype=_str(env, "SER_TORCH_DTYPE")),
+    )
+    return dataclasses.replace(
+        base,
+        models=models,
+        runtime_flags=flags,
+        accurate_runtime=accurate_runtime,
+        schema=schema,
+        torch_runtime=torch_runtime,
+        default_language=_str(env, "SER_DEFAULT_LANGUAGE") or base.default_language,
+    )
+
+
+def reload_settings() -> AppConfig:
+    """A fresh snapshot of the current process environment."""
+    return build_settings()
+
+
+__all__ = ["SettingsInputError", "build_settings", "reload_settings"]

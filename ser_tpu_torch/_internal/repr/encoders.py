@@ -1,0 +1,53 @@
+"""Encoder-backend construction for the ported transformer profile (accurate).
+
+Counterpart of ``ser_tpu/_internal/repr/encoders.py``: builds the profile's
+backend on the runtime-policy device and dtype, and reuses an instance per
+weight provenance (backend, model id, dtype, device, cache root, random-init
+mode), since a built backend holds its weights on the device.
+"""
+
+from __future__ import annotations
+
+import os
+import threading
+
+from ser_tpu_torch._internal.config.schema import AppConfig
+from ser_tpu_torch._internal.repr.runtime_policy import resolve_feature_runtime
+from ser_tpu_torch._internal.repr.whisper_backend import WhisperEncoderBackend
+from ser_tpu_torch.profiles import ProfileName, require_ported
+
+_BACKEND_CACHE: dict[tuple, WhisperEncoderBackend] = {}
+_BACKEND_CACHE_LOCK = threading.Lock()
+
+
+def build_encoder_backend(profile: ProfileName, settings: AppConfig) -> WhisperEncoderBackend:
+    """Builds (or reuses) the encoder backend for one ported profile."""
+    spec = require_ported(profile)
+    model_id = settings.models.accurate_model_id
+    runtime = resolve_feature_runtime(spec.backend_id, torch_runtime=settings.torch_runtime)
+    cache_key = (
+        spec.backend_id,
+        model_id,
+        runtime.dtype,
+        str(runtime.device),
+        str(settings.models.huggingface_cache_root),
+        os.environ.get("SER_ALLOW_RANDOM_INIT", "") == "1",
+        os.environ.get("SER_RANDOM_INIT_SIZE", "tiny"),
+    )
+    with _BACKEND_CACHE_LOCK:
+        cached = _BACKEND_CACHE.get(cache_key)
+    if cached is not None:
+        return cached
+    # Built outside the lock: loading a checkpoint takes seconds and must not
+    # block unrelated cache hits. A racing duplicate build is tolerable.
+    backend = WhisperEncoderBackend(
+        model_id=model_id,
+        cache_root=settings.models.huggingface_cache_root,
+        device=runtime.device,
+        dtype=runtime.dtype,
+    )
+    with _BACKEND_CACHE_LOCK:
+        return _BACKEND_CACHE.setdefault(cache_key, backend)
+
+
+__all__ = ["build_encoder_backend"]

@@ -1,0 +1,44 @@
+"""Workflow phase ids and the timer that records them.
+
+Counterpart of ``ser_tpu/_internal/runtime/phases.py`` for the phases of the
+transcript-off lane: the same names accumulate into
+``InferenceExecution.phase_timings_seconds``.
+"""
+
+from __future__ import annotations
+
+import logging
+import time
+from collections.abc import Iterator
+from contextlib import contextmanager
+
+logger = logging.getLogger(__name__)
+
+PHASE_WORKFLOW_TOTAL = "workflow_total"
+PHASE_EMOTION_SETUP = "emotion_setup"
+PHASE_EMOTION_INFERENCE = "emotion_inference"
+PHASE_TIMELINE_BUILD = "timeline_build"
+PHASE_TIMELINE_OUTPUT = "timeline_output"
+
+
+@contextmanager
+def timed_phase(phase: str, timings: dict[str, float]) -> Iterator[None]:
+    """Adds the time spent in the block to ``timings[phase]``, also on failure."""
+    logger.debug("phase %s started", phase)
+    started = time.perf_counter()
+    try:
+        yield
+    finally:
+        elapsed = time.perf_counter() - started
+        timings[phase] = timings.get(phase, 0.0) + elapsed
+        logger.debug("phase %s ended after %.3fs", phase, elapsed)
+
+
+__all__ = [
+    "PHASE_EMOTION_INFERENCE",
+    "PHASE_EMOTION_SETUP",
+    "PHASE_TIMELINE_BUILD",
+    "PHASE_TIMELINE_OUTPUT",
+    "PHASE_WORKFLOW_TOTAL",
+    "timed_phase",
+]

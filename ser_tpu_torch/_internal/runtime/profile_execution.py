@@ -1,0 +1,74 @@
+"""Pure per-profile execution pass: encode → window → pool → predict → postprocess.
+
+Copied from ``ser_tpu/_internal/runtime/profile_execution.py`` for the
+accurate profile: mean/std pooling, and no device-pooling branch (the Whisper
+backend never takes it). The profile supplies the backend and the
+postprocessing config.
+"""
+
+from __future__ import annotations
+
+import logging
+from typing import Any
+
+import numpy as np
+
+from ser_tpu_torch._internal.models.fast_path import predict_frames
+from ser_tpu_torch._internal.pool import mean_std_pool, temporal_pooling_windows
+from ser_tpu_torch._internal.repr import FeatureBackend
+from ser_tpu_torch._internal.runtime.postprocessing import (
+    SegmentPostprocessingConfig,
+    postprocess_frame_predictions,
+)
+from ser_tpu_torch.runtime.schema import FramePrediction, InferenceResult
+
+logger = logging.getLogger(__name__)
+
+
+def run_windowed_inference_once(
+    *,
+    audio: np.ndarray,
+    sample_rate: int,
+    backend: FeatureBackend,
+    model: Any,
+    pool_window_size_seconds: float,
+    pool_window_stride_seconds: float,
+    postprocessing_config: SegmentPostprocessingConfig,
+    output_schema_version: str,
+    expected_feature_size: int | None = None,
+) -> InferenceResult:
+    """One deterministic windowed inference pass for transformer profiles."""
+    encoded = backend.encode_sequence(audio, sample_rate)
+    windows = temporal_pooling_windows(
+        encoded,
+        window_size_seconds=pool_window_size_seconds,
+        window_stride_seconds=pool_window_stride_seconds,
+    )
+    features = mean_std_pool(encoded, windows)
+
+    if expected_feature_size is not None and features.shape[1] != expected_feature_size:
+        raise ValueError(
+            "Pooled feature size mismatch for loaded model. "
+            f"Expected {expected_feature_size}, got {features.shape[1]}."
+        )
+
+    predicted, confidences, probabilities = predict_frames(
+        model, features, len(windows), logger=logger
+    )
+    frames = [
+        FramePrediction(
+            start_seconds=float(window.start_seconds),
+            end_seconds=float(window.end_seconds),
+            emotion=predicted[i],
+            confidence=confidences[i],
+            probabilities=probabilities[i],
+        )
+        for i, window in enumerate(windows)
+    ]
+    segments = postprocess_frame_predictions(frames, config=postprocessing_config)
+    return InferenceResult(
+        schema_version=output_schema_version, segments=segments, frames=frames
+    )
+
+
+__all__ = ["run_windowed_inference_once"]

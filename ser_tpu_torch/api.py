@@ -1,0 +1,46 @@
+"""Public API of the PyTorch port: ``infer`` for the accurate profile.
+
+Counterpart of ``ser_tpu.api.infer``, returning the same ``InferenceExecution``.
+It runs on the CUDA card unless the settings ask for the CPU
+(``SER_TORCH_DEVICE=cpu`` or ``settings.torch_runtime.device == "cpu"``);
+with no card and no such request it raises. Only the accurate profile with
+the transcript off is ported so far; everything else raises
+``NotImplementedError`` (``ROADMAP.md``).
+"""
+
+from __future__ import annotations
+
+from pathlib import Path
+
+import ser_tpu_torch._internal.api.runtime as _runtime_api
+from ser_tpu_torch._internal.config.bootstrap import reload_settings
+from ser_tpu_torch._internal.config.schema import AppConfig
+from ser_tpu_torch.profiles import ProfileName
+from ser_tpu_torch.runtime.contracts import InferenceExecution, SubtitleFormat
+
+
+def infer(
+    file_path: str | Path,
+    *,
+    profile: ProfileName | None = "accurate",
+    language: str | None = None,
+    save_transcript: bool = False,
+    include_transcript: bool = False,
+    subtitle_output_path: str | None = None,
+    subtitle_format: SubtitleFormat | None = None,
+    settings: AppConfig | None = None,
+) -> InferenceExecution:
+    """Runs inference for one audio file (settings default: a fresh env snapshot)."""
+    return _runtime_api.infer(
+        file_path,
+        profile=profile,
+        language=language,
+        save_transcript=save_transcript,
+        include_transcript=include_transcript,
+        subtitle_output_path=subtitle_output_path,
+        subtitle_format=subtitle_format,
+        settings=settings if settings is not None else reload_settings(),
+    )
+
+
+__all__ = ["AppConfig", "InferenceExecution", "infer"]

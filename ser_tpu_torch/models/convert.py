@@ -1,0 +1,73 @@
+"""Carries JAX parameters across into the PyTorch port.
+
+- ``whisper_encoder_state_dict``: the flax parameter tree of
+  ``ser_tpu.models.whisper.WhisperEncoder`` (nested dicts of numpy arrays, from
+  ``init_whisper_encoder_params`` or ``load_hf_whisper_encoder_params``) →
+  the ``state_dict`` of ``ser_tpu_torch.models.whisper.WhisperEncoder``.
+  flax Conv kernels (k, in, out) become (out, in, k); Dense kernels (in, out)
+  become (out, in); LayerNorm ``scale`` becomes ``weight``.
+- ``mlp_head_layers``: a ``ser_tpu_mlp`` head state (``JaxMLPClassifier.
+  get_state()``) → the head's (weight (in, out), bias) float32 pairs, as
+  ``ser_tpu_torch.models.mlp_head.TorchMLPClassifier.from_state`` reads them.
+
+Values are float32; the caller places and casts them (``build_whisper_encoder``).
+"""
+
+from __future__ import annotations
+
+from collections.abc import Mapping
+
+import numpy as np
+import torch
+
+
+def _tensor(array) -> torch.Tensor:
+    return torch.from_numpy(np.array(array, dtype=np.float32, copy=True))
+
+
+def _dense(prefix: str, params: Mapping) -> dict[str, torch.Tensor]:
+    out = {f"{prefix}.weight": _tensor(np.asarray(params["kernel"]).T)}
+    if "bias" in params:
+        out[f"{prefix}.bias"] = _tensor(params["bias"])
+    return out
+
+
+def _conv(prefix: str, params: Mapping) -> dict[str, torch.Tensor]:
+    return {
+        f"{prefix}.weight": _tensor(np.asarray(params["kernel"]).transpose(2, 1, 0)),
+        f"{prefix}.bias": _tensor(params["bias"]),
+    }
+
+
+def _layer_norm(prefix: str, params: Mapping) -> dict[str, torch.Tensor]:
+    return {f"{prefix}.weight": _tensor(params["scale"]), f"{prefix}.bias": _tensor(params["bias"])}
+
+
+def whisper_encoder_state_dict(params: Mapping) -> dict[str, torch.Tensor]:
+    """flax Whisper-encoder tree → port ``state_dict`` (float32 CPU tensors)."""
+    state = {
+        **_conv("conv1", params["conv1"]),
+        **_conv("conv2", params["conv2"]),
+        **_layer_norm("final_ln", params["final_ln"]),
+    }
+    n_layers = sum(1 for key in params if key.startswith("layer_"))
+    for i in range(n_layers):
+        layer = params[f"layer_{i}"]
+        base = f"layers.{i}"
+        state.update(_layer_norm(f"{base}.attn_ln", layer["attn_ln"]))
+        for name in ("q", "k", "v", "out"):
+            state.update(_dense(f"{base}.attn.{name}", layer["attn"][name]))
+        state.update(_layer_norm(f"{base}.mlp_ln", layer["mlp_ln"]))
+        state.update(_dense(f"{base}.mlp_in", layer["mlp_in"]))
+        state.update(_dense(f"{base}.mlp_out", layer["mlp_out"]))
+    return state
+
+
+def mlp_head_layers(state: Mapping) -> list[tuple[torch.Tensor, torch.Tensor]]:
+    """``ser_tpu_mlp`` head state → [(weight (in, out), bias (out,))] float32."""
+    if state.get("kind") != "ser_tpu_mlp":
+        raise ValueError("Not a ser_tpu_mlp state payload.")
+    return [(_tensor(w), _tensor(b)) for w, b in zip(state["weights"], state["biases"])]
+
+
+__all__ = ["mlp_head_layers", "whisper_encoder_state_dict"]

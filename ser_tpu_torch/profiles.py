@@ -1,0 +1,121 @@
+"""Runtime profile catalog of the PyTorch port, held as Python data.
+
+Counterpart of ``ser_tpu/profiles.py`` + ``ser_tpu/profile_defs.yaml``. The
+port reads no YAML: the ``accurate`` entry is written out here with the same
+``backend_id``, default model id and runtime defaults as the JAX catalog, so
+artifacts trained by either package load in the other. The other profiles are
+named (``ProfileName``) but not yet ported; asking for one raises
+``NotImplementedError`` (see ``ROADMAP.md``).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Literal
+
+type ProfileName = Literal["fast", "medium", "accurate", "accurate-research"]
+
+PROFILE_NAMES: tuple[ProfileName, ...] = ("fast", "medium", "accurate", "accurate-research")
+
+#: Precedence when several profile flags are on: accurate-research > accurate
+#: > medium > fast (as ``ser_tpu.profiles.PROFILE_PRECEDENCE``).
+PROFILE_PRECEDENCE: tuple[ProfileName, ...] = ("accurate-research", "accurate", "medium", "fast")
+
+#: Profiles the port runs so far.
+PORTED_PROFILES: tuple[ProfileName, ...] = ("accurate",)
+
+
+@dataclass(frozen=True)
+class ProfileRuntimeDefaults:
+    """Execution budgets and postprocessing defaults for one profile.
+
+    The port reads the pooling and postprocessing fields; the budgets are
+    kept as the catalog states them, for the retry policy of a later slice.
+    """
+
+    timeout_seconds: float
+    max_timeout_retries: int
+    max_transient_retries: int
+    retry_backoff_seconds: float
+    pool_window_size_seconds: float
+    pool_window_stride_seconds: float
+    post_smoothing_window_frames: int
+    post_hysteresis_enter_confidence: float
+    post_hysteresis_exit_confidence: float
+    post_min_segment_duration_seconds: float
+    process_isolation: bool
+
+
+@dataclass(frozen=True)
+class ProfileSpec:
+    """One catalog entry: the fields the port reads."""
+
+    name: ProfileName
+    backend_id: str
+    default_model_id: str
+    runtime_defaults: ProfileRuntimeDefaults
+
+
+_CATALOG: dict[ProfileName, ProfileSpec] = {
+    "accurate": ProfileSpec(
+        name="accurate",
+        backend_id="jax_whisper_encoder",
+        default_model_id="openai/whisper-large-v3",
+        runtime_defaults=ProfileRuntimeDefaults(
+            timeout_seconds=120.0,
+            max_timeout_retries=0,
+            max_transient_retries=1,
+            retry_backoff_seconds=0.25,
+            pool_window_size_seconds=1.0,
+            pool_window_stride_seconds=1.0,
+            post_smoothing_window_frames=3,
+            post_hysteresis_enter_confidence=0.60,
+            post_hysteresis_exit_confidence=0.45,
+            post_min_segment_duration_seconds=0.40,
+            process_isolation=False,
+        ),
+    ),
+}
+
+
+def require_ported(profile: ProfileName) -> ProfileSpec:
+    """The catalog entry of one profile; raises for a profile not yet ported."""
+    if profile not in PROFILE_NAMES:
+        raise ValueError(f"Unknown profile {profile!r}. Expected one of {PROFILE_NAMES}.")
+    if profile not in _CATALOG:
+        raise NotImplementedError(
+            f"Profile {profile!r} is not ported to ser_tpu_torch yet; see ROADMAP.md "
+            "(Queue 1). Use ser_tpu for it."
+        )
+    return _CATALOG[profile]
+
+
+def resolve_profile_name(
+    *,
+    medium_profile: bool,
+    accurate_profile: bool,
+    accurate_research_profile: bool,
+) -> ProfileName:
+    """Active profile name from runtime flags, by ``PROFILE_PRECEDENCE``."""
+    active = {
+        "accurate-research": accurate_research_profile,
+        "accurate": accurate_profile,
+        "medium": medium_profile,
+        "fast": True,
+    }
+    for name in PROFILE_PRECEDENCE:
+        if active[name]:
+            return name
+    return "fast"
+
+
+__all__ = [
+    "PORTED_PROFILES",
+    "PROFILE_NAMES",
+    "PROFILE_PRECEDENCE",
+    "ProfileName",
+    "ProfileRuntimeDefaults",
+    "ProfileSpec",
+    "require_ported",
+    "resolve_profile_name",
+]

@@ -1,0 +1,108 @@
+"""The PyTorch port imports nothing of JAX and nothing of ser_tpu.
+
+Two checks: a fresh interpreter imports every ``ser_tpu_torch`` module and
+reports which modules that import added to ``sys.modules`` (a difference, so a
+site hook that preloads something cannot fool it); and an AST scan of every
+source of the port, plus ``chip_smoke.py``, for import statements naming a
+forbidden package.
+"""
+
+from __future__ import annotations
+
+import ast
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+REPO_ROOT = Path(__file__).resolve().parents[1]
+PORT_ROOT = REPO_ROOT / "ser_tpu_torch"
+_FORBIDDEN_ROOTS = ("jax", "jaxlib", "flax", "optax", "orbax")
+
+
+def _forbidden(module: str) -> bool:
+    root = module.split(".")[0]
+    if root.startswith(_FORBIDDEN_ROOTS):
+        return True
+    # The port's own name starts with "ser_tpu": compare whole path components.
+    return root in ("ser_tpu", "ser")
+
+
+_PROBE = r"""
+import importlib, json, pkgutil, sys
+before = set(sys.modules)
+import ser_tpu_torch
+names = ["ser_tpu_torch"] + [m.name for m in pkgutil.walk_packages(ser_tpu_torch.__path__, "ser_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+print(json.dumps({"imported": names, "added": sorted(set(sys.modules) - before)}))
+"""
+
+
+@pytest.fixture(scope="module")
+def fresh_import() -> dict:
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(REPO_ROOT)] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else [])
+    )
+    completed = subprocess.run(
+        [sys.executable, "-c", _PROBE],
+        cwd=REPO_ROOT,
+        env=env,
+        capture_output=True,
+        text=True,
+        timeout=240,
+    )
+    assert completed.returncode == 0, completed.stderr[-3000:]
+    return json.loads(completed.stdout.strip().splitlines()[-1])
+
+
+def _module_name(path: Path) -> str:
+    parts = path.relative_to(REPO_ROOT).with_suffix("").parts
+    return ".".join(parts[:-1] if parts[-1] == "__init__" else parts)
+
+
+def test_fresh_interpreter_imports_every_port_module(fresh_import) -> None:
+    expected = {_module_name(path) for path in PORT_ROOT.rglob("*.py")}
+    assert set(fresh_import["imported"]) == expected
+
+
+def test_port_loads_no_jax_and_no_ser_tpu(fresh_import) -> None:
+    offenders = [name for name in fresh_import["added"] if _forbidden(name)]
+    assert offenders == []
+    assert "torch" in fresh_import["added"]
+
+
+def test_forbidden_name_rule() -> None:
+    assert _forbidden("ser_tpu") and _forbidden("ser_tpu.models.whisper") and _forbidden("ser.api")
+    assert _forbidden("jax.numpy") and _forbidden("flax.linen") and _forbidden("orbax.checkpoint")
+    assert not _forbidden("ser_tpu_torch.models.whisper") and not _forbidden("torch")
+
+
+def _scanned_sources() -> list[Path]:
+    return sorted(PORT_ROOT.rglob("*.py")) + [REPO_ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path: Path) -> list[str]:
+    modules = []
+    for node in ast.walk(ast.parse(path.read_text(encoding="utf-8"))):
+        if isinstance(node, ast.Import):
+            modules.extend(alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            modules.append(node.module)
+        elif isinstance(node, ast.Call) and getattr(node.func, "attr", None) == "import_module":
+            modules.extend(
+                arg.value for arg in node.args if isinstance(arg, ast.Constant) and isinstance(arg.value, str)
+            )
+    return modules
+
+
+@pytest.mark.parametrize(
+    "source", _scanned_sources(), ids=lambda path: path.relative_to(REPO_ROOT).as_posix()
+)
+def test_source_imports_no_forbidden_package(source: Path) -> None:
+    offenders = [name for name in _imported_modules(source) if _forbidden(name)]
+    assert offenders == [], f"{source.relative_to(REPO_ROOT)} imports {offenders}"
