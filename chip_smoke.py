@@ -13,12 +13,28 @@ per source, in parallel), then, one phase per line:
    version on the same inputs, with its time, the plain version's and its bound;
 3. K2 (flash attention) at the encoder's shapes, with and without a key mask,
    against its plain version in float32, with SDPA's time as the yardstick;
-4. the large-v3 encoder at full width (32 layers, seeded random weights, bf16)
+4. K3 (LayerNorm → fused QKV), K4 (cached self-attention + out-projection +
+   residual, with poisoned future cache slots at positions 0, 100 and 447) and
+   K5 (the cross-attention block and its float32 weights) at large-v3's decode
+   shapes with 2 rows, each against its plain version in float32, each with a
+   planted fault its limit must catch, and with its time, the plain version's,
+   the unfused PyTorch route's and its bound;
+5. the large-v3 encoder at full width (32 layers, seeded random weights, bf16)
    on 8 windows: audio-seconds per second, MFU, launches per encode, and a
    2-layer full-width card-vs-CPU check of the same weights;
-5. ``ser_tpu_torch.api.infer(profile="accurate")`` on three synthetic clips at
-   full width, with every kernel's launch count set to 0 just before and read
-   just after.
+6. the full-width large-v3 greedy KV-cache decode (seeded random weights,
+   bf16) over the encoder states of 2 windows, 448-token budget, through the
+   kernels and through PyTorch ops: ms per step, tokens per second, launches,
+   the two routes' logits over the positions before their first differing
+   token, a device-time profile of each, and a 2-layer card-vs-CPU check;
+7. ``WhisperForTranscription.transcribe_words`` on a 60 s synthetic clip at
+   full width (no VAD, no retries), cold and warm, at the 448- and the
+   96-token budget, with the launches of K1-K5;
+8. ``ser_tpu_torch.api.infer(profile="accurate")`` on three synthetic clips at
+   full width.
+
+Phases 6-8 set the launch counts of the kernels they run to 0 just before
+their run and read them just after.
 
 It prints a ``kernels`` JSON line, the card's name and power limit, and, as
 its last line, ``{"ok": true, "device": {...}}``. Any failure exits non-zero
@@ -60,6 +76,31 @@ K2_REL_L2_TOLERANCE = 7e-3
 # Full-width encoder, 2 layers: bf16 weights and activations on the card
 # against float32 on the CPU, same weights (about 3.6x the measured 0.00562).
 ENCODER_REL_L2_BOUND = 2e-2
+# K3, K4, K5: relative L2 error of the kernel (bf16 in and out) against its
+# plain version in float32 on the same bf16 inputs. The kernels' own error is
+# bf16 rounding at the rounding points they share with the unfused decode (the
+# LayerNorm output, each product's output, the scores, P, the head outputs).
+# Each limit is about 3x its reading on an H100 (K3 0.0028, K4 0.0039 at the
+# worst of its three positions, K5 0.0097 and 0.0123 on its float32 weights,
+# where the bf16 rounding of the peaked scores shows), and each phase checks
+# that its limit catches one planted fault.
+K3_REL_L2_TOLERANCE = 1e-2
+K4_REL_L2_TOLERANCE = 1e-2
+K5_REL_L2_TOLERANCE = 4e-2
+# K5's float32 weights: each row sums to 1.
+K5_WEIGHT_SUM_TOLERANCE = 1e-5
+# Full-width decoder: fused (kernels) against unfused (PyTorch ops) logits,
+# both bf16, over the positions before their first differing token (about
+# 3.5x the 0.0144 measured on an H100).
+DECODE_LOGITS_REL_L2_BOUND = 5e-2
+# Full-width decoder, 2 layers: bf16 kernels on the card against float32 plain
+# versions on the CPU, logits of the first 8 steps, same weights and inputs
+# (about 3x the 0.0063 measured).
+DECODE_CHECK_REL_L2_BOUND = 2e-2
+# Bytes of weight copies cycled through when timing a decode-step kernel: the
+# decode reads 32 layers' weights per step, far more than the 50 MB L2, so
+# each call finds its weights in device memory, not in L2.
+ROTATION_BYTES = 160e6
 
 RAVDESS_LABELS = ["angry", "calm", "disgust", "fearful", "happy", "neutral", "sad", "surprised"]
 
@@ -68,21 +109,70 @@ def say(phase: str, **fields) -> None:
     print(f"[{phase}] " + " ".join(f"{key}={value}" for key, value in fields.items()), flush=True)
 
 
-def cuda_ms(fn, *, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of ``fn`` in ms, from CUDA events around ``iters`` calls."""
+_SLEEP_CYCLES_PER_MS: list[float] = []
+
+
+def _hold_card(ms: float) -> None:
+    """Keeps the card busy for about ``ms`` (``torch.cuda._sleep``, calibrated once)."""
     import torch
 
+    if not _SLEEP_CYCLES_PER_MS:
+        cycles = 10_000_000
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.cuda._sleep(cycles)
+        end.record()
+        torch.cuda.synchronize()
+        _SLEEP_CYCLES_PER_MS.append(cycles / start.elapsed_time(end))
+    torch.cuda._sleep(int(ms * _SLEEP_CYCLES_PER_MS[0]))
+
+
+def cuda_ms(fn, *, iters: int = 20, warmup: int = 3) -> float:
+    """Mean device time of ``fn`` in ms, from CUDA events around ``iters`` calls.
+
+    The card is held in a sleep while the host enqueues the calls, so that the
+    events time the calls back to back on the card and not the host's pace
+    (a decode-step kernel takes less time on the card than its launch on the
+    host). Raises if the host took longer to enqueue than the card slept.
+    """
+    import torch
+
+    started = time.perf_counter()
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - started) * 1e3 / warmup
+    hold_ms = 2.0 * host_ms * iters + 5.0
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    _hold_card(hold_ms)
     start.record()
+    enqueue_started = time.perf_counter()
     for _ in range(iters):
         fn()
+    enqueue_ms = (time.perf_counter() - enqueue_started) * 1e3
     end.record()
     torch.cuda.synchronize()
+    if enqueue_ms > hold_ms:
+        raise AssertionError(f"the host took {enqueue_ms:.1f} ms to enqueue, longer than the card's {hold_ms:.1f} ms hold")
     return start.elapsed_time(end) / iters
+
+
+def rotating_ms(fn, argument_sets, *, iters: int = 40, warmup: int = 3) -> float:
+    """Mean device time of ``fn(*args)`` over ``iters`` calls, cycling through
+    ``argument_sets`` so that each call reads operands that are not in L2."""
+    count = len(argument_sets)
+    calls = iter(range(10**9))
+    return cuda_ms(lambda: fn(*argument_sets[next(calls) % count]), iters=iters, warmup=warmup)
+
+
+def copies_for(nbytes: float) -> int:
+    """How many copies of ``nbytes`` of operands exceed ``ROTATION_BYTES``."""
+    return max(2, math.ceil(ROTATION_BYTES / nbytes))
+
+
+def rel_l2(value, reference) -> float:
+    return ((value.float() - reference.float()).norm() / reference.float().norm()).item()
 
 
 def bound_ms(*, bytes_moved: float, flops: float, peak_flops: float) -> tuple[float, str]:
@@ -239,6 +329,259 @@ def phase_k2() -> dict:
     }
 
 
+class _Affine:
+    """An ``nn.Linear``/``LayerNorm`` look-alike: what the unfused decode ops read."""
+
+    def __init__(self, weight, bias=None) -> None:
+        self.weight = weight
+        self.bias = bias
+
+
+def _bf16(generator, *shape, scale: float = 1.0, shift: float = 0.0):
+    import torch
+
+    values = torch.randn(*shape, generator=generator, device="cuda") * scale + shift
+    return values.to(torch.bfloat16).contiguous()
+
+
+def phase_k3() -> dict:
+    import torch
+
+    from ser_tpu_torch.models import whisper_decode as wd
+    from ser_tpu_torch.ops import decode_step_kernels as dsk
+
+    rows, d, n_out, eps = 2, 1280, 3840, 1e-5
+    gen = torch.Generator(device="cuda").manual_seed(3)
+
+    def operands():
+        # A residual stream with an offset (so the LayerNorm's mean matters).
+        return (
+            _bf16(gen, rows, d, shift=0.5),
+            _bf16(gen, 1, d, scale=0.1, shift=1.0),
+            _bf16(gen, 1, d, scale=0.1),
+            _bf16(gen, d, n_out, scale=d**-0.5),
+            _bf16(gen, 1, n_out, scale=0.1),
+        )
+
+    args = operands()
+    out = dsk.ln_qkv_project(*args, eps=eps)
+    ref = dsk.ln_qkv_project_reference(*(t.float() for t in args), eps=eps)
+    torch.cuda.synchronize()
+    err, rel = (out.float() - ref).abs().max().item(), rel_l2(out, ref)
+    # Planted fault: a LayerNorm that does not subtract the mean.
+    x, scale, bias, w, b = (t.float() for t in args)
+    no_mean = x * torch.rsqrt((x * x).mean(-1, keepdim=True) + eps) * scale + bias
+    fault = rel_l2(no_mean @ w + b, ref)
+    if not rel <= K3_REL_L2_TOLERANCE:
+        raise AssertionError(f"K3 disagrees with its plain version: rel L2 {rel} > {K3_REL_L2_TOLERANCE}")
+    if not fault > K3_REL_L2_TOLERANCE:
+        raise AssertionError(f"K3's limit would pass a LayerNorm without its mean: {fault}")
+
+    bytes_moved = 2 * (rows * d + 2 * d + d * n_out + n_out + rows * n_out)
+    sets = [args] + [operands() for _ in range(copies_for(bytes_moved) - 1)]
+    ms = rotating_ms(lambda *a: dsk.ln_qkv_project(*a, eps=eps), sets)
+    plain_ms = rotating_ms(lambda *a: dsk.ln_qkv_project_reference(*a, eps=eps), sets)
+    unfused_ms = rotating_ms(
+        lambda x, s, bi, w, b: wd._dense_kernel({"kernel": w, "bias": b}, wd._layer_norm(_Affine(s, bi), x, eps),
+                                                torch.bfloat16),
+        sets,
+    )
+    bound, bound_by = bound_ms(bytes_moved=bytes_moved, flops=2.0 * rows * d * n_out, peak_flops=PEAK_BF16_FLOPS)
+    say("K3", shape=f"x({rows},{d}) W({d},{n_out}) bf16", max_abs_err=err, rel_l2_err=rel,
+        rel_l2_tolerance=K3_REL_L2_TOLERANCE, no_mean_fault_rel_l2=fault, ms=f"{ms:.4f}",
+        plain_ms=f"{plain_ms:.4f}", unfused_ms=f"{unfused_ms:.4f}", bound_ms=f"{bound:.4f}", bound_by=bound_by,
+        gb_per_s=f"{bytes_moved / ms / 1e6:.1f}")
+    return {
+        "name": "ln_qkv_project",
+        "route": "cuda",
+        "source": "ser_tpu_torch/csrc/decode_step.cu",
+        "replaces": "ser_tpu/ops/decode_step_kernels.py:94",
+        "max_abs_err": err,
+        "rel_l2_err": rel,
+        "tolerance": K3_REL_L2_TOLERANCE,
+        "tolerance_on": "rel_l2_err",
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "unfused_ms": unfused_ms,
+        "bound_ms": bound,
+        "bound_by": bound_by,
+        "library_ms": None,
+    }
+
+
+def phase_k4() -> dict:
+    import torch
+
+    from ser_tpu_torch.models import whisper_decode as wd
+    from ser_tpu_torch.ops import decode_step_kernels as dsk
+
+    rows, heads, head_dim, s_max, d = 2, 20, 64, 448, 1280
+    gen = torch.Generator(device="cuda").manual_seed(4)
+
+    def operands():
+        return (
+            _bf16(gen, rows, heads, head_dim),
+            _bf16(gen, rows, heads, head_dim, s_max),
+            _bf16(gen, rows, heads, s_max, head_dim),
+            _bf16(gen, heads, head_dim, d, scale=d**-0.5),
+            _bf16(gen, 1, d, scale=0.1),
+            _bf16(gen, rows, d, scale=0.1),
+        )
+
+    args = operands()
+    q, k, v, w_out, b_out, x = args
+    readings = {}
+    for position in (0, 100, s_max - 1):
+        # Poison the future slots: a kernel that reads them cannot agree.
+        k_p, v_p = k.clone(), v.clone()
+        k_p[..., position + 1 :] = 1e4
+        v_p[:, :, position + 1 :, :] = -1e4
+        out = dsk.self_attend_and_out(q, k_p, v_p, w_out, b_out, x, position)
+        ref = dsk.self_attend_and_out_reference(q.float(), k_p.float(), v_p.float(), w_out.float(), b_out.float(),
+                                                x.float(), position)
+        torch.cuda.synchronize()
+        rel = rel_l2(out, ref)
+        if not rel <= K4_REL_L2_TOLERANCE:
+            raise AssertionError(f"K4 at position {position} disagrees with its plain version: rel L2 {rel}")
+        fault = None
+        if position + 1 < s_max:
+            # Planted fault: one key past position, into the poisoned slots.
+            leaky = dsk.self_attend_and_out_reference(q.float(), k_p.float(), v_p.float(), w_out.float(),
+                                                      b_out.float(), x.float(), position + 1)
+            fault = rel_l2(leaky, ref)
+            if not fault > K4_REL_L2_TOLERANCE:
+                raise AssertionError(f"K4's limit would pass a read one key past position {position}: {fault}")
+        readings[position] = ((out.float() - ref).abs().max().item(), rel, fault)
+
+    position = s_max - 1
+    keys = position + 1
+    bytes_moved = 2 * (q.numel() + 2 * rows * heads * head_dim * keys + w_out.numel() + 2 * d + 2 * rows * d)
+    flops = 4.0 * rows * heads * head_dim * keys + 2.0 * rows * heads * head_dim * d
+    sets = [args] + [operands() for _ in range(copies_for(bytes_moved) - 1)]
+    ms = rotating_ms(lambda *a: dsk.self_attend_and_out(*a, position), sets)
+    plain_ms = rotating_ms(lambda *a: dsk.self_attend_and_out_reference(*a, position), sets)
+    bias_row = torch.where(torch.arange(s_max, device="cuda") <= position, 0.0, -1e30)
+
+    def unfused(q, k, v, w_out, b_out, x):
+        out = wd._attend_self_step(q[:, None], k, v, bias_row=bias_row, compute_dtype=torch.bfloat16)
+        return x + wd._dense(_Affine(w_out.reshape(heads * head_dim, d).t(), b_out[0]), out.reshape(rows, -1),
+                             torch.bfloat16)
+
+    unfused_ms = rotating_ms(unfused, sets)
+    bound, bound_by = bound_ms(bytes_moved=bytes_moved, flops=flops, peak_flops=PEAK_BF16_FLOPS)
+    err, rel, _ = readings[position]
+    say("K4", shape=f"q({rows},{heads},{head_dim}) cache({rows},{heads},{head_dim},{s_max}) bf16",
+        positions=json.dumps({str(p): [f"{e:.3g}", f"{r:.5f}", None if f is None else f"{f:.3g}"]
+                              for p, (e, r, f) in readings.items()}),
+        rel_l2_tolerance=K4_REL_L2_TOLERANCE, timed_position=position, ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+        unfused_ms=f"{unfused_ms:.4f}", bound_ms=f"{bound:.4f}", bound_by=bound_by,
+        gb_per_s=f"{bytes_moved / ms / 1e6:.1f}")
+    return {
+        "name": "self_attend_and_out",
+        "route": "cuda",
+        "source": "ser_tpu_torch/csrc/decode_step.cu",
+        "replaces": "ser_tpu/ops/decode_step_kernels.py:175",
+        "max_abs_err": err,
+        "rel_l2_err": max(r for _, r, _ in readings.values()),
+        "tolerance": K4_REL_L2_TOLERANCE,
+        "tolerance_on": "rel_l2_err",
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "unfused_ms": unfused_ms,
+        "bound_ms": bound,
+        "bound_by": bound_by,
+        "library_ms": None,
+    }
+
+
+def phase_k5() -> dict:
+    import torch
+
+    from ser_tpu_torch.models import whisper_decode as wd
+    from ser_tpu_torch.ops import decode_step_kernels as dsk
+
+    rows, heads, head_dim, s_len, d, eps = 2, 20, 64, 1500, 1280, 1e-5
+    gen = torch.Generator(device="cuda").manual_seed(5)
+
+    def operands():
+        # Keys at twice unit scale give peaked attention rows, as trained
+        # alignment heads have; a small residual keeps the attention's share visible.
+        return (
+            _bf16(gen, rows, d, scale=0.1, shift=0.05),
+            _bf16(gen, 1, d, scale=0.1, shift=1.0),
+            _bf16(gen, 1, d, scale=0.1),
+            _bf16(gen, heads, d, head_dim, scale=d**-0.5),
+            _bf16(gen, heads, 1, head_dim, scale=0.1),
+            _bf16(gen, rows, heads, head_dim, s_len, scale=2.0),
+            _bf16(gen, rows, heads, s_len, head_dim),
+            _bf16(gen, heads, head_dim, d, scale=d**-0.5),
+            _bf16(gen, 1, d, scale=0.1),
+        )
+
+    args = operands()
+    out, weights = dsk.cross_attention_step(*args, eps=eps)
+    ref, ref_weights = dsk.cross_attention_step_reference(*(t.float() for t in args), eps=eps)
+    torch.cuda.synchronize()
+    err, rel = (out.float() - ref).abs().max().item(), rel_l2(out, ref)
+    weights_rel = rel_l2(weights, ref_weights)
+    sum_err = (weights.sum(-1) - 1.0).abs().max().item()
+    # Planted fault: a softmax that leaves out the last partial 64-key tile (1500 = 23 * 64 + 28).
+    kept = s_len // 64 * 64
+    x, scale, bias, w_q, b_q, k, v, w_out, b_out = (t.float() for t in args)
+    short, _ = dsk.cross_attention_step_reference(x, scale, bias, w_q, b_q, k[..., :kept].contiguous(),
+                                                  v[:, :, :kept].contiguous(), w_out, b_out, eps=eps)
+    fault = rel_l2(short, ref)
+    if not rel <= K5_REL_L2_TOLERANCE or not weights_rel <= K5_REL_L2_TOLERANCE:
+        raise AssertionError(f"K5 disagrees with its plain version: rel L2 {rel}, weights {weights_rel}")
+    if not sum_err <= K5_WEIGHT_SUM_TOLERANCE:
+        raise AssertionError(f"K5's weight rows do not sum to 1: {sum_err}")
+    if not fault > K5_REL_L2_TOLERANCE:
+        raise AssertionError(f"K5's limit would pass a softmax without its last partial tile: {fault}")
+
+    bytes_moved = (2 * (2 * rows * d + 2 * d + 2 * heads * d * head_dim + heads * head_dim + d
+                        + 2 * rows * heads * head_dim * s_len) + 4 * heads * rows * s_len)
+    flops = 2.0 * rows * d * heads * head_dim * 2 + 4.0 * rows * heads * head_dim * s_len
+    sets = [args] + [operands() for _ in range(copies_for(bytes_moved) - 1)]
+    ms = rotating_ms(lambda *a: dsk.cross_attention_step(*a, eps=eps), sets)
+    plain_ms = rotating_ms(lambda *a: dsk.cross_attention_step_reference(*a, eps=eps), sets)
+
+    def unfused(x, scale, bias, w_q, b_q, k, v, w_out, b_out):
+        h = wd._layer_norm(_Affine(scale[0], bias[0]), x[:, None], eps)
+        q_lin = _Affine(w_q, b_q.reshape(-1))
+        q = wd._split_heads(wd._dense(q_lin, h, torch.bfloat16), heads)
+        out, attn = wd._attend_cross_step(q, k, v, compute_dtype=torch.bfloat16)
+        return x + wd._dense(_Affine(w_out.reshape(heads * head_dim, d).t(), b_out[0]), out.reshape(rows, -1),
+                             torch.bfloat16), attn
+
+    # The unfused route reads the Q projection as an nn.Linear weight (out, in).
+    unfused_sets = [(a[0], a[1], a[2], a[3].permute(0, 2, 1).reshape(heads * head_dim, d).contiguous(), *a[4:])
+                    for a in sets]
+    unfused_ms = rotating_ms(unfused, unfused_sets)
+    bound, bound_by = bound_ms(bytes_moved=bytes_moved, flops=flops, peak_flops=PEAK_BF16_FLOPS)
+    say("K5", shape=f"x({rows},{d}) K/V({rows},{heads},{head_dim},{s_len}) bf16", max_abs_err=err, rel_l2_err=rel,
+        weights_rel_l2_err=weights_rel, weight_sum_err=sum_err, rel_l2_tolerance=K5_REL_L2_TOLERANCE,
+        tail_fault_rel_l2=fault, ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}", unfused_ms=f"{unfused_ms:.4f}",
+        bound_ms=f"{bound:.4f}", bound_by=bound_by, gb_per_s=f"{bytes_moved / ms / 1e6:.1f}")
+    return {
+        "name": "cross_attention_step",
+        "route": "cuda",
+        "source": "ser_tpu_torch/csrc/decode_step.cu",
+        "replaces": "ser_tpu/ops/decode_step_kernels.py:269",
+        "max_abs_err": err,
+        "rel_l2_err": rel,
+        "weights_rel_l2_err": weights_rel,
+        "weight_sum_err": sum_err,
+        "tolerance": K5_REL_L2_TOLERANCE,
+        "tolerance_on": "rel_l2_err",
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "unfused_ms": unfused_ms,
+        "bound_ms": bound,
+        "bound_by": bound_by,
+        "library_ms": None,
+    }
+
+
 def _encoder_flops(config, n_windows: int) -> float:
     """2·MACs of the conv stem and the per-layer matmuls at 1500 states (bench.py's count)."""
     t_mel, t = 3000, 1500
@@ -249,6 +592,7 @@ def _encoder_flops(config, n_windows: int) -> float:
 
 
 _KERNEL_GROUPS = (
+    ("K3-K5 decode_step", ("gemv_kernel", "attend_kernel")),
     ("K2 flash_attention", ("flash_attention_fwd_kernel",)),
     ("K1 power_mel_log", ("power_mel_log_kernel",)),
     ("gemm", ("nvjet", "gemm", "xmma", "cutlass")),
@@ -265,8 +609,8 @@ def _kernel_group(name: str) -> str:
     return "other"
 
 
-def _profile_encode(encode) -> str:
-    """Device time of one encode by kernel group, and the device's busy share.
+def _profile(run, label: str) -> str:
+    """Device time of one ``run()`` by kernel group, and the device's busy share.
 
     The profiler runs one warm-up step first, so the profiled step's wall
     time holds no profiler start-up. Only device events (kernels, memsets,
@@ -284,11 +628,11 @@ def _profile_encode(encode) -> str:
             schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
             on_trace_ready=lambda p: traced.setdefault("events", p.key_averages()),
         ) as prof:
-            encode()
+            run()
             torch.cuda.synchronize()
             prof.step()
             started = time.perf_counter()
-            encode()
+            run()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - started) * 1e3
             prof.step()
@@ -312,7 +656,7 @@ def _profile_encode(encode) -> str:
         groups[group] = groups.get(group, 0.0) + event.self_device_time_total / 1e3
     top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:12]
     rows = [[e.key[:72], e.count, round(e.self_device_time_total / 1e3, 3)] for e in top]
-    say("encoder-kernels", top=json.dumps(rows))
+    say(f"{label}-kernels", top=json.dumps(rows))
     shares = ", ".join(f"{g}:{ms:.3f}ms" for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]))
     return f"wall_ms={wall_ms:.3f} device_ms={device_ms:.3f} busy={device_ms / wall_ms:.4f} groups=[{shares}]"
 
@@ -360,7 +704,7 @@ def phase_encoder() -> dict:
         peak_mem_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
     if (k1_per, k2_per) != (1, config.encoder_layers):
         raise AssertionError(f"launches per encode K1={k1_per} K2={k2_per}, expected 1 and 32")
-    breakdown = _profile_encode(lambda: wm.encode_mel_chunks(encoder, chunks))
+    breakdown = _profile(lambda: wm.encode_mel_chunks(encoder, chunks), "encoder")
     say("encoder-profile", detail=breakdown)
     del encoder, states
     torch.cuda.empty_cache()
@@ -379,6 +723,287 @@ def phase_encoder() -> dict:
     if not rel_l2 <= ENCODER_REL_L2_BOUND:
         raise AssertionError(f"card encoder disagrees with the CPU: rel L2 {rel_l2} > {ENCODER_REL_L2_BOUND}")
     return {"k1_per_encode": k1_per, "k2_per_encode": k2_per}
+
+
+class SyntheticTokenizer:
+    """large-v3's special-token ids, and one word per token (``bench.py``'s stand-in).
+
+    The card's machine has no Whisper tokenizer files and no ``transformers``.
+    """
+
+    SPECIALS = {
+        "<|startoftranscript|>": 50258,
+        "<|endoftext|>": 50257,
+        "<|en|>": 50259,
+        "<|transcribe|>": 50360,
+        "<|0.00|>": 50365,
+    }
+    unk_token_id = 50256
+
+    def convert_tokens_to_ids(self, tokens):
+        return [self.SPECIALS.get(token, self.unk_token_id) for token in tokens]
+
+    def decode(self, ids):
+        return "".join(f" t{i}" for i in ids)
+
+
+PREFIX = [50258, 50259, 50360]
+EOT, TIMESTAMP_BEGIN = 50257, 50365
+
+
+def _decode_steps(lengths, prefix_len: int, max_len: int) -> int:
+    """Loop steps of one greedy decode: it stops after the last row's EOT, or at max_len - 1."""
+    return min(max_len - 1, prefix_len + int(lengths.max().item()))
+
+
+def _lockstep_logits_rel_l2(decoder, config, weights, states, tokens, positions: int) -> float:
+    """Relative L2 between the fused and unfused routes' logits, both fed ``tokens``."""
+    import torch
+
+    from ser_tpu_torch.models import whisper_decode as wd
+
+    n_layers, heads, max_len = config.decoder_layers, config.n_heads, config.max_target_positions
+    head_dim = config.d_model // heads
+    batch, dtype = states.shape[0], decoder.tok_embed.dtype
+    with torch.inference_mode():
+        cross = wd._precompute_cross_kv(decoder, states, n_layers, heads, dtype)
+        caches = {
+            fused: (
+                [torch.zeros((batch, heads, head_dim, max_len), dtype=dtype, device=states.device) for _ in range(n_layers)],
+                [torch.zeros((batch, heads, max_len, head_dim), dtype=dtype, device=states.device) for _ in range(n_layers)],
+            )
+            for fused in (True, False)
+        }
+        diff_sq = ref_sq = 0.0
+        for position in range(positions):
+            logits = {}
+            for fused, (self_k, self_v) in caches.items():
+                logits[fused], _ = wd._decoder_token_step(
+                    decoder, weights, *cross, self_k, self_v, tokens[:, position], position,
+                    config=config, compute_dtype=dtype, fused=fused,
+                )
+            diff_sq += (logits[True] - logits[False]).pow(2).sum().item()
+            ref_sq += logits[False].pow(2).sum().item()
+    return math.sqrt(diff_sq / ref_sq)
+
+
+def _decode_check(states_cpu) -> float:
+    """2-layer full-width decoder: bf16 kernels on the card against float32 on the CPU."""
+    import torch
+
+    from ser_tpu_torch.models import whisper as wm
+    from ser_tpu_torch.models import whisper_decode as wd
+
+    config = wm.WhisperConfig(decoder_layers=2)
+    state = wm.random_whisper_decoder_state(config, seed=5, device="cpu")
+    state["pos_embed"] = torch.randn(state["pos_embed"].shape, generator=torch.Generator().manual_seed(6)) * 0.02
+    routes = {
+        "card": (wm.build_whisper_decoder(config, state, device=torch.device("cuda"), dtype=torch.bfloat16),
+                 states_cpu.cuda(), torch.bfloat16, True),
+        "cpu": (wm.build_whisper_decoder(config, state, device=torch.device("cpu"), dtype=torch.float32),
+                states_cpu, torch.float32, False),
+    }
+    steps, logits = 8, {}
+    tokens = None
+    with torch.inference_mode():
+        for name in ("cpu", "card"):
+            decoder, states, dtype, fused = routes[name]
+            weights = wd.prepare_decode_weights(decoder, config, fused=fused)
+            cross = wd._precompute_cross_kv(decoder, states, 2, config.n_heads, dtype)
+            batch, head_dim = states.shape[0], config.d_model // config.n_heads
+            self_k = [torch.zeros((batch, config.n_heads, head_dim, 448), dtype=dtype, device=states.device) for _ in range(2)]
+            self_v = [torch.zeros((batch, config.n_heads, 448, head_dim), dtype=dtype, device=states.device) for _ in range(2)]
+            if tokens is None:  # the CPU route picks the tokens both routes are fed
+                tokens = torch.full((batch, steps), EOT, dtype=torch.long)
+                tokens[:, :3] = torch.tensor(PREFIX)
+            out = []
+            for position in range(steps):
+                step_logits, _ = wd._decoder_token_step(
+                    decoder, weights, *cross, self_k, self_v, tokens[:, position].to(states.device), position,
+                    config=config, compute_dtype=dtype, fused=fused,
+                )
+                out.append(step_logits.float().cpu())
+                if name == "cpu" and position + 1 < steps and position + 1 >= 3:
+                    tokens[:, position + 1] = torch.argmax(step_logits, dim=-1)
+            logits[name] = torch.stack(out)
+    return rel_l2(logits["card"], logits["cpu"])
+
+
+def phase_decode() -> dict:
+    import numpy as np
+    import torch
+
+    from ser_tpu_torch.models import whisper as wm
+    from ser_tpu_torch.models import whisper_decode as wd
+    from ser_tpu_torch.ops import decode_step_kernels as dsk
+
+    config = wm.WhisperConfig()
+    cuda = torch.device("cuda")
+    # Encoder states of 2 windows from the port's full-width encoder.
+    state = wm.random_whisper_encoder_state(config, seed=0, device=cuda)
+    encoder = wm.build_whisper_encoder(config, state, device=cuda, dtype=torch.bfloat16)
+    del state
+    rng = np.random.default_rng(1)
+    chunks = torch.from_numpy((0.2 * rng.standard_normal((2, wm.CHUNK_SAMPLES))).astype(np.float32)).to(cuda)
+    states = wm.encode_mel_chunks(encoder, chunks)
+    del encoder
+    started = time.perf_counter()
+    state = wm.random_whisper_decoder_state(config, seed=2, device=cuda)
+    decoder = wm.build_whisper_decoder(config, state, device=cuda, dtype=torch.bfloat16)
+    del state
+    weights = wd.prepare_decode_weights(decoder, config, fused=True)
+    torch.cuda.synchronize()
+    say("decoder-build", seconds=f"{time.perf_counter() - started:.2f}",
+        params_m=f"{sum(p.numel() for p in decoder.parameters()) / 1e6:.1f}")
+    kwargs = dict(prefix_len=3, align_spec=wd.default_alignment_spec(32, 20), compute_dtype=torch.bfloat16,
+                  timestamp_begin=TIMESTAMP_BEGIN, weights=weights)
+
+    def decode(fused: bool, budget: int = config.max_target_positions):
+        import dataclasses
+
+        cfg = dataclasses.replace(config, max_target_positions=budget)
+        return wd.greedy_decode_kv_cache(decoder, cfg, states, PREFIX, EOT, fused=fused, **kwargs)
+
+    for fused in (True, False):  # warm-up: cuBLAS handles, the allocator
+        decode(fused, budget=16)
+    torch.cuda.synchronize()
+    routes = {}
+    for label, fused in (("fused", True), ("unfused", False)):
+        for counter in dsk.COUNTERS:
+            counter.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        started = time.perf_counter()
+        tokens, lengths, align = decode(fused)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - started
+        steps = _decode_steps(lengths, 3, config.max_target_positions)
+        launches = {c.name: c.launches for c in dsk.COUNTERS}
+        routes[label] = (tokens, steps, elapsed)
+        say("decode", route=label, rows=tokens.shape[0], steps=steps, seconds=f"{elapsed:.4f}",
+            ms_per_step=f"{elapsed / steps * 1e3:.4f}", tokens_per_s=f"{tokens.shape[0] * steps / elapsed:.1f}",
+            lengths=lengths.tolist(), launches=json.dumps(launches),
+            peak_mem_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
+        if not torch.isfinite(align).all() or tokens.shape != (2, config.max_target_positions):
+            raise AssertionError(f"decode ({label}) gave tokens {tuple(tokens.shape)} or non-finite alignment")
+        expected = 32 * steps if fused else 0
+        if any(count != expected for count in launches.values()):
+            raise AssertionError(f"decode ({label}) launches {launches}, expected {expected} each")
+        if fused:
+            fused_launches = launches
+
+    fused_tokens, steps, _ = routes["fused"]
+    differ = (fused_tokens != routes["unfused"][0]).any(dim=0).nonzero()
+    first_diff = int(differ[0].item()) if differ.numel() else config.max_target_positions
+    positions = min(first_diff, steps)
+    logits_rel = _lockstep_logits_rel_l2(decoder, config, weights, states, fused_tokens, positions)
+    say("decode-compare", first_differing_position=first_diff, compared_positions=positions,
+        logits_rel_l2=f"{logits_rel:.5f}", bound=DECODE_LOGITS_REL_L2_BOUND)
+    if not logits_rel <= DECODE_LOGITS_REL_L2_BOUND:
+        raise AssertionError(f"fused and unfused logits differ: rel L2 {logits_rel} > {DECODE_LOGITS_REL_L2_BOUND}")
+    breakdown = _profile(lambda: decode(True, budget=64), "decode")
+    say("decode-profile", route="fused", budget=64, detail=breakdown)
+    breakdown = _profile(lambda: decode(False, budget=64), "decode-unfused")
+    say("decode-profile", route="unfused", budget=64, detail=breakdown)
+    del decoder, weights
+    torch.cuda.empty_cache()
+
+    check = _decode_check(states.float().cpu())
+    say("decode-check", layers=2, d_model=config.d_model, steps=8, logits_rel_l2=f"{check:.5f}",
+        bound=DECODE_CHECK_REL_L2_BOUND)
+    if not check <= DECODE_CHECK_REL_L2_BOUND:
+        raise AssertionError(f"card decoder disagrees with the CPU: rel L2 {check} > {DECODE_CHECK_REL_L2_BOUND}")
+    return {
+        "steps": steps,
+        "fused_ms_per_step": routes["fused"][2] / steps * 1e3,
+        "unfused_ms_per_step": routes["unfused"][2] / routes["unfused"][1] * 1e3,
+        "launches_per_decode": fused_launches,
+    }
+
+
+def phase_transcribe() -> dict:
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from ser_tpu_torch.models import attention, word_timing
+    from ser_tpu_torch.models import whisper as wm
+    from ser_tpu_torch.ops import decode_step_kernels as dsk
+    from ser_tpu_torch.ops import log_mel
+
+    config = wm.WhisperConfig()
+    cuda = torch.device("cuda")
+    started = time.perf_counter()
+    model = wm.WhisperForTranscription(
+        config,
+        wm.random_whisper_encoder_state(config, seed=0, device=cuda),
+        wm.random_whisper_decoder_state(config, seed=2, device=cuda),
+        SyntheticTokenizer(),
+        device=cuda,
+        compute_dtype="bfloat16",
+    )
+    # Random weights always look degenerate: retries would repeat the same work (bench.py:499-501).
+    model.RETRY_TEMPERATURES = ()
+    torch.cuda.synchronize()
+    say("transcribe-build", seconds=f"{time.perf_counter() - started:.2f}")
+    seconds = 60.0
+    audio = (0.2 * np.random.default_rng(0).standard_normal(int(seconds * 16000))).astype(np.float32)
+    counters = (log_mel.COUNTER, attention.COUNTER, *dsk.COUNTERS)
+    # Spans of one call: the encode, the decode (with the alignment reduction
+    # on the card) and the host's DTW word timing, each ended by a synchronize.
+    spans: dict[str, float] = {}
+
+    def timed(name, fn):
+        def wrapper(*args, **kwargs):
+            torch.cuda.synchronize()
+            started = time.perf_counter()
+            result = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            spans[name] = spans.get(name, 0.0) + time.perf_counter() - started
+            return result
+
+        return wrapper
+
+    model._decode_chunk_batch = timed("decode", model._decode_chunk_batch)
+    encode, word_timings = wm.encode_mel_chunks, word_timing.word_timings_from_matrix
+    wm.encode_mel_chunks = timed("encode", encode)
+    word_timing.word_timings_from_matrix = timed("word_timing", word_timings)
+
+    def run():
+        spans.clear()
+        started = time.perf_counter()
+        words = model.transcribe_words(audio, language="en", use_vad=False)
+        torch.cuda.synchronize()
+        return words, time.perf_counter() - started
+
+    results = {}
+    main_launches = None
+    for budget in (config.max_target_positions, 96):
+        model.config = dataclasses.replace(config, max_target_positions=budget)
+        for counter in counters:
+            counter.launches = 0
+        words, cold = run()
+        launches = {c.name: c.launches for c in counters}
+        _, warm = run()
+        if main_launches is None:
+            main_launches = launches
+        results[budget] = (cold, warm)
+        say("transcribe", clip_seconds=seconds, windows=2, token_budget=budget, cold_latency_s=f"{cold:.4f}",
+            warm_latency_s=f"{warm:.4f}", audio_s_per_s=f"{seconds / warm:.1f}", words=len(words),
+            warm_spans_s=json.dumps({k: round(v, 4) for k, v in spans.items()}), launches=json.dumps(launches))
+        starts = [w.start_seconds for w in words]
+        if not words or any(not (0.0 <= w.start_seconds < w.end_seconds <= seconds + 1e-6) for w in words):
+            raise AssertionError(f"transcript words are missing or outside the clip: {words[:3]}")
+        if starts != sorted(starts):
+            raise AssertionError("transcript word starts are not in order")
+        k3, k4, k5 = (launches[c.name] for c in dsk.COUNTERS)
+        if launches["power_mel_log"] != 1 or launches["flash_attention_fwd"] != 32:
+            raise AssertionError(f"transcribe launches {launches}: expected K1=1, K2=32 for one 2-window encode")
+        if not (k3 == k4 == k5 and k3 > 0 and k3 % 32 == 0):
+            raise AssertionError(f"transcribe launches {launches}: K3-K5 did not run 32 times per step")
+    model.config = config
+    wm.encode_mel_chunks, word_timing.word_timings_from_matrix = encode, word_timings
+    return {"launches": main_launches, "latency": results}
 
 
 def _write_head_envelope(path: Path, feature_size: int) -> None:
@@ -518,8 +1143,18 @@ def main() -> int:
         k1 = phase_k1()
         phase = "K2"
         k2 = phase_k2()
+        phase = "K3"
+        k3 = phase_k3()
+        phase = "K4"
+        k4 = phase_k4()
+        phase = "K5"
+        k5 = phase_k5()
         phase = "encoder"
         per_encode = phase_encoder()
+        phase = "decode"
+        decode = phase_decode()
+        phase = "transcribe"
+        transcribe = phase_transcribe()
         phase = "infer"
         launches = phase_infer()
     except Exception:
@@ -527,9 +1162,16 @@ def main() -> int:
         print(f"chip_smoke: FAILED in phase {phase}", file=sys.stderr)
         return 1
 
+    # K1 and K2: launches of the three api.infer requests; K3-K5: of the first
+    # (full-budget) transcribe_words call. Each path's counts are set to 0 just
+    # before it and read just after.
     k1.update(launches=launches["power_mel_log"], launches_per_encode=per_encode["k1_per_encode"])
     k2.update(launches=launches["flash_attention_fwd"], launches_per_encode=per_encode["k2_per_encode"])
-    print(json.dumps({"kernels": [k1, k2]}))
+    for kernel in (k3, k4, k5):
+        kernel.update(launches=transcribe["launches"][kernel["name"]],
+                      launches_per_decode=decode["launches_per_decode"][kernel["name"]],
+                      decode_steps=decode["steps"])
+    print(json.dumps({"kernels": [k1, k2, k3, k4, k5]}))
     print(env["smi"])
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -11,11 +11,11 @@ from pathlib import Path
 
 from ser_tpu_torch._internal.config.schema import AppConfig
 from ser_tpu_torch._internal.runtime.pipeline import create_runtime_pipeline
-from ser_tpu_torch.profiles import PROFILE_NAMES, ProfileName
+from ser_tpu_torch.profiles import PORTED_PROFILES, PROFILE_NAMES, ProfileName, require_ported
 from ser_tpu_torch.runtime.contracts import InferenceExecution, InferenceRequest, SubtitleFormat
 
 def apply_cli_profile_override(settings: AppConfig, profile: ProfileName | None) -> AppConfig:
-    """Projects one requested profile into the settings' runtime flags."""
+    """Projects one requested profile into the settings' runtime flags and transcription defaults."""
     if profile is None:
         return settings
     if profile not in PROFILE_NAMES:
@@ -27,7 +27,16 @@ def apply_cli_profile_override(settings: AppConfig, profile: ProfileName | None)
         accurate_profile=profile == "accurate",
         accurate_research_profile=profile == "accurate-research",
     )
-    return dataclasses.replace(settings, runtime_flags=flags)
+    if profile not in PORTED_PROFILES:  # the pipeline refuses it
+        return dataclasses.replace(settings, runtime_flags=flags)
+    tx_defaults = require_ported(profile).transcription_defaults
+    transcription = dataclasses.replace(
+        settings.transcription,
+        backend_id=tx_defaults.backend_id,
+        use_demucs=tx_defaults.use_demucs,
+        use_vad=tx_defaults.use_vad,
+    )
+    return dataclasses.replace(settings, runtime_flags=flags, transcription=transcription)
 
 
 def infer(
@@ -36,7 +45,7 @@ def infer(
     profile: ProfileName | None = None,
     language: str | None = None,
     save_transcript: bool = False,
-    include_transcript: bool = False,
+    include_transcript: bool = True,
     subtitle_output_path: str | None = None,
     subtitle_format: SubtitleFormat | None = None,
     settings: AppConfig,

@@ -7,7 +7,10 @@ configures both packages: ``SER_ENABLE_ACCURATE_PROFILE``,
 ``SER_MODELS_FOLDER`` (alias ``SER_MODELS_DIR``), ``SER_CACHE_DIR``,
 ``SER_DATA_DIR``, ``SER_MODEL_CACHE_DIR``, ``SER_ACCURATE_MODEL_ID``,
 ``SER_OUTPUT_SCHEMA_VERSION``, ``SER_TORCH_DEVICE``, ``SER_TORCH_DTYPE``,
-``SER_DEFAULT_LANGUAGE`` and the ``SER_ACCURATE_<KNOB>`` runtime overrides.
+``SER_DEFAULT_LANGUAGE``, ``SER_TMP_FOLDER`` (alias ``SER_TMP_DIR``), the
+``SER_ACCURATE_<KNOB>`` runtime overrides, and the transcript lane's
+``WHISPER_BACKEND``, ``WHISPER_MODEL``, ``WHISPER_DEMUCS``, ``WHISPER_VAD``,
+``WHISPER_DECODE_STRATEGY`` and ``SER_SEPARATION_MODEL_PATH``.
 ``SER_ALLOW_RANDOM_INIT`` / ``SER_RANDOM_INIT_SIZE`` are read where the
 weights are resolved, as in the JAX package.
 """
@@ -124,6 +127,27 @@ def build_settings(env: Mapping[str, str] | None = None) -> AppConfig:
         base.torch_runtime,
         **_changes(device=_str(env, "SER_TORCH_DEVICE"), dtype=_str(env, "SER_TORCH_DTYPE")),
     )
+    whisper_model = _str(env, "WHISPER_MODEL")
+    if whisper_model is not None:
+        models = dataclasses.replace(
+            models, whisper_model=dataclasses.replace(models.whisper_model, name=whisper_model)
+        )
+    decode_strategy = _str(env, "WHISPER_DECODE_STRATEGY")
+    if decode_strategy is not None and decode_strategy not in ("greedy", "beam"):
+        raise SettingsInputError(f"WHISPER_DECODE_STRATEGY must be 'greedy' or 'beam', got {decode_strategy!r}.")
+    transcription = dataclasses.replace(
+        base.transcription,
+        **_changes(
+            backend_id=_str(env, "WHISPER_BACKEND"),
+            use_demucs=_bool(env, "WHISPER_DEMUCS"),
+            use_vad=_bool(env, "WHISPER_VAD"),
+            decode_strategy=decode_strategy,
+            separation_model_path=_path(env, "SER_SEPARATION_MODEL_PATH"),
+        ),
+    )
+    tmp_folder = _path(env, "SER_TMP_FOLDER") or _path(env, "SER_TMP_DIR")
+    if tmp_folder is None and cache_root is not None:
+        tmp_folder = cache_root / "tmp"
     return dataclasses.replace(
         base,
         models=models,
@@ -131,6 +155,8 @@ def build_settings(env: Mapping[str, str] | None = None) -> AppConfig:
         accurate_runtime=accurate_runtime,
         schema=schema,
         torch_runtime=torch_runtime,
+        transcription=transcription,
+        tmp_folder=tmp_folder if tmp_folder is not None else base.tmp_folder,
         default_language=_str(env, "SER_DEFAULT_LANGUAGE") or base.default_language,
     )
 

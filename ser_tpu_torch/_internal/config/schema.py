@@ -3,8 +3,8 @@
 Counterpart of ``ser_tpu/_internal/config/schema.py``. Field names, defaults
 and the platform cache/data directories are the JAX package's, so one
 environment configures both packages alike. Only the sections the accurate
-profile's inference path reads are here; the full settings builder is later
-work (``ROADMAP.md``).
+profile's inference path and its transcript lane read are here; the full
+settings builder is later work (``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -58,16 +58,58 @@ class AudioReadConfig:
 
 
 @dataclass(frozen=True)
+class WhisperModelConfig:
+    """Transcription model selection and storage location.
+
+    ``name`` is empty unless selected (``WHISPER_MODEL``): the profile's
+    catalog default then applies at transcription time.
+    """
+
+    name: str = ""
+    relative_path: Path = Path("OpenAI/whisper")
+
+
+@dataclass(frozen=True)
 class ModelsConfig:
     """Where trained artifacts and model caches live."""
 
     folder: Path = field(default_factory=lambda: default_data_root() / "models")
     model_cache_dir: Path = field(default_factory=lambda: default_cache_root() / "model-cache")
     accurate_model_id: str = field(default_factory=lambda: default_profile_model_id("accurate"))
+    whisper_model: WhisperModelConfig = field(default_factory=WhisperModelConfig)
 
     @property
     def huggingface_cache_root(self) -> Path:
         return self.model_cache_dir / "huggingface"
+
+    @property
+    def whisper_download_root(self) -> Path:
+        """Where staged HF-format Whisper checkpoints are looked up, one folder per model name."""
+        return self.model_cache_dir / self.whisper_model.relative_path
+
+
+@dataclass(frozen=True)
+class TranscriptionConfig:
+    """Runtime controls of the transcript lane (the JAX package's fields and defaults).
+
+    The defaults of ``backend_id``, ``use_demucs`` and ``use_vad`` are the
+    catalog's process-wide ones; a profile request projects that profile's
+    transcription defaults over them (``apply_cli_profile_override``).
+    """
+
+    backend_id: str = "jax_whisper"
+    use_demucs: bool = False
+    use_vad: bool = True
+    decode_strategy: str = "greedy"
+    hbm_admission_control_enabled: bool = True
+    hbm_admission_min_headroom_mb: float = 256.0
+    hbm_admission_safety_margin_mb: float = 256.0
+    calibration_overrides_enabled: bool = True
+    calibration_min_confidence: str = "high"
+    calibration_report_max_age_hours: float = 168.0
+    calibration_report_path: Path | None = None
+    separation_model_path: Path | None = None
+    process_isolation: bool = False
 
 
 @dataclass(frozen=True)
@@ -111,6 +153,8 @@ class AppConfig:
     )
     schema: SchemaConfig = field(default_factory=SchemaConfig)
     torch_runtime: TorchRuntimeConfig = field(default_factory=TorchRuntimeConfig)
+    transcription: TranscriptionConfig = field(default_factory=TranscriptionConfig)
+    tmp_folder: Path = field(default_factory=lambda: default_cache_root() / "tmp")
     default_language: str = "en"
 
     def profile_runtime(self, profile: ProfileName) -> ProfileRuntimeDefaults:
@@ -125,6 +169,8 @@ __all__ = [
     "RuntimeFlags",
     "SchemaConfig",
     "TorchRuntimeConfig",
+    "TranscriptionConfig",
+    "WhisperModelConfig",
     "default_cache_root",
     "default_data_root",
     "default_profile_model_id",

@@ -1,8 +1,8 @@
 """Workflow phase ids and the timer that records them.
 
 Counterpart of ``ser_tpu/_internal/runtime/phases.py`` for the phases of the
-transcript-off lane: the same names accumulate into
-``InferenceExecution.phase_timings_seconds``.
+accurate profile's inference, transcript included: the same names accumulate
+into ``InferenceExecution.phase_timings_seconds``.
 """
 
 from __future__ import annotations
@@ -17,6 +17,9 @@ logger = logging.getLogger(__name__)
 PHASE_WORKFLOW_TOTAL = "workflow_total"
 PHASE_EMOTION_SETUP = "emotion_setup"
 PHASE_EMOTION_INFERENCE = "emotion_inference"
+PHASE_TRANSCRIPTION_SETUP = "transcription_setup"
+PHASE_TRANSCRIPTION_MODEL_LOAD = "transcription_model_load"
+PHASE_TRANSCRIPTION = "transcription"
 PHASE_TIMELINE_BUILD = "timeline_build"
 PHASE_TIMELINE_OUTPUT = "timeline_output"
 
@@ -39,6 +42,9 @@ __all__ = [
     "PHASE_EMOTION_SETUP",
     "PHASE_TIMELINE_BUILD",
     "PHASE_TIMELINE_OUTPUT",
+    "PHASE_TRANSCRIPTION",
+    "PHASE_TRANSCRIPTION_MODEL_LOAD",
+    "PHASE_TRANSCRIPTION_SETUP",
     "PHASE_WORKFLOW_TOTAL",
     "timed_phase",
 ]

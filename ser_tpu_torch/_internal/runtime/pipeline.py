@@ -1,9 +1,11 @@
-"""Runtime pipeline: profile check → emotion inference → timeline.
+"""Runtime pipeline: profile check → emotion inference → transcript → timeline.
 
-Counterpart of ``ser_tpu/_internal/runtime/pipeline.py`` for the transcript-off
-lane: the same phase timings and the same ``InferenceExecution``. The
-transcript, CSV and subtitle outputs are not ported yet and raise
-``NotImplementedError`` (``ROADMAP.md``).
+Counterpart of ``ser_tpu/_internal/runtime/pipeline.py``: the same phase
+timings, the transcript lane behind ``include_transcript``
+(``extract_transcript``), the same timeline merge of words and emotion
+segments, and the same ``InferenceExecution``. CSV and
+subtitle export are not ported yet and raise ``NotImplementedError``
+(``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -15,8 +17,9 @@ from ser_tpu_torch._internal.config.schema import AppConfig
 from ser_tpu_torch._internal.runtime import phases
 from ser_tpu_torch._internal.runtime.backend_hooks import BackendHook, build_backend_hooks
 from ser_tpu_torch._internal.runtime.errors import UnsupportedProfileError
+from ser_tpu_torch._internal.transcript.extractor import extract_transcript
 from ser_tpu_torch._internal.utils import timeline as timeline_utils
-from ser_tpu_torch.domain import EmotionSegment, TimelineEntry
+from ser_tpu_torch.domain import EmotionSegment, TimelineEntry, TranscriptWord
 from ser_tpu_torch.profiles import ProfileName, require_ported, resolve_profile_name
 from ser_tpu_torch.runtime.contracts import InferenceExecution, InferenceRequest
 from ser_tpu_torch.runtime.schema import InferenceResult, to_legacy_emotion_segments
@@ -26,7 +29,6 @@ def _refuse_unported_outputs(request: InferenceRequest) -> None:
     unported = [
         name
         for name, requested in (
-            ("include_transcript=True", request.include_transcript),
             ("save_transcript=True (CSV export)", request.save_transcript),
             ("subtitle export", request.subtitle_output_path is not None or request.subtitle_format is not None),
         )
@@ -74,8 +76,21 @@ class RuntimePipeline:
             with phases.timed_phase(phases.PHASE_EMOTION_INFERENCE, timings):
                 detailed: InferenceResult = hook(request)
                 emotions: list[EmotionSegment] = to_legacy_emotion_segments(detailed)
+            transcript: list[TranscriptWord] = []
+            if request.include_transcript:
+                # extract_transcript records transcription_setup and
+                # transcription_model_load into the same dict; this phase
+                # covers the whole lane.
+                with phases.timed_phase(phases.PHASE_TRANSCRIPTION, timings):
+                    transcript = extract_transcript(
+                        request.file_path,
+                        language=request.language,
+                        profile=profile,
+                        settings=self.settings,
+                        timings=timings,
+                    )
             with phases.timed_phase(phases.PHASE_TIMELINE_BUILD, timings):
-                timeline = timeline_utils.build_timeline([], emotions)
+                timeline = timeline_utils.build_timeline(transcript, emotions)
             with phases.timed_phase(phases.PHASE_TIMELINE_OUTPUT, timings):
                 self.print_timeline_fn(timeline)
         return InferenceExecution(
@@ -83,7 +98,7 @@ class RuntimePipeline:
             output_schema_version=detailed.schema_version,
             backend_id=backend_id,
             emotions=emotions,
-            transcript=[],
+            transcript=transcript,
             timeline=timeline,
             used_backend_path=True,
             detailed_result=detailed,

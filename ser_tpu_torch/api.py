@@ -3,8 +3,10 @@
 Counterpart of ``ser_tpu.api.infer``, returning the same ``InferenceExecution``.
 It runs on the CUDA card unless the settings ask for the CPU
 (``SER_TORCH_DEVICE=cpu`` or ``settings.torch_runtime.device == "cpu"``);
-with no card and no such request it raises. Only the accurate profile with
-the transcript off is ported so far; everything else raises
+with no card and no such request it raises. The accurate profile is ported,
+with its transcript lane (``include_transcript``, on by default as in the JAX
+package: it needs a staged HF Whisper checkpoint under the Whisper download
+root). CSV and subtitle export and the other profiles raise
 ``NotImplementedError`` (``ROADMAP.md``).
 """
 
@@ -25,7 +27,7 @@ def infer(
     profile: ProfileName | None = "accurate",
     language: str | None = None,
     save_transcript: bool = False,
-    include_transcript: bool = False,
+    include_transcript: bool = True,
     subtitle_output_path: str | None = None,
     subtitle_format: SubtitleFormat | None = None,
     settings: AppConfig | None = None,

@@ -6,6 +6,11 @@
   the ``state_dict`` of ``ser_tpu_torch.models.whisper.WhisperEncoder``.
   flax Conv kernels (k, in, out) become (out, in, k); Dense kernels (in, out)
   become (out, in); LayerNorm ``scale`` becomes ``weight``.
+- ``whisper_decoder_state_dict``: the flax tree of ``ser_tpu.models.whisper.
+  WhisperDecoder`` (``decoder.init`` or ``load_hf_whisper_decoder_params``) →
+  the ``state_dict`` of ``ser_tpu_torch.models.whisper.WhisperDecoder``, with
+  the same layout rules; ``tok_embed`` and ``pos_embed`` carry over as they
+  are, and the bias-free ``k`` projections stay bias-free.
 - ``mlp_head_layers``: a ``ser_tpu_mlp`` head state (``JaxMLPClassifier.
   get_state()``) → the head's (weight (in, out), bias) float32 pairs, as
   ``ser_tpu_torch.models.mlp_head.TorchMLPClassifier.from_state`` reads them.
@@ -63,6 +68,27 @@ def whisper_encoder_state_dict(params: Mapping) -> dict[str, torch.Tensor]:
     return state
 
 
+def whisper_decoder_state_dict(params: Mapping) -> dict[str, torch.Tensor]:
+    """flax Whisper-decoder tree → port ``state_dict`` (float32 CPU tensors)."""
+    state = {
+        "tok_embed": _tensor(params["tok_embed"]),
+        "pos_embed": _tensor(params["pos_embed"]),
+        **_layer_norm("final_ln", params["final_ln"]),
+    }
+    n_layers = sum(1 for key in params if key.startswith("layer_"))
+    for i in range(n_layers):
+        layer = params[f"layer_{i}"]
+        base = f"layers.{i}"
+        for block in ("attn", "cross"):
+            state.update(_layer_norm(f"{base}.{block}_ln", layer[f"{block}_ln"]))
+            for name in ("q", "k", "v", "out"):
+                state.update(_dense(f"{base}.{block}.{name}", layer[block][name]))
+        state.update(_layer_norm(f"{base}.mlp_ln", layer["mlp_ln"]))
+        state.update(_dense(f"{base}.mlp_in", layer["mlp_in"]))
+        state.update(_dense(f"{base}.mlp_out", layer["mlp_out"]))
+    return state
+
+
 def mlp_head_layers(state: Mapping) -> list[tuple[torch.Tensor, torch.Tensor]]:
     """``ser_tpu_mlp`` head state → [(weight (in, out), bias (out,))] float32."""
     if state.get("kind") != "ser_tpu_mlp":
@@ -70,4 +96,4 @@ def mlp_head_layers(state: Mapping) -> list[tuple[torch.Tensor, torch.Tensor]]:
     return [(_tensor(w), _tensor(b)) for w, b in zip(state["weights"], state["biases"])]
 
 
-__all__ = ["mlp_head_layers", "whisper_encoder_state_dict"]
+__all__ = ["mlp_head_layers", "whisper_decoder_state_dict", "whisper_encoder_state_dict"]

@@ -1,15 +1,21 @@
-"""Whisper encoder in PyTorch: the accurate profile's embedding model.
+"""Whisper encoder-decoder in PyTorch: embeddings and transcription.
 
-Counterpart of the encoder half of ``ser_tpu/models/whisper.py``:
+Counterpart of ``ser_tpu/models/whisper.py``:
 
 - the log-mel frontend (``log_mel_spectrogram``): the STFT, kernel K1
   (power → mel → log10) and Whisper's normalization;
 - the pre-norm encoder (conv ×2 stride-2 stem with exact GELU, sinusoidal
   positions, ``EncoderBlock`` × n, final LayerNorm) as ``nn.Module``s whose
   self-attention runs kernel K2 on the card;
-- the HF checkpoint loader (``load_hf_whisper_encoder_params``), which returns
-  the same parameter tree of numpy arrays as the JAX loader and keeps its
-  consumed-key audit, plus a seeded ``torch.Generator`` random init.
+- the teacher-forced decoder (``DecoderBlock``, ``WhisperDecoder``), whose
+  parameters the KV-cache decode (``whisper_decode.py``) reads;
+- the HF checkpoint loaders (``load_hf_whisper_{encoder,decoder}_params``),
+  which return the same parameter trees of numpy arrays as the JAX loaders
+  and keep their consumed-key audit, the generation-config readers, and
+  seeded ``torch.Generator`` random inits;
+- ``WhisperForTranscription``: greedy KV-cache transcription of all 30 s
+  windows as one batch, with temperature retries for degenerate windows,
+  energy VAD and DTW word timing over the alignment heads.
 
 The dtype policy is the JAX package's: matmuls and convolutions in the
 compute dtype (bf16 on the card, float32 on the CPU), LayerNorms computed in
@@ -28,7 +34,10 @@ from __future__ import annotations
 import json
 import logging
 import math
+import os
 import struct
+import warnings
+import zlib
 from dataclasses import dataclass
 from pathlib import Path
 
@@ -36,6 +45,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from ser_tpu_torch.domain import TranscriptWord
+from ser_tpu_torch.models import whisper_decode
 from ser_tpu_torch.models.attention import multi_head_attention
 from ser_tpu_torch.models.checkpoint_audit import AuditedState, unconsumed_key_error
 from ser_tpu_torch.ops.activations import gelu_erf
@@ -235,6 +246,102 @@ def encode_mel_chunks(encoder: WhisperEncoder, chunks: torch.Tensor) -> torch.Te
 
 
 # --------------------------------------------------------------------------- #
+# Decoder modules
+# --------------------------------------------------------------------------- #
+
+
+class DecoderAttention(MultiHeadAttention):
+    """Decoder attention: the same projections, the einsum path with an additive bias.
+
+    ``ser_tpu``'s ``MultiHeadAttention`` without its flash route: scores over
+    Dh divided by √Dh in the compute dtype, the bias added, softmax in float32
+    cast back, then the value sum and the out projection.
+    """
+
+    def forward(self, x: torch.Tensor, kv: torch.Tensor, bias: torch.Tensor | None = None) -> torch.Tensor:
+        dtype = self.q.weight.dtype
+        x, kv = x.to(dtype), kv.to(dtype)
+
+        def split(t: torch.Tensor) -> torch.Tensor:
+            return t.reshape(*t.shape[:-1], self.n_heads, t.shape[-1] // self.n_heads)
+
+        q, k, v = split(self.q(x)), split(self.k(kv)), split(self.v(kv))
+        root_d = torch.sqrt(torch.tensor(float(q.shape[-1]), dtype=dtype, device=q.device))
+        scores = torch.einsum("...qhd,...khd->...hqk", q, k) / root_d
+        if bias is not None:
+            scores = scores + bias.to(scores.dtype)
+        weights = torch.softmax(scores.to(torch.float32), dim=-1).to(dtype)
+        out = torch.einsum("...hqk,...khd->...qhd", weights, v)
+        return self.out(out.reshape(*x.shape[:-1], -1))
+
+
+class DecoderBlock(nn.Module):
+    """Pre-norm block: x + self-attn(LN(x)), x + cross-attn(LN(x), states), x + mlp(LN(x))."""
+
+    def __init__(self, config: WhisperConfig) -> None:
+        super().__init__()
+        d = config.d_model
+        self.attn_ln = LayerNorm(d, config.layer_norm_eps)
+        self.attn = DecoderAttention(config)
+        self.cross_ln = LayerNorm(d, config.layer_norm_eps)
+        self.cross = DecoderAttention(config)
+        self.mlp_ln = LayerNorm(d, config.layer_norm_eps)
+        self.mlp_in = nn.Linear(d, 4 * d)
+        self.mlp_out = nn.Linear(4 * d, d)
+
+    def forward(self, x: torch.Tensor, encoder_states: torch.Tensor, *, self_bias: torch.Tensor) -> torch.Tensor:
+        h = self.attn_ln(x)
+        x = x + self.attn(h, h, bias=self_bias)
+        h = self.cross_ln(x)
+        x = x + self.cross(h, encoder_states)
+        h = self.mlp_ln(x).to(self.mlp_in.weight.dtype)
+        return x + self.mlp_out(gelu_erf(self.mlp_in(h)))
+
+
+class WhisperDecoder(nn.Module):
+    """Teacher-forced decoder over full token prefixes. (B, T) ids, (B, S, d) states → (B, T, V) logits.
+
+    The reference numerics for the KV-cache decode, which reads this module's
+    parameters directly (``whisper_decode.greedy_decode_kv_cache``). The
+    output head is tied to ``tok_embed``.
+    """
+
+    def __init__(self, config: WhisperConfig) -> None:
+        super().__init__()
+        d = config.d_model
+        self.config = config
+        self.tok_embed = nn.Parameter(torch.zeros(config.vocab_size, d))
+        self.pos_embed = nn.Parameter(torch.zeros(config.max_target_positions, d))
+        self.layers = nn.ModuleList(DecoderBlock(config) for _ in range(config.decoder_layers))
+        self.final_ln = LayerNorm(d, config.layer_norm_eps)
+
+    def forward(self, tokens: torch.Tensor, encoder_states: torch.Tensor) -> torch.Tensor:
+        seq_len = tokens.shape[-1]
+        x = self.tok_embed[tokens] + self.pos_embed[None, :seq_len]
+        causal = torch.ones((seq_len, seq_len), dtype=torch.bool, device=tokens.device).tril()
+        self_bias = torch.where(causal, 0.0, -1e30)[None, None]
+        for layer in self.layers:
+            x = layer(x, encoder_states, self_bias=self_bias)
+        x = self.final_ln(x)
+        return torch.einsum("btd,vd->btv", x, self.tok_embed)
+
+
+def build_whisper_decoder(
+    config: WhisperConfig,
+    state_dict: dict[str, torch.Tensor],
+    *,
+    device: torch.device,
+    dtype: torch.dtype,
+) -> WhisperDecoder:
+    """An eval-mode decoder holding ``state_dict`` on ``device``, stored in ``dtype``."""
+    with torch.device("meta"):
+        decoder = WhisperDecoder(config)
+    placed = {name: tensor.to(device=device, dtype=dtype) for name, tensor in state_dict.items()}
+    decoder.load_state_dict(placed, strict=True, assign=True)
+    return decoder.eval()
+
+
+# --------------------------------------------------------------------------- #
 # Random init + HF conversion
 # --------------------------------------------------------------------------- #
 
@@ -268,6 +375,36 @@ def random_whisper_encoder_state(
     return state
 
 
+def random_whisper_decoder_state(
+    config: WhisperConfig, *, seed: int, device: torch.device | str = "cpu"
+) -> dict[str, torch.Tensor]:
+    """Seeded random float32 decoder weights, drawn by a ``torch.Generator`` on ``device``.
+
+    flax's init shapes and kinds (``WhisperDecoder.init``): truncated-normal
+    Dense kernels with std 1/√fan_in, zero biases, unit LayerNorm scales,
+    ``tok_embed`` normal with std 0.02 and a zero position table. The values
+    differ from JAX's for the same seed.
+    """
+    device = torch.device(device)
+    generator = torch.Generator(device=device).manual_seed(seed)
+    with torch.device("meta"):
+        shapes = {name: tensor.shape for name, tensor in WhisperDecoder(config).state_dict().items()}
+    state: dict[str, torch.Tensor] = {}
+    for name, shape in shapes.items():
+        if name == "tok_embed":
+            state[name] = torch.randn(shape, generator=generator, device=device) * 0.02
+        elif name == "pos_embed" or name.endswith("bias"):
+            state[name] = torch.zeros(shape, device=device)
+        elif "_ln." in name:
+            state[name] = torch.ones(shape, device=device)
+        else:
+            std = 1.0 / math.sqrt(shape[1])
+            tensor = torch.empty(shape, device=device)
+            nn.init.trunc_normal_(tensor, std=std, a=-2.0 * std, b=2.0 * std, generator=generator)
+            state[name] = tensor
+    return state
+
+
 def whisper_config_from_hf_dir(model_dir) -> WhisperConfig:
     raw = json.loads((Path(model_dir) / "config.json").read_text(encoding="utf-8"))
     return WhisperConfig(
@@ -279,6 +416,36 @@ def whisper_config_from_hf_dir(model_dir) -> WhisperConfig:
         vocab_size=raw["vocab_size"],
         max_target_positions=raw.get("max_target_positions", 448),
     )
+
+
+def _read_generation_config(model_dir) -> dict:
+    """A checkpoint's ``generation_config.json``, or {} when missing or unreadable."""
+    path = Path(model_dir) / "generation_config.json"
+    if not path.is_file():
+        return {}
+    try:
+        raw = json.loads(path.read_text(encoding="utf-8"))
+    except (OSError, ValueError):
+        return {}
+    return raw if isinstance(raw, dict) else {}
+
+
+def alignment_heads_from_hf_dir(model_dir) -> tuple[tuple[int, int], ...] | None:
+    """Published (layer, head) cross-attention alignment pairs, or None."""
+    pairs = _read_generation_config(model_dir).get("alignment_heads")
+    if not pairs:
+        return None
+    return tuple((int(layer), int(head)) for layer, head in pairs)
+
+
+def suppress_tokens_from_hf_dir(model_dir) -> tuple[int, ...]:
+    """Published ``suppress_tokens``, sorted and deduplicated.
+
+    ``begin_suppress_tokens`` is left out on purpose, as in the JAX package:
+    it holds EOT, and timestamp rule 3 already constrains the first token.
+    """
+    tokens = _read_generation_config(model_dir).get("suppress_tokens") or []
+    return tuple(sorted({int(token) for token in tokens}))
 
 
 _SAFETENSORS_DTYPES = {
@@ -410,10 +577,447 @@ def load_hf_whisper_encoder_params(model_dir, config: WhisperConfig) -> dict:
     return params
 
 
+def load_hf_whisper_decoder_params(model_dir, config: WhisperConfig) -> dict:
+    """A local HF Whisper checkpoint's decoder weights as the JAX parameter tree.
+
+    Same tree as ``ser_tpu.models.whisper.load_hf_whisper_decoder_params``,
+    with the same consumed-key audit over the decoder's tensors (``proj_out``
+    is the tied output head and is never loaded on its own).
+    """
+    sd = AuditedState(_hf_tensors(model_dir))
+
+    def t(name):
+        for key in (name, f"model.{name}"):
+            if key in sd:
+                return sd.take(key)
+        raise KeyError(f"Missing weight {name!r}.")
+
+    def norm(name):
+        return {"scale": t(f"{name}.weight"), "bias": t(f"{name}.bias")}
+
+    params: dict = {
+        "tok_embed": t("decoder.embed_tokens.weight"),
+        "pos_embed": t("decoder.embed_positions.weight"),
+        "final_ln": norm("decoder.layer_norm"),
+    }
+    for i in range(config.decoder_layers):
+        base = f"decoder.layers.{i}"
+        params[f"layer_{i}"] = {
+            "attn_ln": norm(f"{base}.self_attn_layer_norm"),
+            "attn": _attention_params(t, f"{base}.self_attn"),
+            "cross_ln": norm(f"{base}.encoder_attn_layer_norm"),
+            "cross": _attention_params(t, f"{base}.encoder_attn"),
+            "mlp_ln": norm(f"{base}.final_layer_norm"),
+            "mlp_in": {"kernel": t(f"{base}.fc1.weight").T, "bias": t(f"{base}.fc1.bias")},
+            "mlp_out": {"kernel": t(f"{base}.fc2.weight").T, "bias": t(f"{base}.fc2.bias")},
+        }
+
+    leftovers = sd.unconsumed(scope_prefixes=("decoder.", "model.decoder."))
+    if leftovers:
+        raise unconsumed_key_error(leftovers, model="whisper decoder")
+    return params
+
+
+# --------------------------------------------------------------------------- #
+# Transcription driver
+# --------------------------------------------------------------------------- #
+
+
+class WhisperForTranscription:
+    """Greedy KV-cache transcription with DTW-aligned word timestamps.
+
+    Counterpart of ``ser_tpu.models.whisper.WhisperForTranscription`` for the
+    greedy strategy. ``encoder_state``/``decoder_state`` are the port's state
+    dicts (``convert.py`` carries JAX trees across); the models are built on
+    ``device`` in ``compute_dtype``. Greedy decodes run through the step
+    kernels K3-K5 (``fused=True``), where the JAX package keeps XLA's route
+    (``ROADMAP.md``, Queue 3); on CPU tensors the kernels' plain versions run.
+    ``decode_strategy="beam"`` and the int8 decode stream are not ported yet
+    and raise ``NotImplementedError``.
+    """
+
+    PREFIX_LEN = 3  # <|startoftranscript|> <|lang|> <|transcribe|>
+
+    #: Escalation schedule for degenerate (repetitive) window transcripts.
+    RETRY_TEMPERATURES = (0.2, 0.5, 0.8)
+
+    def __init__(
+        self,
+        config: WhisperConfig,
+        encoder_state: dict[str, torch.Tensor],
+        decoder_state: dict[str, torch.Tensor],
+        tokenizer,
+        *,
+        device: torch.device | str = "cpu",
+        compute_dtype: str = "float32",
+        alignment_heads: tuple[tuple[int, int], ...] | None = None,
+        word_timestamps: str = "align",
+        suppress_tokens: tuple[int, ...] = (),
+        apply_timestamp_rules: bool = True,
+        decode_strategy: str = "greedy",
+        decode_int8: bool | None = None,
+    ) -> None:
+        if decode_strategy not in ("greedy", "beam"):
+            raise ValueError(f"Unknown decode strategy {decode_strategy!r}")
+        if decode_strategy == "beam":
+            raise NotImplementedError("Beam decode is not ported to ser_tpu_torch yet; see ROADMAP.md.")
+        if decode_int8 is None:
+            decode_int8 = os.environ.get("SER_DECODE_INT8", "") == "1"
+        if decode_int8:
+            raise NotImplementedError("The int8 decode weight stream is not ported to ser_tpu_torch yet; see ROADMAP.md.")
+        if compute_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"Unknown compute dtype {compute_dtype!r}")
+        self.config = config
+        self.device = torch.device(device)
+        self.compute_dtype = torch.bfloat16 if compute_dtype == "bfloat16" else torch.float32
+        self.encoder = build_whisper_encoder(config, encoder_state, device=self.device, dtype=self.compute_dtype)
+        self.decoder = build_whisper_decoder(config, decoder_state, device=self.device, dtype=self.compute_dtype)
+        self.tokenizer = tokenizer
+        self.word_timestamps = word_timestamps
+        if alignment_heads is None:
+            alignment_heads = whisper_decode.default_alignment_spec(config.decoder_layers, config.n_heads)
+        # Checkpoint metadata is untrusted: drop pairs this decoder does not
+        # have, and fall back to the default spec if none survive.
+        valid = tuple(
+            (int(layer), int(head))
+            for layer, head in alignment_heads
+            if 0 <= int(layer) < config.decoder_layers and 0 <= int(head) < config.n_heads
+        )
+        if len(valid) < len(tuple(alignment_heads)):
+            warnings.warn(
+                "Dropping out-of-range alignment head(s) from checkpoint metadata "
+                f"({len(tuple(alignment_heads)) - len(valid)} of {len(tuple(alignment_heads))}).",
+                stacklevel=2,
+            )
+        if not valid:
+            valid = whisper_decode.default_alignment_spec(config.decoder_layers, config.n_heads)
+        self.alignment_heads = valid
+        self.suppress_tokens = tuple(int(t) for t in suppress_tokens)
+        self.apply_timestamp_rules = apply_timestamp_rules
+        self.decode_strategy = decode_strategy
+        self._decode_weights: whisper_decode.DecodeWeights | None = None
+
+    def decode_weights(self) -> whisper_decode.DecodeWeights:
+        """The decoder's fused QKV kernels and per-head layouts, computed once per model."""
+        if self._decode_weights is None:
+            self._decode_weights = whisper_decode.prepare_decode_weights(self.decoder, self.config, fused=True)
+        return self._decode_weights
+
+    @classmethod
+    def from_pretrained_dir(
+        cls,
+        model_dir,
+        *,
+        device: torch.device | str = "cpu",
+        compute_dtype: str = "float32",
+        decode_strategy: str = "greedy",
+    ):
+        """Loads config, weights and tokenizer from a local HF checkpoint directory."""
+        from transformers import WhisperTokenizer
+
+        from ser_tpu_torch.models.convert import whisper_decoder_state_dict, whisper_encoder_state_dict
+
+        config = whisper_config_from_hf_dir(model_dir)
+        return cls(
+            config,
+            whisper_encoder_state_dict(load_hf_whisper_encoder_params(model_dir, config)),
+            whisper_decoder_state_dict(load_hf_whisper_decoder_params(model_dir, config)),
+            WhisperTokenizer.from_pretrained(str(model_dir)),
+            device=device,
+            compute_dtype=compute_dtype,
+            alignment_heads=alignment_heads_from_hf_dir(model_dir),
+            suppress_tokens=suppress_tokens_from_hf_dir(model_dir),
+            decode_strategy=decode_strategy,
+        )
+
+    def _special(self, token: str) -> int:
+        ids = self.tokenizer.convert_tokens_to_ids([token])
+        # Whisper tokenizers alias unk to <|endoftext|>, so EOT may resolve to unk_id.
+        unk_matches = ids[0] == self.tokenizer.unk_token_id and token != str(
+            getattr(self.tokenizer, "unk_token", "")
+        )
+        if ids[0] is None or unk_matches:
+            raise ValueError(f"Tokenizer lacks special token {token}")
+        return int(ids[0])
+
+    def _decode_chunk_batch(
+        self,
+        encoder_states: torch.Tensor,
+        language: str,
+        num_frames: np.ndarray,
+        *,
+        temperature: float = 0.0,
+        rng_seed: int = 0,
+    ) -> tuple[list[list[int]], np.ndarray | None]:
+        """Greedy KV-cache decode of a batch of 30 s windows.
+
+        Returns each window's emitted ids and, with alignment capture on, the
+        per-window DTW matrix ``(B, max_len, S)``, reduced on the device so
+        only that matrix reaches the host.
+        """
+        prefix = [
+            self._special("<|startoftranscript|>"),
+            self._special(f"<|{language}|>"),
+            self._special("<|transcribe|>"),
+        ]
+        eot = self._special("<|endoftext|>")
+        align_spec = self.alignment_heads if self.word_timestamps == "align" else ()
+        timestamp_begin = self._special("<|0.00|>") if self.apply_timestamp_rules else None
+        tokens, lengths, align = whisper_decode.greedy_decode_kv_cache(
+            self.decoder,
+            self.config,
+            encoder_states,
+            prefix,
+            eot,
+            prefix_len=self.PREFIX_LEN,
+            align_spec=align_spec,
+            compute_dtype=self.compute_dtype,
+            temperature=temperature,
+            rng_seed=rng_seed,
+            suppress_tokens=self.suppress_tokens,
+            timestamp_begin=timestamp_begin,
+            fused=True,
+            weights=self.decode_weights(),
+        )
+        matrix = None
+        if align_spec:
+            matrix = (
+                whisper_decode.reduce_alignment_matrix(
+                    align,
+                    self.PREFIX_LEN + lengths,
+                    torch.as_tensor(num_frames, dtype=torch.long, device=align.device),
+                    prefix_len=self.PREFIX_LEN,
+                )
+                .cpu()
+                .numpy()
+            )
+        tokens_np = tokens.cpu().numpy()
+        lengths_np = lengths.cpu().numpy()
+        emitted = [
+            tokens_np[row, self.PREFIX_LEN : self.PREFIX_LEN + int(lengths_np[row])].tolist()
+            for row in range(tokens_np.shape[0])
+        ]
+        return emitted, matrix
+
+    def _segments_from_tokens(
+        self, tokens: list[int], timestamp_begin: int, chunk_duration: float
+    ) -> list[tuple[float, float, list[int]]]:
+        """Groups emitted ids into (start, end, text-token) segments."""
+        segments: list[tuple[float, float, list[int]]] = []
+        current_start, current_tokens = 0.0, []
+        for token in tokens:
+            if token >= timestamp_begin:
+                stamp = (token - timestamp_begin) * 0.02
+                if current_tokens:
+                    segments.append((current_start, stamp, current_tokens))
+                    current_tokens = []
+                current_start = stamp
+            else:
+                current_tokens.append(token)
+        if current_tokens:
+            segments.append((current_start, chunk_duration, current_tokens))
+        return segments
+
+    def _interpolated_words(self, segments, chunk_offset_s: float, chunk_duration: float) -> list[TranscriptWord]:
+        """Even within-segment interpolation (the fallback when alignment is off)."""
+        words: list[TranscriptWord] = []
+        for seg_start, seg_end, seg_tokens in segments:
+            text = self.tokenizer.decode(seg_tokens).strip()
+            if not text:
+                continue
+            parts = text.split()
+            seg_start = min(seg_start, chunk_duration)
+            seg_end = min(max(seg_end, seg_start + 0.02), chunk_duration)
+            step = (seg_end - seg_start) / len(parts)
+            for i, word in enumerate(parts):
+                words.append(
+                    TranscriptWord(
+                        word=word,
+                        start_seconds=chunk_offset_s + seg_start + i * step,
+                        end_seconds=chunk_offset_s + seg_start + (i + 1) * step,
+                    )
+                )
+        return words
+
+    def _aligned_words(
+        self,
+        tokens: list[int],
+        matrix: np.ndarray,
+        timestamp_begin: int,
+        chunk_offset_s: float,
+        chunk_duration: float,
+        num_frames: int,
+    ) -> list[TranscriptWord]:
+        """DTW word timing from the device-reduced matrix of one window."""
+        from ser_tpu_torch.models.word_timing import word_timings_from_matrix
+
+        rows = matrix[self.PREFIX_LEN : self.PREFIX_LEN + len(tokens), :num_frames]
+        timed = word_timings_from_matrix(rows, tokens, self.tokenizer, timestamp_begin=timestamp_begin)
+        return [
+            TranscriptWord(
+                word=entry.word,
+                start_seconds=chunk_offset_s + min(entry.start, chunk_duration),
+                end_seconds=chunk_offset_s + min(entry.end, chunk_duration),
+            )
+            for entry in timed
+        ]
+
+    def _chunk_text(self, tokens: list[int], timestamp_begin: int) -> str:
+        return self.tokenizer.decode([token for token in tokens if token < timestamp_begin]).strip()
+
+    def _retry_degenerate_chunks(
+        self,
+        states: torch.Tensor,
+        language: str,
+        num_frames: np.ndarray,
+        emitted: list[list[int]],
+        matrices: np.ndarray | None,
+    ) -> tuple[list[list[int]], np.ndarray | None]:
+        """Re-decodes repetitive windows with rising sampling temperature.
+
+        Keeps each window's least degenerate candidate (lowest gzip ratio) and
+        stops once no window looks degenerate or the schedule is spent.
+        """
+        timestamp_begin = self._special("<|0.00|>")
+
+        def ratio(tokens: list[int]) -> float:
+            return transcript_compression_ratio(self._chunk_text(tokens, timestamp_begin))
+
+        bad = [
+            index
+            for index, tokens in enumerate(emitted)
+            if transcript_is_degenerate(self._chunk_text(tokens, timestamp_begin))
+        ]
+        if not bad:
+            return emitted, matrices
+        best_ratio = {index: ratio(emitted[index]) for index in bad}
+        for retry, temperature in enumerate(self.RETRY_TEMPERATURES):
+            retry_states = states[torch.as_tensor(bad, device=states.device)]
+            retry_emitted, retry_matrices = self._decode_chunk_batch(
+                retry_states, language, num_frames[bad], temperature=temperature, rng_seed=retry + 1
+            )
+            still_bad = []
+            for slot, chunk_index in enumerate(bad):
+                candidate_ratio = ratio(retry_emitted[slot])
+                if candidate_ratio < best_ratio[chunk_index]:
+                    best_ratio[chunk_index] = candidate_ratio
+                    emitted[chunk_index] = retry_emitted[slot]
+                    if matrices is not None and retry_matrices is not None:
+                        matrices[chunk_index] = retry_matrices[slot]
+                if transcript_is_degenerate(self._chunk_text(emitted[chunk_index], timestamp_begin)):
+                    still_bad.append(chunk_index)
+            bad = still_bad
+            if not bad:
+                break
+        return emitted, matrices
+
+    def transcribe_words(
+        self, audio16k: np.ndarray, *, language: str = "en", use_vad: bool = True
+    ) -> list[TranscriptWord]:
+        """Transcribes mono 16 kHz audio into ``TranscriptWord``s.
+
+        All 30 s windows encode and decode as one batch. Word times come from
+        DTW over the alignment heads' cross-attention; even interpolation
+        within timestamp segments is the fallback when alignment is off or
+        yields nothing. With ``use_vad``, leading and trailing silence is
+        trimmed first and the times are shifted back to the original audio.
+        """
+        vad_offset_s = 0.0
+        if use_vad:
+            audio16k, trimmed_samples = _trim_silence(audio16k)
+            vad_offset_s = trimmed_samples / SAMPLE_RATE
+        if audio16k.size == 0:
+            return []
+
+        timestamp_begin = self._special("<|0.00|>")
+        n_chunks = int(np.ceil(audio16k.size / CHUNK_SAMPLES))
+        batch = np.zeros((n_chunks, CHUNK_SAMPLES), dtype=np.float32)
+        durations = []
+        for chunk_index in range(n_chunks):
+            chunk = audio16k[chunk_index * CHUNK_SAMPLES : (chunk_index + 1) * CHUNK_SAMPLES]
+            batch[chunk_index, : chunk.size] = chunk
+            durations.append(chunk.size / SAMPLE_RATE)
+
+        states = encode_mel_chunks(self.encoder, torch.from_numpy(batch).to(self.device))
+        num_frames = np.asarray(
+            [max(1, int(duration * SAMPLE_RATE) // (HOP_LENGTH * 2)) for duration in durations],
+            dtype=np.int32,
+        )
+        emitted, matrices = self._decode_chunk_batch(states, language, num_frames)
+        emitted, matrices = self._retry_degenerate_chunks(states, language, num_frames, emitted, matrices)
+
+        words: list[TranscriptWord] = []
+        for chunk_index, tokens in enumerate(emitted):
+            chunk_offset_s = chunk_index * CHUNK_SECONDS
+            chunk_duration = durations[chunk_index]
+            aligned: list[TranscriptWord] = []
+            if matrices is not None and tokens:
+                aligned = self._aligned_words(
+                    tokens,
+                    matrices[chunk_index],
+                    timestamp_begin,
+                    chunk_offset_s,
+                    chunk_duration,
+                    int(num_frames[chunk_index]),
+                )
+            if aligned:
+                words.extend(aligned)
+            else:
+                segments = self._segments_from_tokens(tokens, timestamp_begin, chunk_duration)
+                words.extend(self._interpolated_words(segments, chunk_offset_s, chunk_duration))
+        if vad_offset_s:
+            words = [
+                word._replace(
+                    start_seconds=word.start_seconds + vad_offset_s,
+                    end_seconds=word.end_seconds + vad_offset_s,
+                )
+                for word in words
+            ]
+        return words
+
+
+def transcript_compression_ratio(text: str) -> float:
+    """gzip compression ratio of the text: the published repetition signal."""
+    stripped = text.strip()
+    if not stripped:
+        return 0.0
+    raw = stripped.encode("utf-8")
+    return len(raw) / max(1, len(zlib.compress(raw)))
+
+
+def transcript_is_degenerate(text: str, *, max_compression_ratio: float = 2.4) -> bool:
+    """Repetition detector: Whisper's 2.4 gzip-ratio decode-quality gate."""
+    if len(text.strip()) < 16:
+        return False
+    return transcript_compression_ratio(text) > max_compression_ratio
+
+
+def _trim_silence(audio: np.ndarray, *, frame: int = 512, threshold_db: float = -40.0) -> tuple[np.ndarray, int]:
+    """Energy-gate VAD: trims leading and trailing frames 40 dB below the loudest.
+
+    Returns the trimmed audio and the number of leading samples removed, by
+    which decoded times shift back to the original audio.
+    """
+    if audio.size < frame:
+        return audio, 0
+    n = audio.size // frame
+    energy = (audio[: n * frame].reshape(n, frame) ** 2).mean(axis=1)
+    ref = float(energy.max())
+    if ref <= 0:
+        return audio[:0], 0
+    active = 10.0 * np.log10(energy / ref + 1e-12) > threshold_db
+    if not active.any():
+        return audio[:0], 0
+    first, last = np.flatnonzero(active)[[0, -1]]
+    return audio[first * frame : (last + 1) * frame], int(first * frame)
+
+
 __all__ = [
     "CHUNK_FRAMES",
     "CHUNK_SAMPLES",
     "CHUNK_SECONDS",
+    "DecoderAttention",
+    "DecoderBlock",
     "EncoderBlock",
     "HOP_LENGTH",
     "LayerNorm",
@@ -421,11 +1025,20 @@ __all__ = [
     "N_FFT",
     "SAMPLE_RATE",
     "WhisperConfig",
+    "WhisperDecoder",
     "WhisperEncoder",
+    "WhisperForTranscription",
+    "alignment_heads_from_hf_dir",
+    "build_whisper_decoder",
     "build_whisper_encoder",
     "encode_mel_chunks",
+    "load_hf_whisper_decoder_params",
     "load_hf_whisper_encoder_params",
     "log_mel_spectrogram",
+    "random_whisper_decoder_state",
     "random_whisper_encoder_state",
+    "suppress_tokens_from_hf_dir",
+    "transcript_compression_ratio",
+    "transcript_is_degenerate",
     "whisper_config_from_hf_dir",
 ]

@@ -1,0 +1,294 @@
+"""The decode step's attention groups: kernels K3, K4 and K5 on the card.
+
+Counterpart of ``ser_tpu/ops/decode_step_kernels.py``, with the same
+functions, argument layouts and rounding points:
+
+- ``ln_qkv_project`` (K3): float32 LayerNorm, then x·W_qkv + b (d → 3d);
+- ``self_attend_and_out`` (K4): one query per (row, head) over the
+  self-attention cache, keys ≤ ``position``, then the out-projection, bias and
+  residual;
+- ``cross_attention_step`` (K5): LayerNorm, per-head Q projection, one query
+  over the encoder K/V, out-projection, bias and residual, and the float32
+  attention weights (H, R, S) that the alignment heads record.
+
+A CUDA tensor launches the kernel (``csrc/decode_step.cu``); a CPU tensor
+takes the function's plain version (``*_reference``), which repeats the
+kernel's arithmetic op for op in PyTorch. There is no other switch between the
+two, and no fallback: a CUDA call that the kernel cannot take raises.
+
+Rounding points (both versions): LayerNorm in float32; every product
+accumulates in float32 and rounds to the weight dtype at its output; scores
+are divided by ``sqrt(Dh)`` in the compute dtype and the softmax runs in
+float32; P is cast to the compute dtype before P·V; the out-projection sums
+all heads in float32 and rounds once; bias and residual adds are in the
+compute dtype. The K/V cache update stays outside the kernels, as in the JAX
+package (the decode updates the caches in place).
+"""
+
+from __future__ import annotations
+
+from functools import lru_cache
+
+import torch
+
+from ser_tpu_torch.ops import kernel_build
+
+_NEG_INF = -1e30
+_HEAD_DIM = 64
+_TILE_COLS = 32
+
+#: Launches of K3, K4 and K5 (each wrapper adds one per call that launches its kernel).
+LN_QKV_COUNTER = kernel_build.KernelCounter("ln_qkv_project")
+SELF_ATTEND_COUNTER = kernel_build.KernelCounter("self_attend_and_out")
+CROSS_STEP_COUNTER = kernel_build.KernelCounter("cross_attention_step")
+COUNTERS = (LN_QKV_COUNTER, SELF_ATTEND_COUNTER, CROSS_STEP_COUNTER)
+
+
+def ln_f32(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float) -> torch.Tensor:
+    """flax ``nn.LayerNorm`` fast-variance numerics in float32."""
+    x32 = x.to(torch.float32)
+    mean = x32.mean(dim=-1, keepdim=True)
+    mean_sq = (x32 * x32).mean(dim=-1, keepdim=True)
+    var = torch.clamp(mean_sq - mean * mean, min=0.0)
+    normed = (x32 - mean) * torch.rsqrt(var + eps)
+    return normed * scale.to(torch.float32) + bias.to(torch.float32)
+
+
+@lru_cache(maxsize=None)
+def root_d(head_dim: int, dtype: torch.dtype) -> float:
+    """sqrt(Dh) taken in ``dtype`` (the TPU kernels' ``inv_scale``), as a Python float.
+
+    A ``dtype`` tensor divided by this float rounds as a division by the
+    ``dtype`` scalar would (the value is exact in ``dtype``), and no tensor is
+    copied to the card on each call. The kernels take it for bf16: 8.0 for Dh = 64.
+    """
+    return float(torch.sqrt(torch.tensor(float(head_dim), dtype=dtype)))
+
+
+def _attend_reference(q, k_cache, v_cache, bias):
+    """Scores over Dh, ``bias`` added (or None), float32 softmax, then P·V.
+
+    q (R, H, Dh); k_cache (R, H, Dh, S); v_cache (R, H, S, Dh). Returns the
+    per-head outputs (R, H, Dh) and the float32 weights (R, H, S).
+    """
+    cdt = q.dtype
+    scores = torch.einsum("rhd,rhds->rhs", q, k_cache) / root_d(q.shape[-1], cdt)
+    if bias is not None:
+        scores = scores + bias.to(scores.dtype)
+    weights = torch.softmax(scores.to(torch.float32), dim=-1)
+    return torch.einsum("rhs,rhsd->rhd", weights.to(cdt), v_cache), weights
+
+
+def _out_project_reference(heads_out, w_out_heads, b_out, x_residual):
+    """Per-head out-projection summed in float32, rounded, + bias, + residual."""
+    acc = torch.einsum("rhd,hdc->rc", heads_out.to(torch.float32), w_out_heads.to(torch.float32))
+    y = acc.to(x_residual.dtype) + b_out
+    return x_residual + y
+
+
+def ln_qkv_project_reference(x, ln_scale, ln_bias, w_qkv, b_qkv, *, eps: float) -> torch.Tensor:
+    """Plain version of K3: (R, d) → (R, 3d) in ``x``'s dtype."""
+    h = ln_f32(x, ln_scale, ln_bias, eps)
+    return (torch.matmul(h.to(w_qkv.dtype), w_qkv) + b_qkv).to(x.dtype)
+
+
+def self_attend_and_out_reference(q_heads, k_cache, v_cache, w_out_heads, b_out, x_residual, position: int):
+    """Plain version of K4: (R, H, Dh) queries → (R, d); keys after ``position`` masked."""
+    visible = torch.arange(k_cache.shape[-1], device=q_heads.device) <= position
+    bias = torch.where(visible, 0.0, _NEG_INF)
+    heads_out, _ = _attend_reference(q_heads, k_cache, v_cache, bias)
+    return _out_project_reference(heads_out, w_out_heads, b_out, x_residual)
+
+
+def cross_attention_step_reference(
+    x, ln_scale, ln_bias, w_q_heads, b_q_heads, cross_k, cross_v, w_out_heads, b_out, *, eps: float
+):
+    """Plain version of K5: (R, d) → ((R, d), float32 weights (H, R, S))."""
+    cdt = x.dtype
+    h = ln_f32(x, ln_scale, ln_bias, eps).to(cdt)
+    q = torch.einsum("rd,hde->rhe", h, w_q_heads) + b_q_heads[:, 0]
+    heads_out, weights = _attend_reference(q, cross_k, cross_v, None)
+    return _out_project_reference(heads_out, w_out_heads, b_out, x), weights.transpose(0, 1)
+
+
+# --------------------------------------------------------------------------- #
+# Wrappers: kernel on a CUDA tensor, plain version on a CPU tensor
+# --------------------------------------------------------------------------- #
+
+
+def _require(condition: bool, kernel: str, what: str) -> None:
+    if not condition:
+        raise ValueError(f"{kernel} takes {what}.")
+
+
+def _check_cuda_bf16(kernel: str, device: torch.device, *tensors: torch.Tensor) -> None:
+    """Raises unless every tensor is a contiguous, 16-byte aligned bf16 tensor on ``device``.
+
+    One combined test per tensor: the decode calls each wrapper 32 times per
+    step, so the checks' host time counts.
+    """
+    for tensor in tensors:
+        if tensor.dtype is torch.bfloat16 and tensor.device == device and tensor.is_contiguous():
+            if tensor.data_ptr() % 16 == 0:
+                continue
+        if tensor.dtype is not torch.bfloat16:
+            raise TypeError(f"{kernel} takes bfloat16 tensors, got {tensor.dtype}.")
+        _require(tensor.device == device, kernel, "all tensors on one CUDA device")
+        _require(tensor.is_contiguous(), kernel, "contiguous tensors")
+        _require(False, kernel, "16-byte aligned tensors")
+
+
+def _stream(device: torch.device) -> int:
+    """The current stream of ``device`` (looked up by index: the cheapest call)."""
+    return torch.cuda.current_stream(device.index).cuda_stream
+
+
+def ln_qkv_project(x, ln_scale, ln_bias, w_qkv, b_qkv, *, eps: float) -> torch.Tensor:
+    """Fused pre-norm + QKV projection, (R, d) → (R, 3d). Kernel K3 on CUDA tensors.
+
+    Replaces ``ser_tpu/ops/decode_step_kernels.py::ln_qkv_project``. On the
+    H100 it is bound by the bytes of ``w_qkv`` (9.8 MB at large-v3, read
+    once): a GEMV over 32-column tiles, the LayerNorm recomputed per block.
+    ``ln_scale``, ``ln_bias`` (1, d); ``w_qkv`` (d, 3d); ``b_qkv`` (1, 3d).
+    """
+    if x.device.type == "cpu":
+        return ln_qkv_project_reference(x, ln_scale, ln_bias, w_qkv, b_qkv, eps=eps)
+    kernel = "ln_qkv_project"
+    rows, d_model = x.shape
+    n_out = w_qkv.shape[1]
+    _check_cuda_bf16(kernel, x.device, x, ln_scale, ln_bias, w_qkv, b_qkv)
+    _require(ln_scale.numel() == d_model and ln_bias.numel() == d_model, kernel, "(1, d) LayerNorm affines")
+    _require(w_qkv.shape[0] == d_model and n_out % _TILE_COLS == 0, kernel, "w_qkv (d, N) with N % 32 == 0")
+    _require(b_qkv.numel() == n_out, kernel, "b_qkv (1, N)")
+    out = torch.empty((rows, n_out), dtype=x.dtype, device=x.device)
+    code = kernel_build.load(kernel)(
+        x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(), w_qkv.data_ptr(), b_qkv.data_ptr(),
+        out.data_ptr(), rows, d_model, n_out, float(eps), _stream(x.device),
+    )
+    kernel_build.check(code, kernel)
+    LN_QKV_COUNTER.launches += 1
+    return out
+
+
+def self_attend_and_out(q_heads, k_cache, v_cache, w_out_heads, b_out, x_residual, position: int):
+    """Masked cached self-attention + out-projection + residual. Kernel K4 on CUDA.
+
+    Replaces ``ser_tpu/ops/decode_step_kernels.py::self_attend_and_out``.
+    ``q_heads`` (R, H, Dh), any row stride; ``k_cache`` (R, H, Dh, Smax);
+    ``v_cache`` (R, H, Smax, Dh); ``w_out_heads`` (H, Dh, d); ``b_out`` (1, d);
+    ``x_residual`` (R, d); ``position`` a host int: keys 0..position are
+    visible. On the H100 it is bound by the bytes of W_out (3.3 MB at
+    large-v3) and of the cache up to ``position``, which is all it reads.
+    """
+    if q_heads.device.type == "cpu":
+        return self_attend_and_out_reference(q_heads, k_cache, v_cache, w_out_heads, b_out, x_residual, position)
+    kernel = "self_attend_and_out"
+    rows, heads, head_dim = q_heads.shape
+    s_max = k_cache.shape[-1]
+    d_model = x_residual.shape[1]
+    _check_cuda_bf16(kernel, q_heads.device, k_cache, v_cache, w_out_heads, b_out, x_residual)
+    if q_heads.dtype != torch.bfloat16 or q_heads.device != x_residual.device:
+        raise TypeError(f"{kernel} takes bfloat16 q_heads on the residual's device.")
+    _require(head_dim == _HEAD_DIM and q_heads.stride(2) == 1 and q_heads.stride(1) == head_dim,
+             kernel, f"q_heads (R, H, {_HEAD_DIM}) with unit stride inside each row")
+    _require(q_heads.data_ptr() % 4 == 0 and q_heads.stride(0) % 2 == 0, kernel, "4-byte aligned q rows")
+    _require(k_cache.shape == (rows, heads, head_dim, s_max) and v_cache.shape == (rows, heads, s_max, head_dim),
+             kernel, "K (R, H, Dh, Smax) and V (R, H, Smax, Dh) caches")
+    _require(s_max % 2 == 0, kernel, "an even cache length")
+    _require(isinstance(position, int) and 0 <= position < s_max, kernel, "a host int position inside the cache")
+    _require(w_out_heads.shape == (heads, head_dim, d_model) and d_model % _TILE_COLS == 0,
+             kernel, "w_out_heads (H, Dh, d) with d % 32 == 0")
+    _require(b_out.numel() == d_model and x_residual.shape == (rows, d_model), kernel, "b_out (1, d), x (R, d)")
+    heads_out = torch.empty((rows, heads * head_dim), dtype=torch.bfloat16, device=q_heads.device)
+    out = torch.empty_like(x_residual)
+    code = kernel_build.load(kernel)(
+        q_heads.data_ptr(), q_heads.stride(0), k_cache.data_ptr(), v_cache.data_ptr(),
+        w_out_heads.data_ptr(), b_out.data_ptr(), x_residual.data_ptr(), heads_out.data_ptr(),
+        out.data_ptr(), rows, heads, s_max, position, d_model, root_d(head_dim, torch.bfloat16),
+        _stream(q_heads.device),
+    )
+    kernel_build.check(code, kernel)
+    SELF_ATTEND_COUNTER.launches += 1
+    return out
+
+
+def cross_attention_step(
+    x, ln_scale, ln_bias, w_q_heads, b_q_heads, cross_k, cross_v, w_out_heads, b_out, *, eps: float
+):
+    """The whole cross-attention block. Kernel K5 on CUDA tensors.
+
+    Replaces ``ser_tpu/ops/decode_step_kernels.py::cross_attention_step``.
+    ``x`` (R, d); ``w_q_heads`` (H, d, Dh); ``b_q_heads`` (H, 1, Dh);
+    ``cross_k`` (R, H, Dh, S); ``cross_v`` (R, H, S, Dh); ``w_out_heads``
+    (H, Dh, d); ``b_out`` (1, d). Returns (x' (R, d), float32 weights
+    (H, R, S)); alignment capture indexes ``weights[head]``. On the H100 it is
+    bound by the bytes of W_q, W_out (6.6 MB) and the encoder K/V (3.8 MB per
+    row at large-v3).
+    """
+    if x.device.type == "cpu":
+        return cross_attention_step_reference(
+            x, ln_scale, ln_bias, w_q_heads, b_q_heads, cross_k, cross_v, w_out_heads, b_out, eps=eps
+        )
+    kernel = "cross_attention_step"
+    rows, d_model = x.shape
+    heads, _, head_dim = w_q_heads.shape
+    s_len = cross_k.shape[-1]
+    _check_cuda_bf16(kernel, x.device, x, ln_scale, ln_bias, w_q_heads, b_q_heads, cross_k, cross_v,
+                     w_out_heads, b_out)
+    _require(head_dim == _HEAD_DIM and w_q_heads.shape == (heads, d_model, head_dim),
+             kernel, f"w_q_heads (H, d, {_HEAD_DIM})")
+    _require(b_q_heads.numel() == heads * head_dim, kernel, "b_q_heads (H, 1, Dh)")
+    _require(cross_k.shape == (rows, heads, head_dim, s_len) and cross_v.shape == (rows, heads, s_len, head_dim),
+             kernel, "K (R, H, Dh, S) and V (R, H, S, Dh)")
+    _require(s_len % 2 == 0, kernel, "an even number of encoder states")
+    _require(w_out_heads.shape == (heads, head_dim, d_model) and d_model % _TILE_COLS == 0,
+             kernel, "w_out_heads (H, Dh, d) with d % 32 == 0")
+    _require(ln_scale.numel() == d_model and ln_bias.numel() == d_model and b_out.numel() == d_model,
+             kernel, "(1, d) LayerNorm affines and b_out")
+    q_out, heads_out = torch.empty((2, rows, heads * head_dim), dtype=torch.bfloat16, device=x.device)
+    out = torch.empty_like(x)
+    weights = torch.empty((heads, rows, s_len), dtype=torch.float32, device=x.device)
+    code = kernel_build.load(kernel)(
+        x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(), w_q_heads.data_ptr(), b_q_heads.data_ptr(),
+        cross_k.data_ptr(), cross_v.data_ptr(), w_out_heads.data_ptr(), b_out.data_ptr(),
+        q_out.data_ptr(), heads_out.data_ptr(), out.data_ptr(), weights.data_ptr(),
+        rows, heads, s_len, d_model, float(eps), root_d(head_dim, torch.bfloat16), _stream(x.device),
+    )
+    kernel_build.check(code, kernel)
+    CROSS_STEP_COUNTER.launches += 1
+    return out, weights
+
+
+# --------------------------------------------------------------------------- #
+# Weight re-layouts (once per model, not per step)
+# --------------------------------------------------------------------------- #
+
+
+def per_head_out_proj(w_out: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """``(d, d)`` output projection (in, out) → ``(H, Dh, d)`` per-head blocks (a view)."""
+    d_in, d_out = w_out.shape
+    return w_out.reshape(n_heads, d_in // n_heads, d_out)
+
+
+def per_head_q_proj(w_q: torch.Tensor, b_q: torch.Tensor, n_heads: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(d, d)`` Q projection (in, out) → ``(H, d, Dh)`` blocks + ``(H, 1, Dh)`` bias."""
+    d_in, d_out = w_q.shape
+    head_dim = d_out // n_heads
+    w = w_q.reshape(d_in, n_heads, head_dim).permute(1, 0, 2).contiguous()
+    return w, b_q.reshape(n_heads, 1, head_dim)
+
+
+__all__ = [
+    "COUNTERS",
+    "CROSS_STEP_COUNTER",
+    "LN_QKV_COUNTER",
+    "SELF_ATTEND_COUNTER",
+    "cross_attention_step",
+    "cross_attention_step_reference",
+    "ln_qkv_project",
+    "ln_qkv_project_reference",
+    "per_head_out_proj",
+    "per_head_q_proj",
+    "self_attend_and_out",
+    "self_attend_and_out_reference",
+]

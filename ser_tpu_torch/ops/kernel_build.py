@@ -39,11 +39,25 @@ NVCC_FLAGS = (
 
 _POINTER, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
-#: Each source's C entry point and its argument types; every entry point takes
-#: the stream last and returns a CUDA error code (int).
+#: Each source's C entry points, by the name ``load`` takes, with their symbols
+#: and argument types; every entry point takes the stream last and returns a
+#: CUDA error code (int).
 ENTRY_POINTS = {
-    "log_mel": ("ser_power_mel_log", [_POINTER] * 3 + [_INT] * 5 + [_POINTER]),
-    "flash_attention": ("ser_flash_attention_fwd", [_POINTER] * 5 + [_INT] * 4 + [_FLOAT, _POINTER]),
+    "log_mel": {"log_mel": ("ser_power_mel_log", [_POINTER] * 3 + [_INT] * 5 + [_POINTER])},
+    "flash_attention": {
+        "flash_attention": ("ser_flash_attention_fwd", [_POINTER] * 5 + [_INT] * 4 + [_FLOAT, _POINTER]),
+    },
+    "decode_step": {
+        "ln_qkv_project": ("ser_ln_qkv_project", [_POINTER] * 6 + [_INT] * 3 + [_FLOAT, _POINTER]),
+        "self_attend_and_out": (
+            "ser_self_attend_and_out",
+            [_POINTER, _INT] + [_POINTER] * 7 + [_INT] * 5 + [_FLOAT, _POINTER],
+        ),
+        "cross_attention_step": (
+            "ser_cross_attention_step",
+            [_POINTER] * 13 + [_INT] * 4 + [_FLOAT, _FLOAT, _POINTER],
+        ),
+    },
 }
 
 _ENTRIES: dict[str, Callable[..., int]] = {}
@@ -123,7 +137,7 @@ def build_all() -> dict[str, Path]:
 
 
 def load(name: str) -> Callable[..., int]:
-    """The C entry point of ``csrc/<name>.cu``, its signature declared once.
+    """The C entry point ``name`` of ``ENTRY_POINTS``, its signature declared once.
 
     The first call builds every source and loads every library.
     """
@@ -133,11 +147,12 @@ def load(name: str) -> Callable[..., int]:
     with _LOCK:
         if not _ENTRIES:
             for stem, path in build_all().items():
-                symbol, argtypes = ENTRY_POINTS[stem]
-                function = getattr(ctypes.CDLL(str(path)), symbol)
-                function.argtypes = argtypes
-                function.restype = _INT
-                _ENTRIES[stem] = function
+                library = ctypes.CDLL(str(path))
+                for entry_name, (symbol, argtypes) in ENTRY_POINTS[stem].items():
+                    function = getattr(library, symbol)
+                    function.argtypes = argtypes
+                    function.restype = _INT
+                    _ENTRIES[entry_name] = function
         return _ENTRIES[name]
 
 

@@ -2,7 +2,8 @@
 
 Counterpart of ``ser_tpu/profiles.py`` + ``ser_tpu/profile_defs.yaml``. The
 port reads no YAML: the ``accurate`` entry is written out here with the same
-``backend_id``, default model id and runtime defaults as the JAX catalog, so
+``backend_id``, default model id, runtime and transcription defaults as the
+JAX catalog, so
 artifacts trained by either package load in the other. The other profiles are
 named (``ProfileName``) but not yet ported; asking for one raises
 ``NotImplementedError`` (see ``ROADMAP.md``).
@@ -47,6 +48,16 @@ class ProfileRuntimeDefaults:
 
 
 @dataclass(frozen=True)
+class ProfileTranscriptionDefaults:
+    """Default transcription backend selection for one profile."""
+
+    backend_id: str
+    model_name: str
+    use_demucs: bool
+    use_vad: bool
+
+
+@dataclass(frozen=True)
 class ProfileSpec:
     """One catalog entry: the fields the port reads."""
 
@@ -54,6 +65,7 @@ class ProfileSpec:
     backend_id: str
     default_model_id: str
     runtime_defaults: ProfileRuntimeDefaults
+    transcription_defaults: ProfileTranscriptionDefaults
 
 
 _CATALOG: dict[ProfileName, ProfileSpec] = {
@@ -73,6 +85,9 @@ _CATALOG: dict[ProfileName, ProfileSpec] = {
             post_hysteresis_exit_confidence=0.45,
             post_min_segment_duration_seconds=0.40,
             process_isolation=False,
+        ),
+        transcription_defaults=ProfileTranscriptionDefaults(
+            backend_id="jax_whisper", model_name="large", use_demucs=True, use_vad=True
         ),
     ),
 }
@@ -116,6 +131,7 @@ __all__ = [
     "ProfileName",
     "ProfileRuntimeDefaults",
     "ProfileSpec",
+    "ProfileTranscriptionDefaults",
     "require_ported",
     "resolve_profile_name",
 ]

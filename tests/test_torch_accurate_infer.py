@@ -5,7 +5,8 @@ the HF cache root (both load the same weights through their normal loaders),
 one head artifact written by ``ser_tpu``, and ``SER_TORCH_DEVICE=cpu``. A 45 s
 clip (two windows, the second partial) through ``ser_tpu.api.infer`` and
 ``ser_tpu_torch.api.infer`` gives identical labels and segment boundaries, the
-same ``backend_id``, and frame probabilities within 1e-5. Without a CPU
+same ``backend_id``, and frame probabilities within 1e-5 (transcript off;
+``tests/test_torch_transcription.py`` holds the transcript lane). Without a CPU
 request the port raises on this GPU-less host instead of running on the CPU.
 """
 
@@ -175,7 +176,7 @@ def test_auto_device_raises_without_a_card(staged) -> None:
 @pytest.mark.parametrize(
     "options",
     [
-        {"include_transcript": True},
+        {"subtitle_format": "srt"},
         {"save_transcript": True},
         {"subtitle_output_path": "out.srt"},
         {"profile": "fast"},

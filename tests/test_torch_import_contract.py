@@ -76,6 +76,30 @@ def test_port_loads_no_jax_and_no_ser_tpu(fresh_import) -> None:
     assert "torch" in fresh_import["added"]
 
 
+#: The transcript lane's modules: imported in the fresh interpreter like every other.
+TRANSCRIPT_LANE_MODULES = (
+    "ser_tpu_torch.ops.decode_step_kernels",
+    "ser_tpu_torch.models.whisper_decode",
+    "ser_tpu_torch.models.word_timing",
+    "ser_tpu_torch._internal.utils.source_separation",
+    "ser_tpu_torch._internal.utils.denoise",
+    "ser_tpu_torch._internal.transcript.base",
+    "ser_tpu_torch._internal.transcript.hbm_admission",
+    "ser_tpu_torch._internal.transcript.whisper_backend",
+    "ser_tpu_torch._internal.transcript.extractor",
+)
+
+
+@pytest.mark.parametrize("module", TRANSCRIPT_LANE_MODULES)
+def test_transcript_lane_module_is_imported(fresh_import, module: str) -> None:
+    assert module in fresh_import["imported"]
+
+
+def test_port_import_loads_no_tokenizer_library(fresh_import) -> None:
+    """``transformers`` is imported only inside ``from_pretrained_dir``."""
+    assert not [name for name in fresh_import["added"] if name.split(".")[0] == "transformers"]
+
+
 def test_forbidden_name_rule() -> None:
     assert _forbidden("ser_tpu") and _forbidden("ser_tpu.models.whisper") and _forbidden("ser.api")
     assert _forbidden("jax.numpy") and _forbidden("flax.linen") and _forbidden("orbax.checkpoint")
