@@ -13,12 +13,18 @@ per source, in parallel), then, one phase per line:
    version on the same inputs, with its time, the plain version's and its bound;
 3. K2 (flash attention) at the encoder's shapes, with and without a key mask,
    against its plain version in float32, with SDPA's time as the yardstick;
+   then K2-bwd (its backward: Δ, dK/dV and dQ kernels) at the training step's
+   shapes: K2's log-sum-exp against ``torch.logsumexp``, dq, dk and dv against
+   the plain backward in float32 (with two planted faults its limit must
+   catch), dq bit for bit on two runs, and its time beside the plain
+   version's, SDPA's backward and its bound;
 4. K3 (LayerNorm → fused QKV), K4 (cached self-attention + out-projection +
    residual, with poisoned future cache slots at positions 0, 100 and 447) and
    K5 (the cross-attention block and its float32 weights) at large-v3's decode
    shapes with 2 rows, each against its plain version in float32, each with a
    planted fault its limit must catch, and with its time, the plain version's,
-   the unfused PyTorch route's and its bound;
+   the unfused PyTorch route's and its bound; then ``grad-guard``: K1 and K3,
+   which have no backward, refuse a CUDA input that requires grad;
 5. the large-v3 encoder at full width (32 layers, seeded random weights, bf16)
    on 8 windows: audio-seconds per second, MFU, launches per encode, and a
    2-layer full-width card-vs-CPU check of the same weights;
@@ -31,9 +37,17 @@ per source, in parallel), then, one phase per line:
    full width (no VAD, no retries), cold and warm, at the 448- and the
    96-token budget, with the launches of K1-K5;
 8. ``ser_tpu_torch.api.infer(profile="accurate")`` on three synthetic clips at
-   full width.
+   full width;
+9. ``train``: the encoder fine-tuning step as ``bench.py``'s train lane runs it
+   (large-v3 at full width, float32 master weights, bf16 compute, remat
+   ``"dots"``, adafactor(1e-4), batch 4 × 30 s, 3 steps per call through
+   ``make_sharded_train_loop``): ms per step, audio-seconds per second, MFU,
+   peak memory, launches of K1, K2 and K2-bwd per step, finite losses and
+   moving parameters, a device-time profile of one step, and a 2-layer
+   full-width check of one step's loss and gradients against float32 on the
+   CPU.
 
-Phases 6-8 set the launch counts of the kernels they run to 0 just before
+Phases 6-9 set the launch counts of the kernels they run to 0 just before
 their run and read them just after.
 
 It prints a ``kernels`` JSON line, the card's name and power limit, and, as
@@ -44,6 +58,7 @@ without the port.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -56,6 +71,13 @@ import traceback
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
+
+# Without this, a torch.profiler run leaves CUPTI's callbacks on after it
+# ends, and every later PyTorch op costs more host time (6.5 -> 12 us per op on
+# an H100 host): the host-bound timings of the phases after the first profile
+# (transcribe, infer, train) read 1.5-1.9x too slow, and a second profile of a
+# short run traced no device events. Kineto reads it when a trace stops.
+os.environ.setdefault("TEARDOWN_CUPTI", "1")
 
 # Data-sheet peaks of one H100 SXM (dense, 700 W).
 PEAK_BF16_FLOPS = 989e12
@@ -73,6 +95,24 @@ K1_TOLERANCE = 5e-5
 # that. Phase K2 also checks that the limit catches a kernel that lets the 36
 # keys past T in the last 64-key tile into the softmax as zeros.
 K2_REL_L2_TOLERANCE = 7e-3
+# K2's log-sum-exp (natural log, about 8 at T = 1500) against torch.logsumexp
+# of the float32 scores: float32 sums in another order.
+K2_LSE_TOLERANCE = 1e-4
+# K2-bwd, relative L2 error of dq, dk and dv against the float32 plain version
+# on the same bf16 inputs. The kernel rounds P and dS to bf16 before their
+# products, and reads the bf16 forward output for Δ: 0.0024, 0.0023 and 0.0024
+# measured on an H100 (as a CPU emulation of those roundings predicted), and
+# the limit is about 3x that. Phase K2-bwd checks that the limit catches a
+# backward without Δ (0.13 on dq) and one whose P lets the 36 zero keys that
+# pad the last tile into its normalizer (0.014 on each).
+K2_BWD_REL_L2_TOLERANCE = 7e-3
+# Full-width train step, 2 layers, batch 2: loss and named gradients with bf16
+# compute and the kernels on the card against float32 on the CPU, same
+# weights and inputs. Measured on an H100: loss 5.9e-6 relative, gradients
+# 0.023-0.025 rel L2 (bf16 activations throughout); the gradient limit is
+# about 3x that, the loss limit far above its reading.
+TRAIN_CHECK_LOSS_BOUND = 1e-3
+TRAIN_CHECK_GRAD_REL_L2_BOUND = 7.5e-2
 # Full-width encoder, 2 layers: bf16 weights and activations on the card
 # against float32 on the CPU, same weights (about 3.6x the measured 0.00562).
 ENCODER_REL_L2_BOUND = 2e-2
@@ -211,7 +251,21 @@ def phase_environment() -> dict:
     for name in libraries:
         for line in kernel_build.ptxas_report(name).splitlines():
             say("ptxas", source=f"{name}.cu", info=json.dumps(line.strip()))
+    say("host", us_per_op=json.dumps([round(host_us_per_op(), 2) for _ in range(3)]))
     return {"smi": smi}
+
+
+def host_us_per_op(n: int = 20000) -> float:
+    """Host microseconds per PyTorch op on the card (a loop of 1-element adds; the card outpaces it)."""
+    import torch
+
+    x = torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    started = time.perf_counter()
+    for _ in range(n):
+        x.add_(1)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - started) / n * 1e6
 
 
 def phase_k1() -> dict:
@@ -327,6 +381,120 @@ def phase_k2() -> dict:
         "bound_by": bound_by,
         "library_ms": library_ms,
     }
+
+
+def phase_k2_bwd() -> dict:
+    import torch
+    import torch.nn.functional as F
+
+    from ser_tpu_torch.models import attention
+
+    torch.manual_seed(2)
+    batch, seq, heads, dim = 4, 1500, 20, 64  # the training step's shapes
+    q, k, v, dout = (torch.randn(batch, seq, heads, dim, device="cuda").to(torch.bfloat16) for _ in range(4))
+    scale = 1.0 / math.sqrt(dim)
+    out, lse = attention.flash_attention(q, k, v, return_lse=True)
+    grads = attention.flash_attention_backward(q, k, v, out, lse, dout)
+    again = attention.flash_attention_backward(q, k, v, out, lse, dout)
+    torch.cuda.synchronize()
+    same_bits = all(torch.equal(a, b) for a, b in zip(grads, again))
+    del again
+
+    # The plain version in float32 on the same bf16 inputs, with its own output and log-sum-exp.
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, dout))
+    ref_out, ref_lse = attention.attention_with_lse_reference(qf, kf, vf, scale)
+    lse_err = (lse - ref_lse).abs().max().item()
+    refs = attention.attention_backward_reference(qf, kf, vf, ref_out, ref_lse, dof, scale)
+    errs = [rel_l2(g, r) for g, r in zip(grads, refs)]
+    # Planted faults: a backward without Δ (out = 0 makes Δ = 0), and one whose
+    # P lets the 36 zero keys that pad the last 64-key tile into its normalizer.
+    no_delta = attention.attention_backward_reference(qf, kf, vf, torch.zeros_like(ref_out), ref_lse, dof, scale)
+    pad = -seq % 64
+    leaky_lse = torch.logaddexp(ref_lse, torch.full_like(ref_lse, math.log(pad)))
+    leaky = attention.attention_backward_reference(qf, kf, vf, ref_out, leaky_lse, dof, scale)
+    no_delta_errs = [rel_l2(g, r) for g, r in zip(no_delta, refs)]
+    leaky_errs = [rel_l2(g, r) for g, r in zip(leaky, refs)]
+    del no_delta, leaky
+    names = ("dq", "dk", "dv")
+    if not lse_err <= K2_LSE_TOLERANCE:
+        raise AssertionError(f"K2's log-sum-exp disagrees with torch.logsumexp: {lse_err} > {K2_LSE_TOLERANCE}")
+    if not all(e <= K2_BWD_REL_L2_TOLERANCE for e in errs):
+        raise AssertionError(f"K2-bwd disagrees with its plain version: rel L2 {dict(zip(names, errs))}")
+    if not same_bits:
+        raise AssertionError("K2-bwd gave different bits on two runs")
+    for label, fault in (("no-delta", no_delta_errs), ("tail-leak", leaky_errs)):
+        if not max(fault) > K2_BWD_REL_L2_TOLERANCE:
+            raise AssertionError(f"K2-bwd's limit would pass the {label} fault: {fault}")
+
+    ms = cuda_ms(lambda: attention.flash_attention_backward(q, k, v, out, lse, dout))
+    plain_ms = cuda_ms(lambda: attention.attention_backward_reference(q, k, v, out, lse, dout, scale), iters=3,
+                       warmup=1)
+    # SDPA's backward: forward + backward minus forward, on the same tensors.
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+    dot = dout.transpose(1, 2)
+
+    def sdpa_forward():
+        return F.scaled_dot_product_attention(qt, kt, vt)
+
+    sdpa_fwd_ms = cuda_ms(sdpa_forward)
+    sdpa_both_ms = cuda_ms(lambda: torch.autograd.grad(sdpa_forward(), (qt, kt, vt), dot))
+    library_ms = sdpa_both_ms - sdpa_fwd_ms
+    flops = 10.0 * batch * heads * seq * seq * dim  # S (recomputed), dP, dV, dK, dQ
+    bytes_moved = 8 * q.numel() * 2 + lse.numel() * 4
+    bound, bound_by = bound_ms(bytes_moved=bytes_moved, flops=flops, peak_flops=PEAK_BF16_FLOPS)
+    say("K2-bwd", shape=f"(B,T,H,D)=({batch},{seq},{heads},{dim}) bf16", lse_max_abs_err=lse_err,
+        lse_tolerance=K2_LSE_TOLERANCE, rel_l2_err=json.dumps(dict(zip(names, errs))),
+        rel_l2_tolerance=K2_BWD_REL_L2_TOLERANCE, no_delta_fault=json.dumps(dict(zip(names, no_delta_errs))),
+        tail_leak_fault=json.dumps(dict(zip(names, leaky_errs))), same_bits_twice=same_bits, ms=f"{ms:.4f}",
+        plain_ms=f"{plain_ms:.4f}", library_ms=f"{library_ms:.4f}", sdpa_fwd_ms=f"{sdpa_fwd_ms:.4f}",
+        bound_ms=f"{bound:.4f}", bound_by=bound_by, tflops=f"{flops / ms / 1e9:.1f}")
+    return {
+        "name": "flash_attention_bwd",
+        "route": "cuda",
+        "source": "ser_tpu_torch/csrc/flash_attention.cu",
+        "replaces": "ser_tpu/models/attention.py:96",
+        "max_abs_err": max((g.float() - r).abs().max().item() for g, r in zip(grads, refs)),
+        "rel_l2_err": max(errs),
+        "lse_max_abs_err": lse_err,
+        "tolerance": K2_BWD_REL_L2_TOLERANCE,
+        "tolerance_on": "rel_l2_err",
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound,
+        "bound_by": bound_by,
+        "library_ms": library_ms,
+    }
+
+
+def phase_grad_guard() -> dict:
+    """A kernel without an autograd Function refuses an input that requires grad (K1, K3)."""
+    import torch
+
+    from ser_tpu_torch.ops import decode_step_kernels as dsk
+    from ser_tpu_torch.ops import log_mel
+
+    spec = torch.zeros(1, 8, 402, device="cuda", requires_grad=True)
+    fb = torch.zeros(201, 128, device="cuda")
+    d = 1280
+    x = torch.zeros(2, d, device="cuda", dtype=torch.bfloat16, requires_grad=True)
+    ln, w, b = (torch.zeros(shape, device="cuda", dtype=torch.bfloat16) for shape in ((1, d), (d, 3 * d), (1, 3 * d)))
+    refused = {}
+    for name, call in (("K1", lambda: log_mel.power_mel_log(spec, fb)),
+                       ("K3", lambda: dsk.ln_qkv_project(x, ln, ln, w, b, eps=1e-5))):
+        try:
+            call()
+        except RuntimeError as err:
+            refused[name] = "no backward" in str(err)
+        else:
+            refused[name] = False
+    with torch.no_grad():  # the same calls without grad mode launch
+        log_mel.power_mel_log(spec, fb)
+        dsk.ln_qkv_project(x, ln, ln, w, b, eps=1e-5)
+    torch.cuda.synchronize()
+    say("grad-guard", refused=json.dumps(refused))
+    if not all(refused.values()):
+        raise AssertionError(f"a kernel without a backward took an input that requires grad: {refused}")
+    return refused
 
 
 class _Affine:
@@ -594,6 +762,7 @@ def _encoder_flops(config, n_windows: int) -> float:
 _KERNEL_GROUPS = (
     ("K3-K5 decode_step", ("gemv_kernel", "attend_kernel")),
     ("K2 flash_attention", ("flash_attention_fwd_kernel",)),
+    ("K2-bwd flash_attention_bwd", ("flash_attention_bwd",)),
     ("K1 power_mel_log", ("power_mel_log_kernel",)),
     ("gemm", ("nvjet", "gemm", "xmma", "cutlass")),
     ("conv", ("cudnn", "conv")),
@@ -621,33 +790,37 @@ def _profile(run, label: str) -> str:
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
 
-    traced = {}
-    try:
-        with profile(
-            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-            schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
-            on_trace_ready=lambda p: traced.setdefault("events", p.key_averages()),
-        ) as prof:
-            run()
-            torch.cuda.synchronize()
-            prof.step()
-            started = time.perf_counter()
-            run()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - started) * 1e3
-            prof.step()
-    except RuntimeError as err:
-        return f"unavailable ({err})"
-    events = traced.get("events", [])
-    # Device events (kernels, memsets, copies) take no host time of their own;
-    # an operator's row repeats the device time of the kernels it launched, and
-    # the step's own row ("ProfilerStep*") spans all of them.
-    kernels = [
-        e
-        for e in events
-        if e.self_cpu_time_total == 0 and e.self_device_time_total > 0 and not e.key.startswith("ProfilerStep")
-    ]
-    if not kernels:
+    # A trace that starts right after another one ended (CUPTI torn down, see
+    # TEARDOWN_CUPTI above) may hold no device events: trace once more.
+    for _attempt in range(2):
+        traced = {}
+        try:
+            with profile(
+                activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                on_trace_ready=lambda p: traced.setdefault("events", p.key_averages()),
+            ) as prof:
+                run()
+                torch.cuda.synchronize()
+                prof.step()
+                started = time.perf_counter()
+                run()
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - started) * 1e3
+                prof.step()
+        except RuntimeError as err:
+            return f"unavailable ({err})"
+        # Device events (kernels, memsets, copies) take no host time of their
+        # own; an operator's row repeats the device time of the kernels it
+        # launched, and the step's own row ("ProfilerStep*") spans all of them.
+        kernels = [
+            e
+            for e in traced.get("events", [])
+            if e.self_cpu_time_total == 0 and e.self_device_time_total > 0 and not e.key.startswith("ProfilerStep")
+        ]
+        if kernels:
+            break
+    else:
         return "unavailable (no device events traced)"
     device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     groups: dict[str, float] = {}
@@ -1122,6 +1295,230 @@ def phase_infer() -> dict:
     return launches
 
 
+def _train_head(config, n_classes: int = 8) -> dict:
+    """bench.py's seeded 2d → 300 → 8 head (``_bench_train``)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(0)
+    return {
+        "w1": torch.from_numpy((rng.standard_normal((2 * config.d_model, 300)) * 0.02).astype(np.float32)),
+        "b1": torch.zeros(300),
+        "w2": torch.from_numpy((rng.standard_normal((300, n_classes)) * 0.02).astype(np.float32)),
+        "b2": torch.zeros(n_classes),
+    }
+
+
+#: Gradients the 2-layer train check holds to the CPU: q and k reach theirs only
+#: through K2-bwd's dQ and dK, v through dV.
+TRAIN_CHECK_GRADS = (
+    "encoder.conv1.weight",
+    "encoder.layers.0.attn.q.weight",
+    "encoder.layers.0.attn.k.weight",
+    "encoder.layers.1.attn.v.weight",
+    "encoder.layers.1.mlp_in.weight",
+    "head.w1",
+)
+
+
+def _train_check() -> dict:
+    """2-layer full-width train step: loss and named gradients, card (bf16, kernels) against CPU (float32)."""
+    import numpy as np
+    import torch
+
+    from ser_tpu_torch.models import whisper as wm
+    from ser_tpu_torch.parallel import train_step as ts
+
+    config = wm.WhisperConfig(encoder_layers=2)
+    state = wm.random_whisper_encoder_state(config, seed=1, device="cpu")
+    rng = np.random.default_rng(3)
+    waves = torch.from_numpy((0.1 * rng.standard_normal((2, wm.CHUNK_SAMPLES))).astype(np.float32))
+    labels = torch.tensor([1, 6])
+    readings = {}
+    for name, device, dtype in (("cpu", torch.device("cpu"), torch.float32),
+                                ("card", torch.device("cuda"), torch.bfloat16)):
+        encoder = wm.build_trainable_whisper_encoder(config, state, device=device, compute_dtype=dtype,
+                                                     remat=True, remat_policy="dots")
+        head = {key: value.to(device).requires_grad_() for key, value in _train_head(config).items()}
+        params = ts.train_parameters(encoder, head)
+        loss = ts.encoder_classifier_loss(encoder, head, waves.to(device), labels.to(device))
+        grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+        readings[name] = (loss.item(), {key: grads[key].float().cpu() for key in TRAIN_CHECK_GRADS})
+        del encoder, head, params, grads
+    (cpu_loss, cpu_grads), (card_loss, card_grads) = readings["cpu"], readings["card"]
+    return {
+        "loss_cpu": cpu_loss,
+        "loss_card": card_loss,
+        "loss_rel_err": abs(card_loss - cpu_loss) / abs(cpu_loss),
+        "grad_rel_l2": {key: rel_l2(card_grads[key], cpu_grads[key]) for key in TRAIN_CHECK_GRADS},
+        "grad_norm_card": {key: card_grads[key].norm().item() for key in TRAIN_CHECK_GRADS},
+    }
+
+
+class _GcClock:
+    """Host seconds spent in Python's garbage collector while entered, and the collections."""
+
+    def __init__(self) -> None:
+        self.seconds = 0.0
+        self.collections = 0
+        self._started = 0.0
+
+    def _callback(self, phase: str, info: dict) -> None:
+        if phase == "start":
+            self._started = time.perf_counter()
+        else:
+            self.seconds += time.perf_counter() - self._started
+            self.collections += 1
+
+    def __enter__(self) -> "_GcClock":
+        gc.callbacks.append(self._callback)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        gc.callbacks.remove(self._callback)
+
+
+def _split_step(encoder, optimizer, head, opt_state, wave, label) -> dict:
+    """One train step as ``_train_update`` runs it, timed in parts (ms, host clock)."""
+    import torch
+
+    from ser_tpu_torch.parallel import train_step as ts
+
+    valid = torch.full(label.shape, wave.shape[-1], dtype=torch.int32, device=wave.device)
+    params = ts.train_parameters(encoder, head)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = ts.encoder_classifier_loss(encoder, head, wave, label, valid)
+    t1 = time.perf_counter()
+    grads = torch.autograd.grad(loss, list(params.values()))
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    optimizer.apply(params, dict(zip(params, grads)), opt_state)
+    t3 = time.perf_counter()
+    torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    return {
+        "forward_enqueue_ms": (t1 - t0) * 1e3,
+        "loss_and_grads_ms": (t2 - t0) * 1e3,
+        "optimizer_enqueue_ms": (t3 - t2) * 1e3,
+        "optimizer_ms": (t4 - t2) * 1e3,
+        "step_ms": (t4 - t0) * 1e3,
+    }
+
+
+def phase_train() -> dict:
+    import numpy as np
+    import torch
+
+    from ser_tpu_torch.models import attention
+    from ser_tpu_torch.models import whisper as wm
+    from ser_tpu_torch.ops import log_mel
+    from ser_tpu_torch.parallel import optim
+    from ser_tpu_torch.parallel import train_step as ts
+
+    # bench.py's train lane (_bench_train): large-v3, batch 4 x 30 s, bf16
+    # compute on float32 master weights, per-block remat "dots",
+    # adafactor(1e-4), K = 3 steps per call.
+    config = wm.WhisperConfig()
+    cuda = torch.device("cuda")
+    batch, k_steps = 4, 3
+    held_before = torch.cuda.memory_allocated()  # by earlier phases; not the train step's
+    started = time.perf_counter()
+    state = wm.random_whisper_encoder_state(config, seed=0, device=cuda)
+    encoder = wm.build_trainable_whisper_encoder(config, state, device=cuda, compute_dtype=torch.bfloat16,
+                                                 remat=True, remat_policy="dots")
+    del state
+    place, run_steps, optimizer = ts.make_sharded_train_loop(encoder, cuda, optim.adafactor(1e-4))
+    rng = np.random.default_rng(0)
+    waves = torch.from_numpy((0.1 * rng.standard_normal((k_steps, batch, wm.CHUNK_SAMPLES))).astype(np.float32))
+    labels = torch.from_numpy(rng.integers(0, 8, size=(k_steps, batch)).astype(np.int32))
+    head, waves, labels = place(_train_head(config), waves, labels)
+    opt_state = ts.place_optimizer_state(cuda, optimizer.init(ts.train_parameters(encoder, head)))
+    torch.cuda.synchronize()
+    say("train-build", seconds=f"{time.perf_counter() - started:.2f}",
+        params_m=f"{sum(p.numel() for p in encoder.parameters()) / 1e6:.1f}",
+        param_dtype=str(encoder.conv1.weight.dtype), compute_dtype="torch.bfloat16", remat="dots",
+        optimizer=optimizer.name)
+
+    head, opt_state, warm_losses = run_steps(head, opt_state, waves, labels)  # warm-up: cuBLAS, the allocator
+    torch.cuda.synchronize()
+    watched = ("layers.0.attn.q.weight", "layers.31.mlp_out.weight", "conv1.weight")
+    params = dict(encoder.named_parameters())
+    before = {name: params[name].detach().clone() for name in watched}
+    before["head.w2"] = head["w2"].detach().clone()
+
+    counters = (log_mel.COUNTER, attention.COUNTER, attention.BWD_COUNTER)
+    for counter in counters:
+        counter.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    started = time.perf_counter()
+    with _GcClock() as gc_clock:
+        head, opt_state, losses = run_steps(head, opt_state, waves, labels)
+        losses = losses.cpu()
+    elapsed = time.perf_counter() - started
+    launches = {c.name: c.launches for c in counters}
+    peak_gb = (torch.cuda.max_memory_allocated() - held_before) / 1e9
+
+    after = {name: params[name].detach() for name in watched}
+    after["head.w2"] = head["w2"].detach()
+    moved = {name: (after[name] - before[name]).abs().max().item() for name in before}
+    finite = bool(torch.isfinite(losses).all()) and all(bool(torch.isfinite(t).all()) for t in after.values())
+    per_step = {name: count / k_steps for name, count in launches.items()}
+    ms_per_step = elapsed / k_steps * 1e3
+    audio_s_per_s = k_steps * batch * 30.0 / elapsed
+    # 3x the encoder forward (bench.py:64-68's count) plus the attention
+    # products that the "dots" recompute runs again (2 x 2·B·T²·d per layer).
+    flops_per_step = 3 * _encoder_flops(config, batch) + 2 * 2.0 * batch * 1500 * 1500 * config.d_model * config.encoder_layers
+    mfu = flops_per_step / (elapsed / k_steps) / PEAK_BF16_FLOPS
+    say("train", batch=batch, steps=k_steps, seconds=f"{elapsed:.4f}", ms_per_step=f"{ms_per_step:.2f}",
+        audio_s_per_s=f"{audio_s_per_s:.1f}", mfu=f"{mfu:.4f}", tflop_per_step=f"{flops_per_step / 1e12:.3f}",
+        peak_mem_gb=f"{peak_gb:.2f}", held_by_earlier_phases_gb=f"{held_before / 1e9:.2f}",
+        launches=json.dumps(launches), launches_per_step=json.dumps(per_step),
+        losses=json.dumps([round(x, 6) for x in losses.tolist()]),
+        warm_losses=json.dumps([round(x, 6) for x in warm_losses.cpu().tolist()]),
+        param_max_abs_change=json.dumps({n: f"{m:.3g}" for n, m in moved.items()}))
+    if not finite:
+        raise AssertionError(f"train step gave non-finite losses or parameters: {losses.tolist()}")
+    if not all(m > 0 for m in moved.values()):
+        raise AssertionError(f"parameters did not move: {moved}")
+    expected = {"power_mel_log": 1, "flash_attention_fwd": 2 * config.encoder_layers,
+                "flash_attention_bwd": config.encoder_layers}
+    if per_step != expected:
+        raise AssertionError(f"launches per step {per_step}, expected {expected}")
+
+    # One more step, split on the host clock: loss + gradients, then the
+    # optimizer (its host enqueue and its end on the card), and the host time
+    # Python's garbage collector took during the timed steps.
+    split = _split_step(encoder, optimizer, head, opt_state, waves[0], labels[0])
+    say("train-split", gc_ms_per_step=f"{gc_clock.seconds / k_steps * 1e3:.2f}",
+        gc_collections=gc_clock.collections, host_us_per_op=f"{host_us_per_op():.2f}",
+        **{key: f"{value:.2f}" for key, value in split.items()})
+
+    one_step = (waves[:1], labels[:1])
+    state_box = [head, opt_state]
+
+    def train_one_step():
+        state_box[0], state_box[1], _ = run_steps(state_box[0], state_box[1], *one_step)
+
+    breakdown = _profile(train_one_step, "train")
+    say("train-profile", detail=breakdown)
+    del encoder, params, head, opt_state, state_box, before, after
+    torch.cuda.empty_cache()
+
+    check = _train_check()
+    worst = max(check["grad_rel_l2"].values())
+    say("train-check", layers=2, d_model=config.d_model, batch=2, loss_cpu=f"{check['loss_cpu']:.6f}",
+        loss_card=f"{check['loss_card']:.6f}", loss_rel_err=f"{check['loss_rel_err']:.3g}",
+        loss_bound=TRAIN_CHECK_LOSS_BOUND, grad_rel_l2=json.dumps({k: f"{v:.5f}" for k, v in check["grad_rel_l2"].items()}),
+        grad_bound=TRAIN_CHECK_GRAD_REL_L2_BOUND,
+        grad_norm_card=json.dumps({k: f"{v:.4g}" for k, v in check["grad_norm_card"].items()}))
+    if not check["loss_rel_err"] <= TRAIN_CHECK_LOSS_BOUND or not worst <= TRAIN_CHECK_GRAD_REL_L2_BOUND:
+        raise AssertionError(f"card train step disagrees with the CPU: {check}")
+    if not all(norm > 0 for norm in check["grad_norm_card"].values()):
+        raise AssertionError(f"a gradient on the card is zero: {check['grad_norm_card']}")
+    return {"launches": launches, "launches_per_step": per_step, "ms_per_step": ms_per_step}
+
+
 def main() -> int:
     try:
         import torch
@@ -1143,12 +1540,16 @@ def main() -> int:
         k1 = phase_k1()
         phase = "K2"
         k2 = phase_k2()
+        phase = "K2-bwd"
+        k2_bwd = phase_k2_bwd()
         phase = "K3"
         k3 = phase_k3()
         phase = "K4"
         k4 = phase_k4()
         phase = "K5"
         k5 = phase_k5()
+        phase = "grad-guard"
+        phase_grad_guard()
         phase = "encoder"
         per_encode = phase_encoder()
         phase = "decode"
@@ -1157,6 +1558,8 @@ def main() -> int:
         transcribe = phase_transcribe()
         phase = "infer"
         launches = phase_infer()
+        phase = "train"
+        train = phase_train()
     except Exception:
         traceback.print_exc()
         print(f"chip_smoke: FAILED in phase {phase}", file=sys.stderr)
@@ -1171,7 +1574,10 @@ def main() -> int:
         kernel.update(launches=transcribe["launches"][kernel["name"]],
                       launches_per_decode=decode["launches_per_decode"][kernel["name"]],
                       decode_steps=decode["steps"])
-    print(json.dumps({"kernels": [k1, k2, k3, k4, k5]}))
+    # K2-bwd: launches of the timed train call (3 steps).
+    k2_bwd.update(launches=train["launches"]["flash_attention_bwd"],
+                  launches_per_step=train["launches_per_step"]["flash_attention_bwd"])
+    print(json.dumps({"kernels": [k1, k2, k2_bwd, k3, k4, k5]}))
     print(env["smi"])
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -15,6 +15,13 @@
   get_state()``) → the head's (weight (in, out), bias) float32 pairs, as
   ``ser_tpu_torch.models.mlp_head.TorchMLPClassifier.from_state`` reads them.
 
+- ``train_head_params``: the training step's head dict ``{w1, b1, w2, b2}``
+  (flax layout, ``w`` (in, out)) → float32 tensors of the same layout, as
+  ``ser_tpu_torch.parallel.train_step`` takes it.
+- ``flax_whisper_encoder_params`` and ``flax_head_params``: the inverses,
+  port → flax layout as numpy float32, so that trained parameters and
+  gradients can be held against the JAX package's leaf by leaf.
+
 Values are float32; the caller places and casts them (``build_whisper_encoder``).
 """
 
@@ -96,4 +103,55 @@ def mlp_head_layers(state: Mapping) -> list[tuple[torch.Tensor, torch.Tensor]]:
     return [(_tensor(w), _tensor(b)) for w, b in zip(state["weights"], state["biases"])]
 
 
-__all__ = ["mlp_head_layers", "whisper_decoder_state_dict", "whisper_encoder_state_dict"]
+def train_head_params(head: Mapping) -> dict[str, torch.Tensor]:
+    """Training head ``{w1, b1, w2, b2}`` (flax layout) → float32 tensors, same layout."""
+    return {name: _tensor(head[name]) for name in ("w1", "b1", "w2", "b2")}
+
+
+def _array(tensor: torch.Tensor) -> np.ndarray:
+    return tensor.detach().to(device="cpu", dtype=torch.float32).numpy()
+
+
+def flax_whisper_encoder_params(state: Mapping[str, torch.Tensor]) -> dict:
+    """Port encoder ``state_dict`` (or its gradients by the same names) → flax tree of numpy float32."""
+
+    def dense(prefix: str) -> dict:
+        out = {"kernel": np.ascontiguousarray(_array(state[f"{prefix}.weight"]).T)}
+        if f"{prefix}.bias" in state:
+            out["bias"] = _array(state[f"{prefix}.bias"])
+        return out
+
+    def conv(prefix: str) -> dict:
+        kernel = np.ascontiguousarray(_array(state[f"{prefix}.weight"]).transpose(2, 1, 0))
+        return {"kernel": kernel, "bias": _array(state[f"{prefix}.bias"])}
+
+    def layer_norm(prefix: str) -> dict:
+        return {"scale": _array(state[f"{prefix}.weight"]), "bias": _array(state[f"{prefix}.bias"])}
+
+    params = {"conv1": conv("conv1"), "conv2": conv("conv2"), "final_ln": layer_norm("final_ln")}
+    n_layers = sum(1 for key in state if key.startswith("layers.") and key.endswith(".attn_ln.weight"))
+    for i in range(n_layers):
+        base = f"layers.{i}"
+        params[f"layer_{i}"] = {
+            "attn_ln": layer_norm(f"{base}.attn_ln"),
+            "attn": {name: dense(f"{base}.attn.{name}") for name in ("q", "k", "v", "out")},
+            "mlp_ln": layer_norm(f"{base}.mlp_ln"),
+            "mlp_in": dense(f"{base}.mlp_in"),
+            "mlp_out": dense(f"{base}.mlp_out"),
+        }
+    return params
+
+
+def flax_head_params(head: Mapping[str, torch.Tensor]) -> dict[str, np.ndarray]:
+    """Training head tensors (or their gradients) → flax dict of numpy float32."""
+    return {name: _array(head[name]) for name in ("w1", "b1", "w2", "b2")}
+
+
+__all__ = [
+    "flax_head_params",
+    "flax_whisper_encoder_params",
+    "mlp_head_layers",
+    "train_head_params",
+    "whisper_decoder_state_dict",
+    "whisper_encoder_state_dict",
+]

@@ -23,6 +23,11 @@ float32 with flax's fast variance E[x²]−E[x]², block LayerNorm outputs in
 ``ln_dtype`` (float32), the residual stream in the compute dtype after
 ``conv2``, the final LayerNorm in the compute dtype and cast to float32, and
 every float parameter stored in the compute dtype (LayerNorm affines too).
+The training encoder (``build_trainable_whisper_encoder``) keeps the JAX
+training encoder's policy instead: float32 parameters, each product casting
+its input and weights to the compute dtype, and the final LayerNorm in
+float32 (flax promotes bf16 inputs with float32 parameters); its blocks may
+be recomputed in the backward (``remat``, policies ``"full"`` and ``"dots"``).
 
 Layouts: flax Conv kernels (k, in, out) are ``nn.Conv1d`` weights (out, in, k);
 flax Dense kernels (in, out) are ``nn.Linear`` weights (out, in); ``k`` has no
@@ -39,11 +44,19 @@ import struct
 import warnings
 import zlib
 from dataclasses import dataclass
+from functools import partial
 from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+    noop_context_fn,
+)
 
 from ser_tpu_torch.domain import TranscriptWord
 from ser_tpu_torch.models import whisper_decode
@@ -126,7 +139,10 @@ def _sinusoids(length: int, channels: int) -> np.ndarray:
 class LayerNorm(nn.Module):
     """flax ``nn.LayerNorm`` numerics: float32 statistics with the fast variance.
 
-    ``out_dtype`` None returns the input's dtype.
+    ``out_dtype`` None returns flax's default, the promotion of the input's and
+    the parameters' dtypes: bf16 for bf16 inputs and weights (inference), and
+    float32 for float32 master weights (training), as flax's ``final_ln``,
+    which has no ``dtype``, gives.
     """
 
     def __init__(self, dim: int, eps: float, out_dtype: torch.dtype | None = None) -> None:
@@ -143,16 +159,35 @@ class LayerNorm(nn.Module):
         var = torch.clamp(mean_sq - mean * mean, min=0.0)
         mul = torch.rsqrt(var + self.eps) * self.weight.to(torch.float32)
         y = (x32 - mean) * mul + self.bias.to(torch.float32)
-        return y.to(self.out_dtype if self.out_dtype is not None else x.dtype)
+        return y.to(self.out_dtype if self.out_dtype is not None else torch.promote_types(x.dtype, self.weight.dtype))
+
+
+def _dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """flax ``nn.Dense(dtype=...)``: input, kernel and bias cast to ``dtype``.
+
+    The casts are no-ops for weights stored in ``dtype`` (inference); for
+    float32 master weights the gradient reaches them through the cast.
+    """
+    bias = None if layer.bias is None else layer.bias.to(dtype)
+    return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
+
+
+def _conv(layer: nn.Conv1d, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """flax ``nn.Conv(dtype=...)``: input, kernel and bias cast to ``dtype``."""
+    return F.conv1d(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype), layer.stride, layer.padding)
 
 
 class MultiHeadAttention(nn.Module):
-    """Encoder self-attention: q/k/v projections, kernel K2, out projection."""
+    """Encoder self-attention: q/k/v projections, kernel K2, out projection.
 
-    def __init__(self, config: WhisperConfig) -> None:
+    ``compute_dtype`` None computes in the weights' dtype.
+    """
+
+    def __init__(self, config: WhisperConfig, compute_dtype: torch.dtype | None = None) -> None:
         super().__init__()
         d = config.d_model
         self.n_heads = config.n_heads
+        self.compute_dtype = compute_dtype
         self.q = nn.Linear(d, d)
         self.k = nn.Linear(d, d, bias=False)
         self.v = nn.Linear(d, d)
@@ -160,43 +195,91 @@ class MultiHeadAttention(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         batch, seq, d = x.shape
-        x = x.to(self.q.weight.dtype)
+        dtype = self.compute_dtype or self.q.weight.dtype
+        x = x.to(dtype)  # once for the three projections
         heads = (batch, seq, self.n_heads, d // self.n_heads)
-        q = self.q(x).view(heads)
-        k = self.k(x).view(heads)
-        v = self.v(x).view(heads)
-        out = multi_head_attention(q, k, v, compute_dtype=x.dtype)
-        return self.out(out.reshape(batch, seq, d))
+        q = _dense(self.q, x, dtype).view(heads)
+        k = _dense(self.k, x, dtype).view(heads)
+        v = _dense(self.v, x, dtype).view(heads)
+        out = multi_head_attention(q, k, v, compute_dtype=dtype)
+        return _dense(self.out, out.reshape(batch, seq, d), dtype)
 
 
 class EncoderBlock(nn.Module):
     """Pre-norm block: x + attn(LN(x)), then x + mlp(LN(x))."""
 
-    def __init__(self, config: WhisperConfig, ln_dtype: torch.dtype = torch.float32) -> None:
+    def __init__(
+        self,
+        config: WhisperConfig,
+        ln_dtype: torch.dtype = torch.float32,
+        compute_dtype: torch.dtype | None = None,
+    ) -> None:
         super().__init__()
         d = config.d_model
+        self.compute_dtype = compute_dtype
         self.attn_ln = LayerNorm(d, config.layer_norm_eps, ln_dtype)
-        self.attn = MultiHeadAttention(config)
+        self.attn = MultiHeadAttention(config, compute_dtype)
         self.mlp_ln = LayerNorm(d, config.layer_norm_eps, ln_dtype)
         self.mlp_in = nn.Linear(d, 4 * d)
         self.mlp_out = nn.Linear(4 * d, d)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dtype = self.compute_dtype or self.mlp_in.weight.dtype
         x = x + self.attn(self.attn_ln(x))
-        h = self.mlp_ln(x).to(self.mlp_in.weight.dtype)
-        return x + self.mlp_out(gelu_erf(self.mlp_in(h)))
+        h = _dense(self.mlp_in, self.mlp_ln(x), dtype)
+        return x + _dense(self.mlp_out, gelu_erf(h), dtype)
+
+
+REMAT_POLICIES = ("full", "dots")
+
+
+def _save_projections(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """The ``"dots"`` policy: keep the projection products' outputs, recompute the rest.
+
+    Counterpart of ``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``:
+    every ``nn.Dense`` product is a 2-D ``mm``/``addmm`` here; attention
+    (kernel K2, or batched einsums on the CPU), LayerNorm, GELU and the casts
+    are recomputed.
+    """
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
 
 
 class WhisperEncoder(nn.Module):
-    """Mel frames → contextual states. (B, CHUNK_FRAMES, n_mels) → (B, T/2, d) float32."""
+    """Mel frames → contextual states. (B, CHUNK_FRAMES, n_mels) → (B, T/2, d) float32.
 
-    def __init__(self, config: WhisperConfig, ln_dtype: torch.dtype = torch.float32) -> None:
+    ``compute_dtype`` None computes in the weights' dtype (inference, weights
+    stored in bf16 or float32). Training keeps float32 master weights and
+    sets ``compute_dtype`` (bf16 on the card): each product casts its input
+    and weights to it, as flax's ``dtype=`` does. ``remat`` recomputes each
+    block in the backward (``torch.utils.checkpoint``, non-reentrant), all of
+    it (``"full"``) or all but the projection products (``"dots"``); it acts
+    only when grad mode is on.
+    """
+
+    def __init__(
+        self,
+        config: WhisperConfig,
+        ln_dtype: torch.dtype = torch.float32,
+        *,
+        compute_dtype: torch.dtype | None = None,
+        remat: bool = False,
+        remat_policy: str = "full",
+    ) -> None:
         super().__init__()
+        if remat_policy not in REMAT_POLICIES:
+            raise ValueError(f"remat_policy must be one of {REMAT_POLICIES}, got {remat_policy!r}.")
         d = config.d_model
         self.config = config
+        self.compute_dtype = compute_dtype
+        self.remat = remat
+        self.remat_policy = remat_policy
         self.conv1 = nn.Conv1d(config.n_mels, d, kernel_size=3, padding=1)
         self.conv2 = nn.Conv1d(d, d, kernel_size=3, stride=2, padding=1)
-        self.layers = nn.ModuleList(EncoderBlock(config, ln_dtype) for _ in range(config.encoder_layers))
+        self.layers = nn.ModuleList(
+            EncoderBlock(config, ln_dtype, compute_dtype) for _ in range(config.encoder_layers)
+        )
         self.final_ln = LayerNorm(d, config.layer_norm_eps)
         self._positions: dict[tuple, torch.Tensor] = {}
 
@@ -207,13 +290,21 @@ class WhisperEncoder(nn.Module):
             self._positions[key] = table.to(device=device, dtype=dtype)
         return self._positions[key]
 
+    def _run_block(self, layer: EncoderBlock, x: torch.Tensor) -> torch.Tensor:
+        if not (self.remat and torch.is_grad_enabled()):
+            return layer(x)
+        context_fn = noop_context_fn
+        if self.remat_policy == "dots":
+            context_fn = partial(create_selective_checkpoint_contexts, _save_projections)
+        return checkpoint(layer, x, use_reentrant=False, context_fn=context_fn)
+
     def forward(self, mel: torch.Tensor) -> torch.Tensor:
-        dtype = self.conv1.weight.dtype
-        x = gelu_erf(self.conv1(mel.to(dtype).transpose(1, 2)))
-        x = gelu_erf(self.conv2(x)).transpose(1, 2)
+        dtype = self.compute_dtype or self.conv1.weight.dtype
+        x = gelu_erf(_conv(self.conv1, mel.transpose(1, 2), dtype))
+        x = gelu_erf(_conv(self.conv2, x, dtype)).transpose(1, 2)
         x = x + self._position_table(x.shape[1], x.device, dtype)[None]
         for layer in self.layers:
-            x = layer(x)
+            x = self._run_block(layer, x)
         return self.final_ln(x).to(torch.float32)
 
 
@@ -234,6 +325,29 @@ def build_whisper_encoder(
     placed = {name: tensor.to(device=device, dtype=dtype) for name, tensor in state_dict.items()}
     encoder.load_state_dict(placed, strict=True, assign=True)
     return encoder.eval()
+
+
+def build_trainable_whisper_encoder(
+    config: WhisperConfig,
+    state_dict: dict[str, torch.Tensor],
+    *,
+    device: torch.device,
+    compute_dtype: torch.dtype,
+    remat: bool = True,
+    remat_policy: str = "dots",
+) -> WhisperEncoder:
+    """A train-mode encoder with float32 master weights on ``device``, computing in ``compute_dtype``.
+
+    The training counterpart of :func:`build_whisper_encoder`: the JAX
+    package's training encoder keeps float32 parameters
+    (``init_whisper_encoder_params``) and casts them per op. Built on the meta
+    device and filled by assignment, like the inference encoder.
+    """
+    with torch.device("meta"):
+        encoder = WhisperEncoder(config, compute_dtype=compute_dtype, remat=remat, remat_policy=remat_policy)
+    placed = {name: tensor.to(device=device, dtype=torch.float32) for name, tensor in state_dict.items()}
+    encoder.load_state_dict(placed, strict=True, assign=True)
+    return encoder.train()
 
 
 @torch.inference_mode()
@@ -1023,12 +1137,14 @@ __all__ = [
     "LayerNorm",
     "MultiHeadAttention",
     "N_FFT",
+    "REMAT_POLICIES",
     "SAMPLE_RATE",
     "WhisperConfig",
     "WhisperDecoder",
     "WhisperEncoder",
     "WhisperForTranscription",
     "alignment_heads_from_hf_dir",
+    "build_trainable_whisper_encoder",
     "build_whisper_decoder",
     "build_whisper_encoder",
     "encode_mel_chunks",

@@ -157,6 +157,7 @@ def ln_qkv_project(x, ln_scale, ln_bias, w_qkv, b_qkv, *, eps: float) -> torch.T
     rows, d_model = x.shape
     n_out = w_qkv.shape[1]
     _check_cuda_bf16(kernel, x.device, x, ln_scale, ln_bias, w_qkv, b_qkv)
+    kernel_build.refuse_grad(kernel, x, ln_scale, ln_bias, w_qkv, b_qkv)
     _require(ln_scale.numel() == d_model and ln_bias.numel() == d_model, kernel, "(1, d) LayerNorm affines")
     _require(w_qkv.shape[0] == d_model and n_out % _TILE_COLS == 0, kernel, "w_qkv (d, N) with N % 32 == 0")
     _require(b_qkv.numel() == n_out, kernel, "b_qkv (1, N)")
@@ -187,6 +188,7 @@ def self_attend_and_out(q_heads, k_cache, v_cache, w_out_heads, b_out, x_residua
     s_max = k_cache.shape[-1]
     d_model = x_residual.shape[1]
     _check_cuda_bf16(kernel, q_heads.device, k_cache, v_cache, w_out_heads, b_out, x_residual)
+    kernel_build.refuse_grad(kernel, q_heads, k_cache, v_cache, w_out_heads, b_out, x_residual)
     if q_heads.dtype != torch.bfloat16 or q_heads.device != x_residual.device:
         raise TypeError(f"{kernel} takes bfloat16 q_heads on the residual's device.")
     _require(head_dim == _HEAD_DIM and q_heads.stride(2) == 1 and q_heads.stride(1) == head_dim,
@@ -235,6 +237,8 @@ def cross_attention_step(
     s_len = cross_k.shape[-1]
     _check_cuda_bf16(kernel, x.device, x, ln_scale, ln_bias, w_q_heads, b_q_heads, cross_k, cross_v,
                      w_out_heads, b_out)
+    kernel_build.refuse_grad(kernel, x, ln_scale, ln_bias, w_q_heads, b_q_heads, cross_k, cross_v, w_out_heads,
+                             b_out)
     _require(head_dim == _HEAD_DIM and w_q_heads.shape == (heads, d_model, head_dim),
              kernel, f"w_q_heads (H, d, {_HEAD_DIM})")
     _require(b_q_heads.numel() == heads * head_dim, kernel, "b_q_heads (H, 1, Dh)")

@@ -25,6 +25,8 @@ from collections.abc import Callable
 from dataclasses import dataclass
 from pathlib import Path
 
+import torch
+
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = (
@@ -45,7 +47,8 @@ _POINTER, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 ENTRY_POINTS = {
     "log_mel": {"log_mel": ("ser_power_mel_log", [_POINTER] * 3 + [_INT] * 5 + [_POINTER])},
     "flash_attention": {
-        "flash_attention": ("ser_flash_attention_fwd", [_POINTER] * 5 + [_INT] * 4 + [_FLOAT, _POINTER]),
+        "flash_attention": ("ser_flash_attention_fwd", [_POINTER] * 6 + [_INT] * 5 + [_FLOAT, _POINTER]),
+        "flash_attention_bwd": ("ser_flash_attention_bwd", [_POINTER] * 10 + [_INT] * 5 + [_FLOAT, _POINTER]),
     },
     "decode_step": {
         "ln_qkv_project": ("ser_ln_qkv_project", [_POINTER] * 6 + [_INT] * 3 + [_FLOAT, _POINTER]),
@@ -156,6 +159,20 @@ def load(name: str) -> Callable[..., int]:
         return _ENTRIES[name]
 
 
+def refuse_grad(kernel: str, *tensors: torch.Tensor) -> None:
+    """Raises when grad mode is on and an input requires grad.
+
+    A kernel's output is filled through ``ctypes`` and is not connected to
+    autograd; a kernel without an autograd Function would cut the gradient
+    without a word.
+    """
+    if torch.is_grad_enabled() and any(tensor.requires_grad for tensor in tensors):
+        raise RuntimeError(
+            f"{kernel} has no backward on the card: call it on inputs that do not require grad "
+            "(or under torch.no_grad())."
+        )
+
+
 def check(code: int, kernel: str) -> None:
     """Raises :class:`KernelLaunchError` for a non-zero CUDA error code."""
     if code != 0:
@@ -182,5 +199,6 @@ __all__ = [
     "check",
     "load",
     "ptxas_report",
+    "refuse_grad",
     "sources",
 ]

@@ -103,6 +103,7 @@ def power_mel_log(
         raise ValueError(f"Bad shapes: spec {tuple(spec.shape)}, fb {tuple(fb.shape)}, out {out_frames}.")
     if not (spec.is_contiguous() and fb.is_contiguous()):
         raise ValueError("power_mel_log takes contiguous tensors.")
+    kernel_build.refuse_grad("power_mel_log", spec, fb)
     entry = kernel_build.load("log_mel")
     out = torch.empty((batch, out_frames, n_mels), dtype=torch.float32, device=spec.device)
     stream = torch.cuda.current_stream(spec.device).cuda_stream

@@ -95,6 +95,22 @@ def test_transcript_lane_module_is_imported(fresh_import, module: str) -> None:
     assert module in fresh_import["imported"]
 
 
+#: The training slice's modules: imported in the fresh interpreter like every other.
+TRAINING_MODULES = (
+    "ser_tpu_torch.parallel",
+    "ser_tpu_torch.parallel.train_step",
+    "ser_tpu_torch.parallel.optim",
+    "ser_tpu_torch.parallel.checkpoint",
+    "ser_tpu_torch.scripts.train_encoder_scaled",
+    "ser_tpu_torch._internal.data.ravdess",
+)
+
+
+@pytest.mark.parametrize("module", TRAINING_MODULES)
+def test_training_module_is_imported(fresh_import, module: str) -> None:
+    assert module in fresh_import["imported"]
+
+
 def test_port_import_loads_no_tokenizer_library(fresh_import) -> None:
     """``transformers`` is imported only inside ``from_pretrained_dir``."""
     assert not [name for name in fresh_import["added"] if name.split(".")[0] == "transformers"]
