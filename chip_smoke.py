@@ -12,12 +12,14 @@ per source, in parallel), then, one phase per line:
 2. K1 (power → mel → log10) at the main path's shapes, against its plain
    version on the same inputs, with its time, the plain version's and its bound;
 3. K2 (flash attention) at the encoder's shapes, with and without a key mask,
-   against its plain version in float32, with SDPA's time as the yardstick;
-   then K2-bwd (its backward: Δ, dK/dV and dQ kernels) at the training step's
-   shapes: K2's log-sum-exp against ``torch.logsumexp``, dq, dk and dv against
-   the plain backward in float32 (with two planted faults its limit must
-   catch), dq bit for bit on two runs, and its time beside the plain
-   version's, SDPA's backward and its bound;
+   and at T = 1409 (one valid row in the last 128-row tile), against its plain
+   version in float32, with SDPA's time as the yardstick; then K2-bwd (its
+   backward: Δ, dK/dV and dQ kernels) at the training step's shapes and at
+   T = 1409: K2's log-sum-exp against ``torch.logsumexp``, dq, dk and dv
+   against the plain backward in float32 (with two planted faults its limit
+   must catch), dq bit for bit on two runs, and its time beside the plain
+   version's, SDPA's backward and its bound. Each line gives the achieved
+   TFLOP/s, the share of the bound and the time over SDPA's;
 4. K3 (LayerNorm → fused QKV), K4 (cached self-attention + out-projection +
    residual, with poisoned future cache slots at positions 0, 100 and 447) and
    K5 (the cross-attention block and its float32 weights) at large-v3's decode
@@ -92,8 +94,10 @@ K1_TOLERANCE = 5e-5
 # max 0.73 on an H100), so an absolute limit says little. The kernel's own error
 # is bf16 rounding of P before the P·V product and of the output, each about
 # 2^-9 of an element: 0.0022 measured, masked or not, and the limit is about 3x
-# that. Phase K2 also checks that the limit catches a kernel that lets the 36
-# keys past T in the last 64-key tile into the softmax as zeros.
+# that. Phase K2 also checks that the limit catches a kernel that lets the keys
+# past T in the last key tile (36 of 128 at T = 1500) into the softmax as zeros,
+# and holds the kernel to the same limit at T = 1409 (11 * 128 + 1: one valid
+# key and query in the last tile).
 K2_REL_L2_TOLERANCE = 7e-3
 # K2's log-sum-exp (natural log, about 8 at T = 1500) against torch.logsumexp
 # of the float32 scores: float32 sums in another order.
@@ -104,7 +108,8 @@ K2_LSE_TOLERANCE = 1e-4
 # measured on an H100 (as a CPU emulation of those roundings predicted), and
 # the limit is about 3x that. Phase K2-bwd checks that the limit catches a
 # backward without Δ (0.13 on dq) and one whose P lets the 36 zero keys that
-# pad the last tile into its normalizer (0.014 on each).
+# pad the last tile into its normalizer (0.014 on each), and holds the kernel
+# to the same limit at T = 1409.
 K2_BWD_REL_L2_TOLERANCE = 7e-3
 # Full-width train step, 2 layers, batch 2: loss and named gradients with bf16
 # compute and the kernels on the card against float32 on the CPU, same
@@ -313,6 +318,27 @@ def phase_k1() -> dict:
     }
 
 
+# A sequence length with one valid key and query in the kernels' last 128-row tile.
+RAGGED_SEQ = 1409
+
+
+def _rates(flops: float, ms: float, bound: float, library_ms: float) -> dict:
+    """Achieved TFLOP/s, the share of the bound, and the time over the library call's."""
+    return {"tflops": f"{flops / ms / 1e9:.1f}", "bound_share": f"{bound / ms:.3f}",
+            "ms_over_library": f"{ms / library_ms:.3f}"}
+
+
+def _k2_ragged_rel_l2(batch: int, heads: int, dim: int) -> float:
+    """K2 (unmasked) against its plain version at T = RAGGED_SEQ."""
+    import torch
+
+    from ser_tpu_torch.models import attention
+
+    q, k, v = (torch.randn(batch, RAGGED_SEQ, heads, dim, device="cuda").to(torch.bfloat16) for _ in range(3))
+    out = attention.flash_attention(q, k, v)
+    return rel_l2(out, attention.attention_reference(q.float(), k.float(), v.float()))
+
+
 def phase_k2() -> dict:
     import torch
     import torch.nn.functional as F
@@ -341,7 +367,7 @@ def phase_k2() -> dict:
             )
         if frame_mask is None:
             # What a kernel that forgot to mask the last tile's keys past T would give.
-            tail = torch.zeros(batch, -seq % 64, heads, dim, device="cuda")
+            tail = torch.zeros(batch, -seq % attention._TILE, heads, dim, device="cuda")
             leaky = attention.attention_reference(
                 q.float(), torch.cat([k.float(), tail], 1), torch.cat([v.float(), tail], 1)
             )
@@ -349,6 +375,9 @@ def phase_k2() -> dict:
             if not tail_leak_rel_l2 > K2_REL_L2_TOLERANCE:
                 raise AssertionError(f"K2's limit would pass unmasked tail keys: {tail_leak_rel_l2}")
             del leaky
+    ragged_rel_l2 = _k2_ragged_rel_l2(batch, heads, dim)
+    if not ragged_rel_l2 <= K2_REL_L2_TOLERANCE:
+        raise AssertionError(f"K2 disagrees with its plain version at T = {RAGGED_SEQ}: {ragged_rel_l2}")
     plain_ms = cuda_ms(lambda: attention.attention_reference(q, k, v), iters=5, warmup=1)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
@@ -359,10 +388,10 @@ def phase_k2() -> dict:
     masked_err, masked_rel_l2, masked_ms, _ = results["masked"]
     say("K2", shape=f"(B,T,H,D)=({batch},{seq},{heads},{dim}) bf16", max_abs_err=err,
         rel_l2_err=rel_l2, masked_max_abs_err=masked_err, masked_rel_l2_err=masked_rel_l2,
-        rel_l2_tolerance=K2_REL_L2_TOLERANCE, tail_leak_rel_l2=tail_leak_rel_l2, ref_abs=ref_size,
-        ms=f"{ms:.4f}", masked_ms=f"{masked_ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+        ragged_rel_l2_err=ragged_rel_l2, rel_l2_tolerance=K2_REL_L2_TOLERANCE, tail_leak_rel_l2=tail_leak_rel_l2,
+        ref_abs=ref_size, ms=f"{ms:.4f}", masked_ms=f"{masked_ms:.4f}", plain_ms=f"{plain_ms:.4f}",
         library_ms=f"{library_ms:.4f}", bound_ms=f"{bound:.4f}", bound_by=bound_by,
-        tflops=f"{flops / ms / 1e9:.1f}")
+        **_rates(flops, ms, bound, library_ms))
     return {
         "name": "flash_attention_fwd",
         "route": "cuda",
@@ -372,6 +401,7 @@ def phase_k2() -> dict:
         "rel_l2_err": rel_l2,
         "masked_max_abs_err": masked_err,
         "masked_rel_l2_err": masked_rel_l2,
+        "ragged_rel_l2_err": ragged_rel_l2,
         "tolerance": K2_REL_L2_TOLERANCE,
         "tolerance_on": "rel_l2_err",
         "ms": ms,
@@ -381,6 +411,24 @@ def phase_k2() -> dict:
         "bound_by": bound_by,
         "library_ms": library_ms,
     }
+
+
+def _k2_bwd_ragged_rel_l2(batch: int, heads: int, dim: int, scale: float) -> list[float]:
+    """K2-bwd's dq, dk, dv against the plain backward at T = RAGGED_SEQ, and K2's lse within its limit."""
+    import torch
+
+    from ser_tpu_torch.models import attention
+
+    q, k, v, dout = (torch.randn(batch, RAGGED_SEQ, heads, dim, device="cuda").to(torch.bfloat16) for _ in range(4))
+    out, lse = attention.flash_attention(q, k, v, return_lse=True)
+    grads = attention.flash_attention_backward(q, k, v, out, lse, dout)
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, dout))
+    ref_out, ref_lse = attention.attention_with_lse_reference(qf, kf, vf, scale)
+    lse_err = (lse - ref_lse).abs().max().item()
+    if not lse_err <= K2_LSE_TOLERANCE:
+        raise AssertionError(f"K2's log-sum-exp at T = {RAGGED_SEQ} disagrees: {lse_err} > {K2_LSE_TOLERANCE}")
+    refs = attention.attention_backward_reference(qf, kf, vf, ref_out, ref_lse, dof, scale)
+    return [rel_l2(g, r) for g, r in zip(grads, refs)]
 
 
 def phase_k2_bwd() -> dict:
@@ -407,9 +455,9 @@ def phase_k2_bwd() -> dict:
     refs = attention.attention_backward_reference(qf, kf, vf, ref_out, ref_lse, dof, scale)
     errs = [rel_l2(g, r) for g, r in zip(grads, refs)]
     # Planted faults: a backward without Δ (out = 0 makes Δ = 0), and one whose
-    # P lets the 36 zero keys that pad the last 64-key tile into its normalizer.
+    # P lets the zero keys that pad the last key tile into its normalizer.
     no_delta = attention.attention_backward_reference(qf, kf, vf, torch.zeros_like(ref_out), ref_lse, dof, scale)
-    pad = -seq % 64
+    pad = -seq % attention._TILE
     leaky_lse = torch.logaddexp(ref_lse, torch.full_like(ref_lse, math.log(pad)))
     leaky = attention.attention_backward_reference(qf, kf, vf, ref_out, leaky_lse, dof, scale)
     no_delta_errs = [rel_l2(g, r) for g, r in zip(no_delta, refs)]
@@ -422,6 +470,9 @@ def phase_k2_bwd() -> dict:
         raise AssertionError(f"K2-bwd disagrees with its plain version: rel L2 {dict(zip(names, errs))}")
     if not same_bits:
         raise AssertionError("K2-bwd gave different bits on two runs")
+    ragged_errs = _k2_bwd_ragged_rel_l2(batch, heads, dim, scale)
+    if not all(e <= K2_BWD_REL_L2_TOLERANCE for e in ragged_errs):
+        raise AssertionError(f"K2-bwd disagrees with its plain version at T = {RAGGED_SEQ}: {ragged_errs}")
     for label, fault in (("no-delta", no_delta_errs), ("tail-leak", leaky_errs)):
         if not max(fault) > K2_BWD_REL_L2_TOLERANCE:
             raise AssertionError(f"K2-bwd's limit would pass the {label} fault: {fault}")
@@ -444,10 +495,11 @@ def phase_k2_bwd() -> dict:
     bound, bound_by = bound_ms(bytes_moved=bytes_moved, flops=flops, peak_flops=PEAK_BF16_FLOPS)
     say("K2-bwd", shape=f"(B,T,H,D)=({batch},{seq},{heads},{dim}) bf16", lse_max_abs_err=lse_err,
         lse_tolerance=K2_LSE_TOLERANCE, rel_l2_err=json.dumps(dict(zip(names, errs))),
-        rel_l2_tolerance=K2_BWD_REL_L2_TOLERANCE, no_delta_fault=json.dumps(dict(zip(names, no_delta_errs))),
+        ragged_rel_l2_err=json.dumps(dict(zip(names, ragged_errs))), rel_l2_tolerance=K2_BWD_REL_L2_TOLERANCE,
+        no_delta_fault=json.dumps(dict(zip(names, no_delta_errs))),
         tail_leak_fault=json.dumps(dict(zip(names, leaky_errs))), same_bits_twice=same_bits, ms=f"{ms:.4f}",
         plain_ms=f"{plain_ms:.4f}", library_ms=f"{library_ms:.4f}", sdpa_fwd_ms=f"{sdpa_fwd_ms:.4f}",
-        bound_ms=f"{bound:.4f}", bound_by=bound_by, tflops=f"{flops / ms / 1e9:.1f}")
+        bound_ms=f"{bound:.4f}", bound_by=bound_by, **_rates(flops, ms, bound, library_ms))
     return {
         "name": "flash_attention_bwd",
         "route": "cuda",
@@ -456,6 +508,7 @@ def phase_k2_bwd() -> dict:
         "max_abs_err": max((g.float() - r).abs().max().item() for g, r in zip(grads, refs)),
         "rel_l2_err": max(errs),
         "lse_max_abs_err": lse_err,
+        "ragged_rel_l2_err": max(ragged_errs),
         "tolerance": K2_BWD_REL_L2_TOLERANCE,
         "tolerance_on": "rel_l2_err",
         "ms": ms,

@@ -33,7 +33,7 @@ COUNTER = kernel_build.KernelCounter("flash_attention_fwd")
 BWD_COUNTER = kernel_build.KernelCounter("flash_attention_bwd")
 
 _HEAD_DIM = 64
-_TILE = 64  # the kernels' query and key tile: the log-sum-exp rows are padded to it
+_TILE = 128  # the kernels' query and key tile (kBlockQ): the log-sum-exp and key-mask rows are padded to it
 
 
 def attention_reference(
@@ -135,33 +135,37 @@ def flash_attention(
     """Kernel K2 on CUDA tensors: (B, T, H, 64) bf16 q, k, v → (B, T, H, 64) bf16.
 
     With ``return_lse`` it also returns the float32 (B, H, T) log-sum-exp of
-    the scaled scores (natural log), a view of a (B, H, T rounded up to 64)
+    the scaled scores (natural log), a view of a (B, H, T rounded up to 128)
     buffer that K2-bwd reads; without it the kernel writes none.
 
     Replaces the Pallas ``flash_attention`` behind ``ser_tpu/models/attention.py::
     _flash_path``. On the H100 the tensor cores bound it: at (8, 1500, 20, 64)
-    one call is 92 GFLOP against 123 MB of q, k, v and out. The kernel keeps
-    the scores in registers (online softmax), runs both products on the tensor
-    cores and overlaps the next K/V tile's load with the current tile's math
-    (``csrc/flash_attention.cu``). It has no autograd: :class:`FlashAttention`
-    is the differentiable route.
+    one call is 92 GFLOP (0.093 ms at the bf16 peak) against 123 MB of q, k,
+    v and out, and at D = 64 its 360 M exponentials take about as long on the
+    special-function units. The kernel (``csrc/flash_attention.cu``) is a
+    persistent, warp-specialised Hopper kernel: a producer warp streams K/V
+    tiles by TMA into an mbarrier ring, two consumer warpgroups run Q·Kᵀ and
+    P·V as ``wgmma`` with the online softmax in registers, and take turns on
+    the tensor cores so that one's softmax runs under the other's products.
+    It has no autograd: :class:`FlashAttention` is the differentiable route.
     """
     _check_operands("flash_attention", q, k, v)
     kernel_build.refuse_grad("flash_attention", q, k, v)
     batch, seq, heads, head_dim = q.shape
+    padded = _padded_len(seq)
     mask_ptr = None
     mask = None
     if frame_mask is not None:
         if frame_mask.shape != (batch, seq):
             raise ValueError(f"frame_mask must be (B, T) = {(batch, seq)}.")
-        mask = frame_mask.to(device=q.device, dtype=torch.uint8).contiguous()
+        # Rows of T rounded up to the key tile: each tile's bytes arrive in one aligned copy.
+        mask = torch.zeros((batch, padded), dtype=torch.uint8, device=q.device)
+        mask[:, :seq] = frame_mask
         mask_ptr = mask.data_ptr()
     entry = kernel_build.load("flash_attention")
     out = torch.empty_like(q)
     lse = None
-    padded = 0
     if return_lse:
-        padded = _padded_len(seq)
         lse = torch.empty((batch, heads, padded), dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     code = entry(
@@ -178,7 +182,7 @@ def flash_attention(
 
 
 def _padded_lse(lse: torch.Tensor, batch: int, heads: int, seq: int) -> torch.Tensor:
-    """``lse`` (B, H, T) as the kernels read it: rows of T rounded up to 64 floats.
+    """``lse`` (B, H, T) as the kernels read it: rows of T rounded up to 128 floats.
 
     The view :func:`flash_attention` returns already is; anything else is
     copied into such a buffer. The kernels never read the values past T.
@@ -205,11 +209,16 @@ def flash_attention_backward(
     """K2-bwd: (dq, dk, dv) of unmasked attention, each like q.
 
     CUDA tensors (bf16, (B, T, H, 64), contiguous) launch the kernels: Δ, then
-    dK/dV, then dQ (``csrc/flash_attention.cu``). Replaces the Pallas
-    ``flash_attention``'s dkv and dq backward kernels. At the training step's
-    (4, 1500, 20, 64) the tensor cores bound it: five T×T×D products, 115
-    GFLOP, against about 123 MB of operands. CPU tensors take
-    :func:`attention_backward_reference`, cast to q's dtype.
+    dK/dV, then dQ (``csrc/flash_attention.cu``), the dQ grid started under
+    the tail of the dK/dV grid. Replaces the Pallas ``flash_attention``'s dkv
+    and dq backward kernels. At the training step's (4, 1500, 20, 64) the
+    tensor cores bound it: five T×T×D products, 115 GFLOP (0.117 ms), against
+    about 123 MB of operands; the two kernels recompute S and dP in each, 7
+    products (about 0.16 ms), so that dQ needs no atomics and keeps its bits
+    from run to run. Both are warp-specialised Hopper kernels like K2
+    (``wgmma``, TMA into an mbarrier ring, two consumer warpgroups taking
+    turns). CPU tensors take :func:`attention_backward_reference`, cast to q's
+    dtype.
     """
     scale = 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cpu":

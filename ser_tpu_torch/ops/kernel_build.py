@@ -180,12 +180,12 @@ def check(code: int, kernel: str) -> None:
 
 
 def ptxas_report(name: str) -> str:
-    """The last build's ``-Xptxas=-v`` lines for one source ('' when not built here)."""
+    """The last build's ``-Xptxas=-v`` lines for one source, spills included ('' when not built here)."""
     log = BUILD_DIR / f"{name}.log"
     if not log.is_file():
         return ""
     lines = log.read_text(encoding="utf-8").splitlines()
-    return "\n".join(line for line in lines if "ptxas info" in line)
+    return "\n".join(line for line in lines if "ptxas info" in line or "bytes spill" in line)
 
 
 __all__ = [

@@ -11,6 +11,7 @@ and is held against this plain version by ``chip_smoke.py`` (phase K2-bwd).
 from __future__ import annotations
 
 import math
+import re
 
 import jax
 import jax.numpy as jnp
@@ -108,11 +109,16 @@ def test_cpu_multi_head_attention_keeps_the_plain_forward_under_grad() -> None:
         np.testing.assert_allclose(ours.numpy(), ref.numpy(), atol=ATOL)
 
 
-@pytest.mark.parametrize("seq", [37, 64, 1500])
+@pytest.mark.parametrize("seq", [37, 64, 128, 1409, 1500])
 def test_padded_lse_layout(seq) -> None:
+    # The kernels' query tile, as the C source declares it: the C entry points
+    # refuse an lse (or key mask) whose rows are not T rounded up to it.
+    source = (kernel_build.CSRC_DIR / "flash_attention.cu").read_text(encoding="utf-8")
+    (tile,) = re.findall(r"constexpr int kBlockQ = (\d+);", source)
+    assert attention._TILE == int(tile) == 128
     lse = torch.randn(2, 3, seq)
     padded = attention._padded_lse(lse, 2, 3, seq)
-    width = -(-seq // 64) * 64
+    width = -(-seq // 128) * 128
     assert padded.stride() == (3 * width, width, 1)
     assert torch.equal(padded, lse)
     assert attention._padded_lse(padded, 2, 3, seq) is padded
