@@ -21,12 +21,15 @@ per source, in parallel), then, one phase per line:
    version's, SDPA's backward and its bound. Each line gives the achieved
    TFLOP/s, the share of the bound and the time over SDPA's;
 4. K3 (LayerNorm → fused QKV), K4 (cached self-attention + out-projection +
-   residual, with poisoned future cache slots at positions 0, 100 and 447) and
-   K5 (the cross-attention block and its float32 weights) at large-v3's decode
-   shapes with 2 rows, each against its plain version in float32, each with a
-   planted fault its limit must catch, and with its time, the plain version's,
-   the unfused PyTorch route's and its bound; then ``grad-guard``: K1 and K3,
-   which have no backward, refuse a CUDA input that requires grad;
+   residual, with poisoned future cache slots at positions 0, 100, 447 and on
+   both sides of a chunk boundary of its cluster split) and K5 (the
+   cross-attention block and its float32 weights, also at S = 1000, where the
+   last CTA's chunk is short) at large-v3's decode shapes with 2 rows, each
+   against its plain version in float32, each with a planted fault its limit
+   must catch, K4 and K5 the same bits on two runs, and with its time, the
+   plain version's, the unfused PyTorch route's and its bound; then
+   ``grad-guard``: K1 and K3, which have no backward, refuse a CUDA input that
+   requires grad;
 5. the large-v3 encoder at full width (32 layers, seeded random weights, bf16)
    on 8 windows: audio-seconds per second, MFU, launches per encode, and a
    2-layer full-width card-vs-CPU check of the same weights;
@@ -651,16 +654,26 @@ def phase_k4() -> dict:
 
     args = operands()
     q, k, v, w_out, b_out, x = args
+    cluster = dsk._cluster_size(False, rows, heads, s_max, d, torch.cuda.current_device())
+    # A position that ends a chunk, and the next one, which starts the next chunk.
+    edge = next(p for p in range(8, s_max - 1)
+                if (p + 1) % dsk.chunk_keys(p + 1, cluster) == 0
+                and dsk.chunk_keys(p + 2, cluster) == dsk.chunk_keys(p + 1, cluster))
+    if not any(start == edge + 1 for start, _ in dsk.chunk_bounds(edge + 2, cluster)):
+        raise AssertionError(f"K4: position {edge + 1} does not start a chunk over {cluster} CTAs")
     readings = {}
-    for position in (0, 100, s_max - 1):
+    same_bits = True
+    for position in (0, edge, edge + 1, 100, s_max - 1):
         # Poison the future slots: a kernel that reads them cannot agree.
         k_p, v_p = k.clone(), v.clone()
         k_p[..., position + 1 :] = 1e4
         v_p[:, :, position + 1 :, :] = -1e4
         out = dsk.self_attend_and_out(q, k_p, v_p, w_out, b_out, x, position)
+        again = dsk.self_attend_and_out(q, k_p, v_p, w_out, b_out, x, position)
         ref = dsk.self_attend_and_out_reference(q.float(), k_p.float(), v_p.float(), w_out.float(), b_out.float(),
                                                 x.float(), position)
         torch.cuda.synchronize()
+        same_bits = same_bits and torch.equal(out, again)
         rel = rel_l2(out, ref)
         if not rel <= K4_REL_L2_TOLERANCE:
             raise AssertionError(f"K4 at position {position} disagrees with its plain version: rel L2 {rel}")
@@ -673,6 +686,8 @@ def phase_k4() -> dict:
             if not fault > K4_REL_L2_TOLERANCE:
                 raise AssertionError(f"K4's limit would pass a read one key past position {position}: {fault}")
         readings[position] = ((out.float() - ref).abs().max().item(), rel, fault)
+    if not same_bits:
+        raise AssertionError("K4 gave other bits on a second run of the same inputs")
 
     position = s_max - 1
     keys = position + 1
@@ -692,6 +707,7 @@ def phase_k4() -> dict:
     bound, bound_by = bound_ms(bytes_moved=bytes_moved, flops=flops, peak_flops=PEAK_BF16_FLOPS)
     err, rel, _ = readings[position]
     say("K4", shape=f"q({rows},{heads},{head_dim}) cache({rows},{heads},{head_dim},{s_max}) bf16",
+        cluster=cluster, chunk_edge=f"{edge}|{edge + 1}", same_bits=same_bits,
         positions=json.dumps({str(p): [f"{e:.3g}", f"{r:.5f}", None if f is None else f"{f:.3g}"]
                               for p, (e, r, f) in readings.items()}),
         rel_l2_tolerance=K4_REL_L2_TOLERANCE, timed_position=position, ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
@@ -704,6 +720,8 @@ def phase_k4() -> dict:
         "replaces": "ser_tpu/ops/decode_step_kernels.py:175",
         "max_abs_err": err,
         "rel_l2_err": max(r for _, r, _ in readings.values()),
+        "same_bits": same_bits,
+        "cluster": cluster,
         "tolerance": K4_REL_L2_TOLERANCE,
         "tolerance_on": "rel_l2_err",
         "ms": ms,
@@ -740,12 +758,29 @@ def phase_k5() -> dict:
         )
 
     args = operands()
+    cluster = dsk._cluster_size(True, rows, heads, s_len, d, torch.cuda.current_device())
     out, weights = dsk.cross_attention_step(*args, eps=eps)
+    again, weights_again = dsk.cross_attention_step(*args, eps=eps)
     ref, ref_weights = dsk.cross_attention_step_reference(*(t.float() for t in args), eps=eps)
     torch.cuda.synchronize()
+    same_bits = torch.equal(out, again) and torch.equal(weights, weights_again)
+    if not same_bits:
+        raise AssertionError("K5 gave other bits on a second run of the same inputs")
     err, rel = (out.float() - ref).abs().max().item(), rel_l2(out, ref)
     weights_rel = rel_l2(weights, ref_weights)
     sum_err = (weights.sum(-1) - 1.0).abs().max().item()
+    # A second S whose last CTA gets a short chunk (1000 over 8 CTAs: 7 x 128 and 104).
+    short_s = 1000
+    short_cluster = dsk._cluster_size(True, rows, heads, short_s, d, torch.cuda.current_device())
+    short_args = (*args[:5], args[5][..., :short_s].contiguous(), args[6][:, :, :short_s].contiguous(), *args[7:])
+    short_out, short_weights = dsk.cross_attention_step(*short_args, eps=eps)
+    short_ref, short_ref_weights = dsk.cross_attention_step_reference(*(t.float() for t in short_args), eps=eps)
+    torch.cuda.synchronize()
+    short_rel = max(rel_l2(short_out, short_ref), rel_l2(short_weights, short_ref_weights))
+    short_sum_err = (short_weights.sum(-1) - 1.0).abs().max().item()
+    short_chunks = [stop - start for start, stop in dsk.chunk_bounds(short_s, short_cluster)]
+    if not short_rel <= K5_REL_L2_TOLERANCE or not short_sum_err <= K5_WEIGHT_SUM_TOLERANCE:
+        raise AssertionError(f"K5 at S = {short_s} disagrees: rel L2 {short_rel}, weight sum {short_sum_err}")
     # Planted fault: a softmax that leaves out the last partial 64-key tile (1500 = 23 * 64 + 28).
     kept = s_len // 64 * 64
     x, scale, bias, w_q, b_q, k, v, w_out, b_out = (t.float() for t in args)
@@ -779,8 +814,11 @@ def phase_k5() -> dict:
                     for a in sets]
     unfused_ms = rotating_ms(unfused, unfused_sets)
     bound, bound_by = bound_ms(bytes_moved=bytes_moved, flops=flops, peak_flops=PEAK_BF16_FLOPS)
-    say("K5", shape=f"x({rows},{d}) K/V({rows},{heads},{head_dim},{s_len}) bf16", max_abs_err=err, rel_l2_err=rel,
-        weights_rel_l2_err=weights_rel, weight_sum_err=sum_err, rel_l2_tolerance=K5_REL_L2_TOLERANCE,
+    say("K5", shape=f"x({rows},{d}) K/V({rows},{heads},{head_dim},{s_len}) bf16", cluster=cluster,
+        chunks=json.dumps([stop - start for start, stop in dsk.chunk_bounds(s_len, cluster)]), same_bits=same_bits,
+        max_abs_err=err, rel_l2_err=rel, weights_rel_l2_err=weights_rel, weight_sum_err=sum_err,
+        short_s=short_s, short_chunks=json.dumps(short_chunks), short_rel_l2_err=short_rel,
+        short_weight_sum_err=short_sum_err, rel_l2_tolerance=K5_REL_L2_TOLERANCE,
         tail_fault_rel_l2=fault, ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}", unfused_ms=f"{unfused_ms:.4f}",
         bound_ms=f"{bound:.4f}", bound_by=bound_by, gb_per_s=f"{bytes_moved / ms / 1e6:.1f}")
     return {
@@ -792,6 +830,8 @@ def phase_k5() -> dict:
         "rel_l2_err": rel,
         "weights_rel_l2_err": weights_rel,
         "weight_sum_err": sum_err,
+        "same_bits": same_bits,
+        "cluster": cluster,
         "tolerance": K5_REL_L2_TOLERANCE,
         "tolerance_on": "rel_l2_err",
         "ms": ms,
@@ -813,7 +853,9 @@ def _encoder_flops(config, n_windows: int) -> float:
 
 
 _KERNEL_GROUPS = (
-    ("K3-K5 decode_step", ("gemv_kernel", "attend_kernel")),
+    ("K3 ln_qkv_project", ("gemv_kernel",)),
+    ("K4 self_attend_and_out", ("attend_cluster_kernel<false>",)),
+    ("K5 cross_attention_step", ("attend_cluster_kernel<true>",)),
     ("K2 flash_attention", ("flash_attention_fwd_kernel",)),
     ("K2-bwd flash_attention_bwd", ("flash_attention_bwd",)),
     ("K1 power_mel_log", ("power_mel_log_kernel",)),

@@ -19,14 +19,21 @@ two, and no fallback: a CUDA call that the kernel cannot take raises.
 Rounding points (both versions): LayerNorm in float32; every product
 accumulates in float32 and rounds to the weight dtype at its output; scores
 are divided by ``sqrt(Dh)`` in the compute dtype and the softmax runs in
-float32; P is cast to the compute dtype before P·V; the out-projection sums
-all heads in float32 and rounds once; bias and residual adds are in the
-compute dtype. The K/V cache update stays outside the kernels, as in the JAX
-package (the decode updates the caches in place).
+float32; P is normalised in float32, then cast to the compute dtype before
+P·V; the out-projection sums per-head float32 partials in head order and rounds
+once; bias and residual adds are in the compute dtype.
+
+K4 and K5 launch one thread-block cluster per head and split the keys over its
+CTAs (:func:`chunk_bounds`); the CTAs combine their softmax statistics, P·V
+partials and (K5) Q-projection partials in rank order, so the sums' order is
+fixed and the output is the same bits on every run. The K/V cache update stays
+outside the kernels, as in the JAX package (the decode updates the caches in
+place).
 """
 
 from __future__ import annotations
 
+import ctypes
 from functools import lru_cache
 
 import torch
@@ -36,6 +43,12 @@ from ser_tpu_torch.ops import kernel_build
 _NEG_INF = -1e30
 _HEAD_DIM = 64
 _TILE_COLS = 32
+#: K4/K5's split (``csrc/decode_step.cu``: ``kMaxCluster``, ``kKeyAlign``): at most 8
+#: CTAs per head, each taking a chunk of keys that starts at a multiple of 4 keys.
+_MAX_CLUSTER = 8
+_KEY_ALIGN = 4
+#: K4/K5 cut d into one slice of 16-byte column groups per CTA.
+_D_ALIGN = 8 * _MAX_CLUSTER
 
 #: Launches of K3, K4 and K5 (each wrapper adds one per call that launches its kernel).
 LN_QKV_COUNTER = kernel_build.KernelCounter("ln_qkv_project")
@@ -80,8 +93,12 @@ def _attend_reference(q, k_cache, v_cache, bias):
 
 
 def _out_project_reference(heads_out, w_out_heads, b_out, x_residual):
-    """Per-head out-projection summed in float32, rounded, + bias, + residual."""
-    acc = torch.einsum("rhd,hdc->rc", heads_out.to(torch.float32), w_out_heads.to(torch.float32))
+    """Per-head float32 out-projection partials summed in head order (the TPU
+    kernels' and K4/K5's order), rounded, + bias, + residual."""
+    partials = torch.einsum("rhd,hdc->hrc", heads_out.to(torch.float32), w_out_heads.to(torch.float32))
+    acc = partials[0]
+    for partial in partials[1:]:
+        acc = acc + partial
     y = acc.to(x_residual.dtype) + b_out
     return x_residual + y
 
@@ -143,6 +160,54 @@ def _stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device.index).cuda_stream
 
 
+def chunk_keys(n_keys: int, cluster: int) -> int:
+    """Keys per CTA of K4/K5: ``n_keys`` split over ``cluster`` CTAs, rounded up to
+    a multiple of 4 (``chunk_keys`` in ``csrc/decode_step.cu``)."""
+    return -(-n_keys // (cluster * _KEY_ALIGN)) * _KEY_ALIGN
+
+
+def chunk_bounds(n_keys: int, cluster: int) -> list[tuple[int, int]]:
+    """Each CTA's key range ``[start, stop)``, in rank order; a range may be short or empty."""
+    chunk = chunk_keys(n_keys, cluster)
+    return [(min(rank * chunk, n_keys), min((rank + 1) * chunk, n_keys)) for rank in range(cluster)]
+
+
+@lru_cache(maxsize=None)
+def _cluster_size(cross: bool, rows: int, heads: int, n_keys: int, d_model: int, device_index: int) -> int:
+    """CTAs per head for K4 (``cross`` False) or K5: the largest of 8, 4, 2, 1 whose
+    ``heads`` clusters are all resident at once (``cudaOccupancyMaxActiveClusters``),
+    else the largest that fits at all. ``n_keys`` is the most keys a call splits."""
+    query = kernel_build.load("decode_step_clusters")
+    fits = []  # sizes that fit, if not in one wave
+    with torch.cuda.device(device_index):
+        for cluster in (_MAX_CLUSTER, 4, 2, 1):
+            count = ctypes.c_int(0)
+            kernel_build.check(
+                query(int(cross), cluster, rows, heads, chunk_keys(n_keys, cluster), d_model, ctypes.addressof(count)),
+                "decode_step_clusters",
+            )
+            if count.value >= heads:
+                return cluster
+            if count.value > 0:
+                fits.append(cluster)
+    if not fits:
+        raise ValueError(f"no cluster of the decode-step kernel fits {rows} rows and {n_keys} keys in shared memory.")
+    return fits[0]
+
+
+_COUNTERS: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def _counters(device: torch.device, stream: int) -> torch.Tensor:
+    """K4/K5's per-column-slice completion counters for one stream: zero between calls
+    (each launch leaves them zero), so calls on one stream share them."""
+    key = (device.index, stream)
+    counters = _COUNTERS.get(key)
+    if counters is None:
+        counters = _COUNTERS[key] = torch.zeros(_MAX_CLUSTER, dtype=torch.int32, device=device)
+    return counters
+
+
 def ln_qkv_project(x, ln_scale, ln_bias, w_qkv, b_qkv, *, eps: float) -> torch.Tensor:
     """Fused pre-norm + QKV projection, (R, d) → (R, 3d). Kernel K3 on CUDA tensors.
 
@@ -179,7 +244,8 @@ def self_attend_and_out(q_heads, k_cache, v_cache, w_out_heads, b_out, x_residua
     ``v_cache`` (R, H, Smax, Dh); ``w_out_heads`` (H, Dh, d); ``b_out`` (1, d);
     ``x_residual`` (R, d); ``position`` a host int: keys 0..position are
     visible. On the H100 it is bound by the bytes of W_out (3.3 MB at
-    large-v3) and of the cache up to ``position``, which is all it reads.
+    large-v3) and of the cache up to ``position``, which is all it reads: one
+    launch of a cluster per head, the visible keys split over its CTAs.
     """
     if q_heads.device.type == "cpu":
         return self_attend_and_out_reference(q_heads, k_cache, v_cache, w_out_heads, b_out, x_residual, position)
@@ -193,21 +259,23 @@ def self_attend_and_out(q_heads, k_cache, v_cache, w_out_heads, b_out, x_residua
         raise TypeError(f"{kernel} takes bfloat16 q_heads on the residual's device.")
     _require(head_dim == _HEAD_DIM and q_heads.stride(2) == 1 and q_heads.stride(1) == head_dim,
              kernel, f"q_heads (R, H, {_HEAD_DIM}) with unit stride inside each row")
-    _require(q_heads.data_ptr() % 4 == 0 and q_heads.stride(0) % 2 == 0, kernel, "4-byte aligned q rows")
+    _require(q_heads.data_ptr() % 16 == 0 and q_heads.stride(0) % 8 == 0, kernel, "16-byte aligned q rows")
     _require(k_cache.shape == (rows, heads, head_dim, s_max) and v_cache.shape == (rows, heads, s_max, head_dim),
              kernel, "K (R, H, Dh, Smax) and V (R, H, Smax, Dh) caches")
-    _require(s_max % 2 == 0, kernel, "an even cache length")
+    _require(s_max % _KEY_ALIGN == 0, kernel, f"a cache length that is a multiple of {_KEY_ALIGN}")
     _require(isinstance(position, int) and 0 <= position < s_max, kernel, "a host int position inside the cache")
-    _require(w_out_heads.shape == (heads, head_dim, d_model) and d_model % _TILE_COLS == 0,
-             kernel, "w_out_heads (H, Dh, d) with d % 32 == 0")
+    _require(w_out_heads.shape == (heads, head_dim, d_model) and d_model % _D_ALIGN == 0,
+             kernel, f"w_out_heads (H, Dh, d) with d % {_D_ALIGN} == 0")
     _require(b_out.numel() == d_model and x_residual.shape == (rows, d_model), kernel, "b_out (1, d), x (R, d)")
-    heads_out = torch.empty((rows, heads * head_dim), dtype=torch.bfloat16, device=q_heads.device)
+    cluster = _cluster_size(False, rows, heads, s_max, d_model, q_heads.device.index)
+    stream = _stream(q_heads.device)
+    partials = torch.empty((heads, rows, d_model), dtype=torch.float32, device=q_heads.device)
     out = torch.empty_like(x_residual)
     code = kernel_build.load(kernel)(
         q_heads.data_ptr(), q_heads.stride(0), k_cache.data_ptr(), v_cache.data_ptr(),
-        w_out_heads.data_ptr(), b_out.data_ptr(), x_residual.data_ptr(), heads_out.data_ptr(),
-        out.data_ptr(), rows, heads, s_max, position, d_model, root_d(head_dim, torch.bfloat16),
-        _stream(q_heads.device),
+        w_out_heads.data_ptr(), b_out.data_ptr(), x_residual.data_ptr(), partials.data_ptr(),
+        _counters(q_heads.device, stream).data_ptr(), out.data_ptr(), rows, heads, s_max, position, d_model,
+        cluster, chunk_keys(position + 1, cluster), root_d(head_dim, torch.bfloat16), stream,
     )
     kernel_build.check(code, kernel)
     SELF_ATTEND_COUNTER.launches += 1
@@ -225,7 +293,7 @@ def cross_attention_step(
     (H, Dh, d); ``b_out`` (1, d). Returns (x' (R, d), float32 weights
     (H, R, S)); alignment capture indexes ``weights[head]``. On the H100 it is
     bound by the bytes of W_q, W_out (6.6 MB) and the encoder K/V (3.8 MB per
-    row at large-v3).
+    row at large-v3): one launch of a cluster per head, S split over its CTAs.
     """
     if x.device.type == "cpu":
         return cross_attention_step_reference(
@@ -244,19 +312,22 @@ def cross_attention_step(
     _require(b_q_heads.numel() == heads * head_dim, kernel, "b_q_heads (H, 1, Dh)")
     _require(cross_k.shape == (rows, heads, head_dim, s_len) and cross_v.shape == (rows, heads, s_len, head_dim),
              kernel, "K (R, H, Dh, S) and V (R, H, S, Dh)")
-    _require(s_len % 2 == 0, kernel, "an even number of encoder states")
-    _require(w_out_heads.shape == (heads, head_dim, d_model) and d_model % _TILE_COLS == 0,
-             kernel, "w_out_heads (H, Dh, d) with d % 32 == 0")
+    _require(s_len % _KEY_ALIGN == 0, kernel, f"a number of encoder states that is a multiple of {_KEY_ALIGN}")
+    _require(w_out_heads.shape == (heads, head_dim, d_model) and d_model % _D_ALIGN == 0,
+             kernel, f"w_out_heads (H, Dh, d) with d % {_D_ALIGN} == 0")
     _require(ln_scale.numel() == d_model and ln_bias.numel() == d_model and b_out.numel() == d_model,
              kernel, "(1, d) LayerNorm affines and b_out")
-    q_out, heads_out = torch.empty((2, rows, heads * head_dim), dtype=torch.bfloat16, device=x.device)
+    cluster = _cluster_size(True, rows, heads, s_len, d_model, x.device.index)
+    stream = _stream(x.device)
+    partials = torch.empty((heads, rows, d_model), dtype=torch.float32, device=x.device)
     out = torch.empty_like(x)
     weights = torch.empty((heads, rows, s_len), dtype=torch.float32, device=x.device)
     code = kernel_build.load(kernel)(
         x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(), w_q_heads.data_ptr(), b_q_heads.data_ptr(),
         cross_k.data_ptr(), cross_v.data_ptr(), w_out_heads.data_ptr(), b_out.data_ptr(),
-        q_out.data_ptr(), heads_out.data_ptr(), out.data_ptr(), weights.data_ptr(),
-        rows, heads, s_len, d_model, float(eps), root_d(head_dim, torch.bfloat16), _stream(x.device),
+        partials.data_ptr(), _counters(x.device, stream).data_ptr(), out.data_ptr(), weights.data_ptr(),
+        rows, heads, s_len, d_model, cluster, chunk_keys(s_len, cluster), float(eps),
+        root_d(head_dim, torch.bfloat16), stream,
     )
     kernel_build.check(code, kernel)
     CROSS_STEP_COUNTER.launches += 1
@@ -287,6 +358,8 @@ __all__ = [
     "CROSS_STEP_COUNTER",
     "LN_QKV_COUNTER",
     "SELF_ATTEND_COUNTER",
+    "chunk_bounds",
+    "chunk_keys",
     "cross_attention_step",
     "cross_attention_step_reference",
     "ln_qkv_project",

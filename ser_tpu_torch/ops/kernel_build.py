@@ -9,8 +9,9 @@ and flags, so an edited source is rebuilt and an unchanged one is reused.
 ``nvcc``'s ``-Xptxas=-v`` report (registers, shared memory, spills) is kept
 beside each library as ``<name>.log``.
 
-Each C entry point launches on the stream it is given and returns
-``cudaGetLastError()``; :func:`check` raises on any other value than 0.
+Each C entry point that launches a kernel does so on the stream it is given,
+and every entry point returns a CUDA error code (``cudaGetLastError()`` after a
+launch); :func:`check` raises on any other value than 0.
 """
 
 from __future__ import annotations
@@ -42,8 +43,8 @@ NVCC_FLAGS = (
 _POINTER, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 #: Each source's C entry points, by the name ``load`` takes, with their symbols
-#: and argument types; every entry point takes the stream last and returns a
-#: CUDA error code (int).
+#: and argument types; every entry point that launches takes the stream last, and
+#: every one returns a CUDA error code (int).
 ENTRY_POINTS = {
     "log_mel": {"log_mel": ("ser_power_mel_log", [_POINTER] * 3 + [_INT] * 5 + [_POINTER])},
     "flash_attention": {
@@ -54,12 +55,13 @@ ENTRY_POINTS = {
         "ln_qkv_project": ("ser_ln_qkv_project", [_POINTER] * 6 + [_INT] * 3 + [_FLOAT, _POINTER]),
         "self_attend_and_out": (
             "ser_self_attend_and_out",
-            [_POINTER, _INT] + [_POINTER] * 7 + [_INT] * 5 + [_FLOAT, _POINTER],
+            [_POINTER, _INT] + [_POINTER] * 8 + [_INT] * 7 + [_FLOAT, _POINTER],
         ),
         "cross_attention_step": (
             "ser_cross_attention_step",
-            [_POINTER] * 13 + [_INT] * 4 + [_FLOAT, _FLOAT, _POINTER],
+            [_POINTER] * 13 + [_INT] * 6 + [_FLOAT, _FLOAT, _POINTER],
         ),
+        "decode_step_clusters": ("ser_decode_step_clusters", [_INT] * 6 + [_POINTER]),
     },
 }
 
