@@ -13,7 +13,13 @@ per source, in parallel), then, one phase per line:
    version on the same inputs, with its time, the plain version's and its bound;
 3. K2 (flash attention) at the encoder's shapes, with and without a key mask,
    and at T = 1409 (one valid row in the last 128-row tile), against its plain
-   version in float32, with SDPA's time as the yardstick; then K2-bwd (its
+   version in float32, with SDPA's time as the yardstick; K2-f32 (its float32
+   form) against the float32 plain version (TF32 off) at the medium profile's
+   (8, 1499, 16, 64) with a ragged key mask, at Whisper's (8, 1500, 20, 64)
+   and at T = 1409, with two planted faults its limit must catch (operands
+   rounded to TF32, masked keys let into the softmax); ``K2-medium``: masked
+   bf16 K2 at the medium profile's 30 s and 15 s buckets against its plain
+   version and its unmasked time; then K2-bwd (its
    backward: Δ, dK/dV and dQ kernels) at the training step's shapes and at
    T = 1409: K2's log-sum-exp against ``torch.logsumexp``, dq, dk and dv
    against the plain backward in float32 (with two planted faults its limit
@@ -50,9 +56,19 @@ per source, in parallel), then, one phase per line:
    peak memory, launches of K1, K2 and K2-bwd per step, finite losses and
    moving parameters, a device-time profile of one step, and a 2-layer
    full-width check of one step's loss and gradients against float32 on the
-   CPU.
+   CPU;
+10. ``medium-encoder``: the XLS-R 300M encoder at full width (24 layers,
+    seeded random weights, bf16) on 8 chunks of 30 s: audio-seconds per
+    second, MFU with its FLOP count by part, launches per encode, device
+    time by kernel group, and a 2-layer full-width check of the card in bf16
+    and in float32 against float32 on the CPU; then ``medium-infer``:
+    ``api.infer(profile="medium")`` on three clips cold and warm, one request
+    with ``SER_DEVICE_POOLING=1`` (its pooled features held to the host
+    pooling's), one with ``SER_TORCH_DTYPE=float32`` and one whose first bf16
+    encode a planted wrapper makes non-finite (the retry must run in float32
+    through K2-f32).
 
-Phases 6-9 set the launch counts of the kernels they run to 0 just before
+Phases 6-10 set the launch counts of the kernels they run to 0 just before
 their run and read them just after.
 
 It prints a ``kernels`` JSON line, the card's name and power limit, and, as
@@ -86,6 +102,7 @@ os.environ.setdefault("TEARDOWN_CUPTI", "1")
 
 # Data-sheet peaks of one H100 SXM (dense, 700 W).
 PEAK_BF16_FLOPS = 989e12
+PEAK_TF32_FLOPS = 494.7e12
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 
@@ -102,6 +119,17 @@ K1_TOLERANCE = 5e-5
 # and holds the kernel to the same limit at T = 1409 (11 * 128 + 1: one valid
 # key and query in the last tile).
 K2_REL_L2_TOLERANCE = 7e-3
+# K2-f32, max abs error against the float32 plain version on the same float32
+# q, k, v (TF32 off, which the phase asserts): float32 sums in another order.
+# The limit is the port's float32 attention pin (tests/test_torch_attention.py).
+# A CPU emulation at T = 1499 put one TF32 pass over the operands at 1.2-1.4e-4
+# max abs, about 7x the limit; phase K2-f32 checks that the limit catches that
+# fault and a leak of the masked keys into the softmax.
+K2_F32_TOLERANCE = 2e-5
+# The medium profile's attention: XLS-R 300M's 16 heads of 64 over the 1499
+# frames of a 30 s bucket, 8 chunks a call; its 15 s bucket has 749 frames.
+MEDIUM_ATTENTION = (8, 1499, 16, 64)
+MEDIUM_HALF_BUCKET_FRAMES = 749
 # K2's log-sum-exp (natural log, about 8 at T = 1500) against torch.logsumexp
 # of the float32 scores: float32 sums in another order.
 K2_LSE_TOLERANCE = 1e-4
@@ -124,6 +152,20 @@ TRAIN_CHECK_GRAD_REL_L2_BOUND = 7.5e-2
 # Full-width encoder, 2 layers: bf16 weights and activations on the card
 # against float32 on the CPU, same weights (about 3.6x the measured 0.00562).
 ENCODER_REL_L2_BOUND = 2e-2
+# Full-width XLS-R 300M, 2 layers, one 30 s chunk with 20 s valid: the card
+# against float32 on the CPU, same weights. bf16: the transformer's products
+# and attention in bf16 (the front end, LayerNorms and residual stream stay
+# float32), a limit about 3x the Whisper encoder's reading (0.0056), which has
+# bf16 everywhere. float32: every product float32 on the card too (TF32 off,
+# K2-f32), so only the order of the sums differs: the repo's float32 encoder
+# pin, atol 1e-4 on unit-scale activations.
+MEDIUM_BF16_REL_L2_BOUND = 2e-2
+MEDIUM_F32_MAX_ABS_BOUND = 1e-4
+# Device pooling against host pooling: float32 on the card against float64 on
+# the host (tests/suites/unit/pool/test_device_pooling.py's ceiling), per
+# window relative to its largest feature.
+DEVICE_POOLING_REL_BOUND = 1e-5
+MEDIUM_MODEL_ID = "facebook/wav2vec2-xls-r-300m"
 # K3, K4, K5: relative L2 error of the kernel (bf16 in and out) against its
 # plain version in float32 on the same bf16 inputs. The kernels' own error is
 # bf16 rounding at the rounding points they share with the unfused decode (the
@@ -203,6 +245,27 @@ def cuda_ms(fn, *, iters: int = 20, warmup: int = 3) -> float:
     torch.cuda.synchronize()
     if enqueue_ms > hold_ms:
         raise AssertionError(f"the host took {enqueue_ms:.1f} ms to enqueue, longer than the card's {hold_ms:.1f} ms hold")
+    return start.elapsed_time(end) / iters
+
+
+def span_ms(fn, *, iters: int = 3, warmup: int = 1) -> float:
+    """Mean device time of ``fn`` in ms from CUDA events around ``iters`` calls, without a hold.
+
+    For plain versions whose calls take milliseconds and allocate gigabytes:
+    a host blocked inside a call (a device allocation) would overrun
+    :func:`cuda_ms`'s hold. Such a wait counts here as device time.
+    """
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
 
 
@@ -414,6 +477,163 @@ def phase_k2() -> dict:
         "bound_by": bound_by,
         "library_ms": library_ms,
     }
+
+
+def _ragged_mask(batch: int, seq: int, step: int):
+    """A (B, T) key mask whose rows keep T, T - step, T - 2 step, ... keys."""
+    import torch
+
+    lengths = torch.tensor([seq - step * i for i in range(batch)], device="cuda")
+    return torch.arange(seq, device="cuda")[None, :] < lengths[:, None]
+
+
+def _tf32(x):
+    """x rounded to TF32 (10 mantissa bits, to nearest even), kept in float32."""
+    import torch
+
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0xFFF + ((bits >> 13) & 1)) & -0x2000).view(torch.float32)
+
+
+def _tf32_attention(q, k, v, frame_mask):
+    """The plain version with every product's operands rounded to TF32 (a planted fault)."""
+    import torch
+
+    scores = torch.einsum("bqhd,bkhd->bhqk", _tf32(q), _tf32(k)) / math.sqrt(q.shape[-1])
+    if frame_mask is not None:
+        scores = scores + torch.where(frame_mask[:, None, None, :], 0.0, -1e30)
+    weights = torch.softmax(scores, dim=-1)
+    del scores
+    return torch.einsum("bhqk,bkhd->bqhd", _tf32(weights), _tf32(v))
+
+
+def _sdpa_ms(q, k, v, frame_mask) -> float:
+    """SDPA's time on the same tensors (the library call; the port never calls it)."""
+    import torch.nn.functional as F
+
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    attn_mask = None if frame_mask is None else frame_mask[:, None, None, :]
+    return cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=attn_mask))
+
+
+def phase_k2_f32() -> dict:
+    """K2-f32 against the float32 plain version: medium shapes masked, Whisper's unmasked, T = 1409."""
+    import torch
+
+    from ser_tpu_torch.models import attention
+
+    if torch.backends.cuda.matmul.allow_tf32 is not False:
+        raise AssertionError("TF32 is on for float32 matmuls: the plain version would not be float32")
+    torch.manual_seed(3)
+    cases = (("medium", MEDIUM_ATTENTION, True), ("whisper", (8, 1500, 20, 64), False),
+             ("ragged", (8, RAGGED_SEQ, 16, 64), False))
+    lines = {}
+    for label, (batch, seq, heads, dim), masked in cases:
+        q, k, v = (torch.randn(batch, seq, heads, dim, device="cuda") for _ in range(3))
+        mask = _ragged_mask(batch, seq, 150) if masked else None
+        out = attention.flash_attention(q, k, v, frame_mask=mask)
+        ref = attention.attention_reference(q, k, v, frame_mask=mask)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        line = {"max_abs_err": err, "rel_l2_err": rel_l2(out, ref)}
+        if not err <= K2_F32_TOLERANCE:
+            raise AssertionError(f"K2-f32 ({label}) disagrees with its plain version: {err} > {K2_F32_TOLERANCE}")
+        del out
+        if label == "ragged":
+            lines[label] = line
+            continue
+        # Planted faults the limit must catch: TF32 operands; the masked keys let into the softmax.
+        line["tf32_fault"] = (_tf32_attention(q, k, v, mask) - ref).abs().max().item()
+        faults = [line["tf32_fault"]]
+        if masked:
+            leaky = attention.attention_reference(q, k, v)
+            line["mask_leak_fault"] = (leaky - ref)[mask].abs().max().item()
+            faults.append(line["mask_leak_fault"])
+            del leaky
+        del ref
+        if not min(faults) > K2_F32_TOLERANCE:
+            raise AssertionError(f"K2-f32's limit would pass a planted fault ({label}): {faults}")
+        torch.cuda.empty_cache()
+        flops = 4.0 * batch * heads * seq * seq * dim
+        bytes_moved = 4 * q.numel() * 4 + (0 if mask is None else mask.numel())
+        # Float32-grade products on the tensor cores: three TF32 products each.
+        bound, bound_by = bound_ms(bytes_moved=bytes_moved, flops=3.0 * flops, peak_flops=PEAK_TF32_FLOPS)
+        line.update(
+            ms=cuda_ms(lambda: attention.flash_attention(q, k, v, frame_mask=mask)),
+            plain_ms=span_ms(lambda: attention.attention_reference(q, k, v, frame_mask=mask)),
+            library_ms=_sdpa_ms(q, k, v, mask),
+            bound_ms=bound,
+            bound_by=bound_by,
+            fp32_fma_bound_ms=flops / PEAK_F32_FLOPS * 1e3,
+            gflop=flops / 1e9,
+        )
+        line.update(tflops=flops / line["ms"] / 1e9, bound_share=bound / line["ms"],
+                    ms_over_library=line["ms"] / line["library_ms"])
+        lines[label] = line
+        del q, k, v
+        torch.cuda.empty_cache()
+    for label, line in lines.items():
+        say("K2-f32", case=label, tolerance=K2_F32_TOLERANCE,
+            **{key: (f"{value:.6g}" if isinstance(value, float) else value) for key, value in line.items()})
+    medium = lines["medium"]
+    return {
+        "name": "flash_attention_f32",
+        "route": "cuda",
+        "source": "ser_tpu_torch/csrc/flash_attention_f32.cu",
+        "replaces": "ser_tpu/models/attention.py:117",
+        "shape": f"(B,T,H,D)={MEDIUM_ATTENTION} float32, key mask",
+        "max_abs_err": max(line["max_abs_err"] for line in lines.values()),
+        "rel_l2_err": medium["rel_l2_err"],
+        "tolerance": K2_F32_TOLERANCE,
+        "tolerance_on": "max_abs_err",
+        "ms": medium["ms"],
+        "plain_ms": medium["plain_ms"],
+        "bound_ms": medium["bound_ms"],
+        "bound_by": medium["bound_by"],
+        "bound_assumes": "3 TF32 products per product at 494.7 TFLOP/s",
+        "fp32_fma_bound_ms": medium["fp32_fma_bound_ms"],
+        "library_ms": medium["library_ms"],
+        "whisper_shape_ms": lines["whisper"]["ms"],
+        "whisper_shape_library_ms": lines["whisper"]["library_ms"],
+    }
+
+
+def phase_k2_medium() -> dict:
+    """Masked bf16 K2 at the medium profile's shapes (30 s and 15 s buckets) against its plain version."""
+    import torch
+
+    from ser_tpu_torch.models import attention
+
+    torch.manual_seed(4)
+    batch, seq, heads, dim = MEDIUM_ATTENTION
+    result = {}
+    for label, frames in (("30s", seq), ("15s", MEDIUM_HALF_BUCKET_FRAMES)):
+        q, k, v = (torch.randn(batch, frames, heads, dim, device="cuda").to(torch.bfloat16) for _ in range(3))
+        mask = _ragged_mask(batch, frames, frames // 10)
+        out = attention.flash_attention(q, k, v, frame_mask=mask)
+        qf, kf, vf = (t.float() for t in (q, k, v))
+        ref = attention.attention_reference(qf, kf, vf, frame_mask=mask)
+        err = rel_l2(out, ref)
+        leak = rel_l2(attention.attention_reference(qf, kf, vf)[mask], ref[mask])
+        del out, ref, qf, kf, vf
+        if not err <= K2_REL_L2_TOLERANCE:
+            raise AssertionError(f"masked K2 ({label}) disagrees with its plain version: {err} > {K2_REL_L2_TOLERANCE}")
+        if not leak > K2_REL_L2_TOLERANCE:
+            raise AssertionError(f"K2's limit would pass a leak of the masked keys ({label}): {leak}")
+        masked_ms = cuda_ms(lambda: attention.flash_attention(q, k, v, frame_mask=mask))
+        unmasked_ms = cuda_ms(lambda: attention.flash_attention(q, k, v))
+        flops = 4.0 * batch * heads * frames * frames * dim
+        bound, bound_by = bound_ms(bytes_moved=4 * q.numel() * 2, flops=flops, peak_flops=PEAK_BF16_FLOPS)
+        library_ms = _sdpa_ms(q, k, v, mask)
+        say("K2-medium", bucket=label, shape=f"(B,T,H,D)=({batch},{frames},{heads},{dim}) bf16", rel_l2_err=err,
+            rel_l2_tolerance=K2_REL_L2_TOLERANCE, mask_leak_fault=f"{leak:.5f}", masked_ms=f"{masked_ms:.4f}",
+            unmasked_ms=f"{unmasked_ms:.4f}", masked_over_unmasked=f"{masked_ms / unmasked_ms:.3f}",
+            library_ms=f"{library_ms:.4f}", bound_ms=f"{bound:.4f}", bound_by=bound_by,
+            **_rates(flops, masked_ms, bound, library_ms))
+        result[label] = {"rel_l2_err": err, "masked_ms": masked_ms, "unmasked_ms": unmasked_ms,
+                         "library_ms": library_ms, "bound_ms": bound}
+        del q, k, v
+    return result
 
 
 def _k2_bwd_ragged_rel_l2(batch: int, heads: int, dim: int, scale: float) -> list[float]:
@@ -857,10 +1077,11 @@ _KERNEL_GROUPS = (
     ("K4 self_attend_and_out", ("attend_cluster_kernel<false>",)),
     ("K5 cross_attention_step", ("attend_cluster_kernel<true>",)),
     ("K2 flash_attention", ("flash_attention_fwd_kernel",)),
+    ("K2-f32 flash_attention_f32", ("flash_attention_f32_kernel",)),
     ("K2-bwd flash_attention_bwd", ("flash_attention_bwd",)),
     ("K1 power_mel_log", ("power_mel_log_kernel",)),
+    ("conv", ("cudnn", "conv", "fprop", "implicit_convolve")),
     ("gemm", ("nvjet", "gemm", "xmma", "cutlass")),
-    ("conv", ("cudnn", "conv")),
     ("reduce", ("reduce_kernel",)),
     ("elementwise", ("elementwise_kernel", "copy", "Memset", "Memcpy")),
 )
@@ -1274,8 +1495,15 @@ def phase_transcribe() -> dict:
     return {"launches": main_launches, "latency": results}
 
 
-def _write_head_envelope(path: Path, feature_size: int) -> None:
-    """A ser_tpu v3 artifact envelope holding a seeded ser_tpu_mlp head."""
+def _write_head_envelope(
+    path: Path,
+    feature_size: int,
+    *,
+    backend_id: str = "jax_whisper_encoder",
+    profile: str = "accurate",
+    model_id: str = "openai/whisper-large-v3",
+) -> None:
+    """A ser_tpu v3 artifact envelope holding a seeded ser_tpu_mlp head (feature_size → 300 → 8)."""
     import numpy as np
 
     rng = np.random.default_rng(7)
@@ -1304,10 +1532,10 @@ def _write_head_envelope(path: Path, feature_size: int) -> None:
         "feature_dim": feature_size,
         "training_samples": 1,
         "labels": RAVDESS_LABELS,
-        "backend_id": "jax_whisper_encoder",
-        "profile": "accurate",
+        "backend_id": backend_id,
+        "profile": profile,
         "pooling_strategy": "mean_std",
-        "backend_model_id": "openai/whisper-large-v3",
+        "backend_model_id": model_id,
     }
     path.parent.mkdir(parents=True, exist_ok=True)
     path.write_bytes(pickle.dumps({"artifact_version": 3, "model": state, "metadata": metadata}))
@@ -1323,6 +1551,21 @@ def _write_clip(path: Path, seconds: float, sample_rate: int, seed: int) -> None
     mix = 0.5 + 0.5 * np.sin(2 * np.pi * t / 7.0)
     audio = mix * np.sin(2 * np.pi * (180 + 40 * seed) * t) + (1 - mix) * 0.4 * rng.standard_normal(t.size)
     write_wav(path, (0.8 * audio / np.abs(audio).max()).astype(np.float32), sample_rate)
+
+
+def _check_segments(execution, clip: Path, seconds: float, backend_id: str) -> None:
+    """The segments cover the clip without gaps, from the expected backend, with finite probabilities."""
+    segments = execution.detailed_result.segments
+    if execution.backend_id != backend_id:
+        raise AssertionError(f"backend_id {execution.backend_id!r}, expected {backend_id!r}")
+    if not segments or abs(segments[0].start_seconds) > 1e-6 or abs(segments[-1].end_seconds - seconds) > 0.05:
+        raise AssertionError(f"segments of {clip.name} do not cover it: {segments[:1]}..{segments[-1:]}")
+    for before, after in zip(segments, segments[1:]):
+        if abs(after.start_seconds - before.end_seconds) > 1e-6:
+            raise AssertionError(f"gap between segments in {clip.name}")
+    probabilities = [p for frame in execution.detailed_result.frames for p in frame.probabilities.values()]
+    if not all(math.isfinite(p) for p in probabilities):
+        raise AssertionError(f"non-finite probabilities for {clip.name}")
 
 
 def phase_infer() -> dict:
@@ -1371,22 +1614,249 @@ def phase_infer() -> dict:
 
     for (execution, cold_s), warm_s, (clip, seconds) in zip(executions, warm, clips):
         segments = execution.detailed_result.segments
-        if execution.backend_id != "jax_whisper_encoder":
-            raise AssertionError(f"backend_id {execution.backend_id!r}")
-        if not segments or abs(segments[0].start_seconds) > 1e-6 or abs(segments[-1].end_seconds - seconds) > 0.05:
-            raise AssertionError(f"segments of {clip.name} do not cover it: {segments[:1]}..{segments[-1:]}")
-        for before, after in zip(segments, segments[1:]):
-            if abs(after.start_seconds - before.end_seconds) > 1e-6:
-                raise AssertionError(f"gap between segments in {clip.name}")
-        probabilities = [p for frame in execution.detailed_result.frames for p in frame.probabilities.values()]
-        if not all(math.isfinite(p) for p in probabilities):
-            raise AssertionError(f"non-finite probabilities for {clip.name}")
+        _check_segments(execution, clip, seconds, "jax_whisper_encoder")
         say("infer", clip=clip.name, seconds=seconds, cold_latency_s=f"{cold_s:.4f}",
             warm_latency_s=f"{warm_s:.4f}", frames=len(execution.detailed_result.frames),
             segments=len(segments), labels=json.dumps(sorted({s.emotion for s in segments})))
     say("infer-launches", **launches)
     if launches["power_mel_log"] != len(clips) or launches["flash_attention_fwd"] != 32 * len(clips):
         raise AssertionError(f"main path launches {launches}, expected K1={len(clips)} K2={32 * len(clips)}")
+    return launches
+
+
+def _wav2vec2_flops(config, samples: int) -> dict[str, float]:
+    """FLOP of one chunk through the encoder, 2 per multiply-add, by part."""
+    frames, length, channels = [], samples, 1
+    conv = 0.0
+    for dim, kernel, stride in zip(config.conv_dim, config.conv_kernel, config.conv_stride):
+        length = (length - kernel) // stride + 1
+        conv += 2.0 * length * dim * channels * kernel
+        channels = dim
+        frames.append(length)
+    t, d, ffn = frames[-1], config.hidden_size, config.intermediate_size
+    projection = 2.0 * t * channels * d
+    positional = 2.0 * t * d * (d // config.num_conv_pos_embedding_groups) * config.num_conv_pos_embeddings
+    layer_products = config.num_hidden_layers * 2.0 * (4 * t * d * d + 2 * t * d * ffn)
+    attention_flops = config.num_hidden_layers * 4.0 * t * t * d
+    return {"conv_front_end": conv, "feature_projection": projection, "positional_conv": positional,
+            "layer_products": layer_products, "attention": attention_flops}
+
+
+def _medium_layers_check(chunk, length: int) -> dict:
+    """2-layer full-width XLS-R: card bf16 and card float32 against CPU float32, same weights."""
+    import numpy as np
+    import torch
+
+    from ser_tpu_torch.models import wav2vec2 as w2v
+    from ser_tpu_torch.models.param_utils import cast_state_bf16
+
+    config = w2v.Wav2Vec2Config(num_hidden_layers=2)
+    state = w2v.random_wav2vec2_state(config, seed=1, device="cpu")
+    frames = config.frames_for_samples(chunk.shape[1])
+    mask = torch.from_numpy(np.arange(frames)[None, :] < config.frames_for_samples(length))
+    on_cpu = w2v.build_wav2vec2_encoder(config, state, device="cpu")
+    with torch.no_grad():
+        reference = on_cpu(chunk.cpu(), mask)
+    del on_cpu
+    readings = {}
+    for label, dtype, weights in (("bf16", torch.bfloat16, cast_state_bf16(state)), ("float32", torch.float32, state)):
+        encoder = w2v.build_wav2vec2_encoder(config, weights, device="cuda", compute_dtype=dtype)
+        with torch.no_grad():
+            out = encoder(chunk, mask.cuda()).cpu()
+        readings[label] = {"rel_l2": rel_l2(out, reference), "max_abs": (out - reference).abs().max().item()}
+        del encoder
+    return readings
+
+
+def phase_medium_encoder() -> dict:
+    """XLS-R 300M at full width (24 layers, seeded random weights, bf16) on 8 chunks of 30 s."""
+    import numpy as np
+    import torch
+
+    from ser_tpu_torch._internal.repr.wav2vec2_backend import XlsrBackend
+    from ser_tpu_torch.models import attention
+    from ser_tpu_torch.models import wav2vec2 as w2v
+
+    config = w2v.Wav2Vec2Config()
+    cuda = torch.device("cuda")
+    started = time.perf_counter()
+    backend = XlsrBackend(model_id=MEDIUM_MODEL_ID, cache_root=REPO / "build", device=cuda, dtype="bfloat16",
+                          config=config, state=w2v.random_wav2vec2_state(config, seed=0, device=cuda))
+    torch.cuda.synchronize()
+    say("medium-encoder-build", seconds=f"{time.perf_counter() - started:.2f}",
+        params_m=f"{sum(p.numel() for p in backend._model.parameters()) / 1e6:.1f}")
+
+    n_chunks, samples, repeats = 8, 30 * 16000, 3
+    rng = np.random.default_rng(0)
+    batch = (0.1 * rng.standard_normal((n_chunks, samples))).astype(np.float32)
+    lengths = np.full(n_chunks, samples, dtype=np.int32)
+    frames = config.frames_for_samples(samples)
+    states = backend._encode_batch(batch, lengths)  # warm-up
+    torch.cuda.synchronize()
+    if states.shape != (n_chunks, frames, config.hidden_size) or not torch.isfinite(states).all():
+        raise AssertionError(f"medium encoder output {tuple(states.shape)} is not finite/of the right shape")
+
+    attention.COUNTER.launches = 0
+    attention.F32_COUNTER.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    started = time.perf_counter()
+    for _ in range(repeats):
+        states = backend._encode_batch(batch, lengths)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - started
+    k2_per, f32_per = attention.COUNTER.launches / repeats, attention.F32_COUNTER.launches / repeats
+    flops = {part: value * n_chunks for part, value in _wav2vec2_flops(config, samples).items()}
+    total = sum(flops.values())
+    say("medium-encoder", chunks=n_chunks, seconds_per_chunk=30, frames=frames, repeats=repeats,
+        ms_per_encode=f"{elapsed / repeats * 1e3:.2f}", audio_s_per_s=f"{repeats * n_chunks * 30.0 / elapsed:.1f}",
+        mfu=f"{total * repeats / elapsed / PEAK_BF16_FLOPS:.4f}", tflop_per_encode=f"{total / 1e12:.3f}",
+        flop_by_part=json.dumps({part: f"{value / 1e12:.3f}T" for part, value in flops.items()}),
+        k2_per_encode=k2_per, k2_f32_per_encode=f32_per,
+        peak_mem_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
+    if (k2_per, f32_per) != (config.num_hidden_layers, 0):
+        raise AssertionError(f"launches per bf16 encode K2={k2_per} K2-f32={f32_per}, expected 24 and 0")
+    breakdown = _profile(lambda: backend._encode_batch(batch, lengths), "medium-encoder")
+    say("medium-encoder-profile", detail=breakdown)
+    chunk = torch.from_numpy(batch[:1]).to(cuda)
+    del backend, states
+    torch.cuda.empty_cache()
+
+    check = _medium_layers_check(chunk, 20 * 16000)
+    say("medium-encoder-check", layers=2, d_model=config.hidden_size, valid_seconds=20,
+        bf16_rel_l2=f"{check['bf16']['rel_l2']:.5f}", bf16_bound=MEDIUM_BF16_REL_L2_BOUND,
+        bf16_max_abs=f"{check['bf16']['max_abs']:.4f}", float32_max_abs=f"{check['float32']['max_abs']:.3g}",
+        float32_bound=MEDIUM_F32_MAX_ABS_BOUND, float32_rel_l2=f"{check['float32']['rel_l2']:.3g}")
+    if not check["bf16"]["rel_l2"] <= MEDIUM_BF16_REL_L2_BOUND:
+        raise AssertionError(f"card bf16 XLS-R disagrees with the CPU: {check['bf16']}")
+    if not check["float32"]["max_abs"] <= MEDIUM_F32_MAX_ABS_BOUND:
+        raise AssertionError(f"card float32 XLS-R disagrees with the CPU: {check['float32']}")
+    return {"k2_per_encode": k2_per, "audio_s_per_s": repeats * n_chunks * 30.0 / elapsed}
+
+
+def phase_medium_infer() -> dict:
+    """``api.infer(profile="medium")`` at XLS-R 300M width: three clips cold and warm, device
+    pooling, a float32 request, and a float32 retry after a planted non-finite encode."""
+    import numpy as np
+    import torch
+
+    import ser_tpu_torch.api as api
+    from ser_tpu_torch._internal.config.artifact_naming import profile_artifact_file_name
+    from ser_tpu_torch._internal.config.bootstrap import build_settings
+    from ser_tpu_torch._internal.pool.device_pool import is_device_embeddings
+    from ser_tpu_torch._internal.repr import encoders
+    from ser_tpu_torch._internal.runtime import profile_execution
+    from ser_tpu_torch.models import attention
+
+    scratch_root = REPO / "build"
+    scratch_root.mkdir(exist_ok=True)
+    pooled = []
+    host_pool = profile_execution.mean_std_pool
+
+    def recording_pool(encoded, windows):
+        features = host_pool(encoded, windows)
+        on_card = is_device_embeddings(encoded.embeddings) and encoded.embeddings.is_cuda
+        pooled.append((on_card, features))
+        return features
+
+    with tempfile.TemporaryDirectory(dir=scratch_root, prefix="chip_smoke_") as tmp:
+        root = Path(tmp)
+        artifact = root / "models" / profile_artifact_file_name(profile="medium", model_id=MEDIUM_MODEL_ID)
+        _write_head_envelope(artifact, feature_size=2 * 1024, backend_id="jax_xlsr", profile="medium",
+                             model_id=MEDIUM_MODEL_ID)
+        clips = []
+        for index, seconds in enumerate((10.0, 45.0, 75.0)):
+            clip = root / f"clip_{int(seconds)}s.wav"
+            _write_clip(clip, seconds, 48000, seed=10 + index)
+            clips.append((clip, seconds))
+        os.environ["SER_ALLOW_RANDOM_INIT"] = "1"
+        os.environ["SER_RANDOM_INIT_SIZE"] = "full"
+        env = {"SER_ENABLE_MEDIUM_PROFILE": "1", "SER_MODELS_FOLDER": str(root / "models"),
+               "SER_CACHE_DIR": str(root / "cache")}
+        settings = build_settings(env)
+
+        def run(clip: Path, run_settings=settings):
+            started = time.perf_counter()
+            execution = api.infer(clip, profile="medium", include_transcript=False, settings=run_settings)
+            torch.cuda.synchronize()
+            return execution, time.perf_counter() - started
+
+        attention.COUNTER.launches = 0
+        attention.F32_COUNTER.launches = 0
+        launches = {}
+        executions = [run(clip) for clip, _ in clips]
+        launches["bf16_requests"] = {"flash_attention_fwd": attention.COUNTER.launches,
+                                     "flash_attention_f32": attention.F32_COUNTER.launches}
+        warm = [run(clip)[1] for clip, _ in clips]
+
+        # Device pooling against host pooling on the 45 s clip, the head's inputs recorded.
+        profile_execution.mean_std_pool = recording_pool
+        try:
+            run(clips[1][0])
+            os.environ["SER_DEVICE_POOLING"] = "1"
+            try:
+                pooled_execution, pooled_s = run(clips[1][0])
+            finally:
+                del os.environ["SER_DEVICE_POOLING"]
+        finally:
+            profile_execution.mean_std_pool = host_pool
+        (host_on_card, host_features), (device_on_card, device_features) = pooled
+        # Per window, relative to the window's largest feature: an element-wise
+        # ratio is ill-posed for a mean near zero (a 4e-8 difference on a 4e-5 mean).
+        pooling_diff = np.abs(device_features - host_features)
+        pooling_rel = float((pooling_diff.max(axis=1) / np.abs(host_features).max(axis=1)).max())
+        elementwise_rel = float((pooling_diff / (np.abs(host_features) + 1e-9)).max())
+
+        # SER_TORCH_DTYPE=float32: a float32 backend, its attention through K2-f32.
+        before = attention.F32_COUNTER.launches
+        f32_execution, f32_s = run(clips[1][0], build_settings({**env, "SER_TORCH_DTYPE": "float32"}))
+        launches["float32_request"] = attention.F32_COUNTER.launches - before
+
+        # A non-finite first bf16 encode: the retry runs in float32, and the backend stays so.
+        backend = encoders.build_encoder_backend("medium", settings)
+        calls = []
+        encode = backend._encode_batch
+
+        def planted(batch, lengths):
+            out = encode(batch, lengths)
+            calls.append(str(backend.dtype))
+            return out * float("nan") if len(calls) == 1 else out
+
+        backend._encode_batch = planted
+        before = attention.F32_COUNTER.launches
+        retry_execution, retry_s = run(clips[0][0])
+        launches["retry_request"] = attention.F32_COUNTER.launches - before
+        launches["per_float32_encode"] = launches["retry_request"] / max(1, calls.count("torch.float32"))
+        launches["total"] = {"flash_attention_fwd": attention.COUNTER.launches,
+                             "flash_attention_f32": attention.F32_COUNTER.launches}
+
+    for (execution, cold_s), warm_s, (clip, seconds) in zip(executions, warm, clips):
+        _check_segments(execution, clip, seconds, "jax_xlsr")
+        say("medium-infer", clip=clip.name, seconds=seconds, cold_latency_s=f"{cold_s:.4f}",
+            warm_latency_s=f"{warm_s:.4f}", frames=len(execution.detailed_result.frames),
+            segments=len(execution.detailed_result.segments),
+            labels=json.dumps(sorted({s.emotion for s in execution.detailed_result.segments})))
+    for label, execution, clip_index in (("device-pooling", pooled_execution, 1), ("float32", f32_execution, 1),
+                                         ("retry", retry_execution, 0)):
+        _check_segments(execution, clips[clip_index][0], clips[clip_index][1], "jax_xlsr")
+    say("medium-infer-pooling", clip=clips[1][0].name, latency_s=f"{pooled_s:.4f}", host_on_card=host_on_card,
+        device_on_card=device_on_card, max_rel_diff_per_window=f"{pooling_rel:.3g}", bound=DEVICE_POOLING_REL_BOUND,
+        max_abs_diff=f"{pooling_diff.max():.3g}", max_elementwise_rel_diff=f"{elementwise_rel:.3g}")
+    say("medium-infer-float32", clip=clips[1][0].name, latency_s=f"{f32_s:.4f}",
+        k2_f32_launches=launches["float32_request"])
+    say("medium-infer-retry", clip=clips[0][0].name, latency_s=f"{retry_s:.4f}", encode_dtypes=json.dumps(calls),
+        k2_f32_launches=launches["retry_request"], backend_dtype_after=str(backend.dtype))
+    say("medium-infer-launches", **{key: json.dumps(value) for key, value in launches.items()})
+    layers = 24
+    if launches["bf16_requests"] != {"flash_attention_fwd": layers * len(clips), "flash_attention_f32": 0}:
+        raise AssertionError(f"bf16 medium requests launched {launches['bf16_requests']}, expected K2={layers * 3}")
+    if not (device_on_card and not host_on_card and pooling_rel < DEVICE_POOLING_REL_BOUND):
+        raise AssertionError(f"device pooling: on card {device_on_card}, host {host_on_card}, rel {pooling_rel}")
+    if launches["float32_request"] != layers:
+        raise AssertionError(f"the float32 request launched K2-f32 {launches['float32_request']} times, expected 24")
+    if calls != ["torch.bfloat16", "torch.float32"] or launches["per_float32_encode"] != layers:
+        raise AssertionError(f"the float32 retry did not run through K2-f32: {calls}, {launches['retry_request']}")
+    if backend.dtype != torch.float32:
+        raise AssertionError("the backend did not stay float32 after its retry")
     return launches
 
 
@@ -1635,6 +2105,10 @@ def main() -> int:
         k1 = phase_k1()
         phase = "K2"
         k2 = phase_k2()
+        phase = "K2-f32"
+        k2_f32 = phase_k2_f32()
+        phase = "K2-medium"
+        k2_medium = phase_k2_medium()
         phase = "K2-bwd"
         k2_bwd = phase_k2_bwd()
         phase = "K3"
@@ -1655,6 +2129,10 @@ def main() -> int:
         launches = phase_infer()
         phase = "train"
         train = phase_train()
+        phase = "medium-encoder"
+        medium_encode = phase_medium_encoder()
+        phase = "medium-infer"
+        medium = phase_medium_infer()
     except Exception:
         traceback.print_exc()
         print(f"chip_smoke: FAILED in phase {phase}", file=sys.stderr)
@@ -1664,7 +2142,16 @@ def main() -> int:
     # (full-budget) transcribe_words call. Each path's counts are set to 0 just
     # before it and read just after.
     k1.update(launches=launches["power_mel_log"], launches_per_encode=per_encode["k1_per_encode"])
-    k2.update(launches=launches["flash_attention_fwd"], launches_per_encode=per_encode["k2_per_encode"])
+    k2.update(launches=launches["flash_attention_fwd"], launches_per_encode=per_encode["k2_per_encode"],
+              medium_launches=medium["bf16_requests"]["flash_attention_fwd"],
+              medium_launches_per_encode=medium_encode["k2_per_encode"],
+              medium_masked_ms=k2_medium["30s"]["masked_ms"], medium_unmasked_ms=k2_medium["30s"]["unmasked_ms"],
+              medium_15s_masked_ms=k2_medium["15s"]["masked_ms"], medium_rel_l2_err=k2_medium["30s"]["rel_l2_err"])
+    # K2-f32: launches of the medium-infer path (its float32 request and its retry).
+    k2_f32.update(launches=medium["total"]["flash_attention_f32"],
+                  launches_per_float32_encode=medium["per_float32_encode"],
+                  launches_per_float32_request=medium["float32_request"],
+                  launches_per_retry_request=medium["retry_request"])
     for kernel in (k3, k4, k5):
         kernel.update(launches=transcribe["launches"][kernel["name"]],
                       launches_per_decode=decode["launches_per_decode"][kernel["name"]],
@@ -1672,7 +2159,7 @@ def main() -> int:
     # K2-bwd: launches of the timed train call (3 steps).
     k2_bwd.update(launches=train["launches"]["flash_attention_bwd"],
                   launches_per_step=train["launches_per_step"]["flash_attention_bwd"])
-    print(json.dumps({"kernels": [k1, k2, k2_bwd, k3, k4, k5]}))
+    print(json.dumps({"kernels": [k1, k2, k2_f32, k2_bwd, k3, k4, k5]}))
     print(env["smi"])
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -1,18 +1,21 @@
 """Environment capture into the port's settings snapshot.
 
 Counterpart of ``ser_tpu/_internal/config/{settings_inputs,settings_builder,
-bootstrap}.py`` for the fields the accurate inference path reads. The same
-``SER_*`` variables are honoured with the same meaning, so one environment
-configures both packages: ``SER_ENABLE_ACCURATE_PROFILE``,
-``SER_MODELS_FOLDER`` (alias ``SER_MODELS_DIR``), ``SER_CACHE_DIR``,
-``SER_DATA_DIR``, ``SER_MODEL_CACHE_DIR``, ``SER_ACCURATE_MODEL_ID``,
+bootstrap}.py`` for the fields the medium and accurate inference paths read.
+The same ``SER_*`` variables are honoured with the same meaning, so one
+environment configures both packages: ``SER_ENABLE_MEDIUM_PROFILE``,
+``SER_ENABLE_ACCURATE_PROFILE``, ``SER_MODELS_FOLDER`` (alias
+``SER_MODELS_DIR``), ``SER_CACHE_DIR``, ``SER_DATA_DIR``,
+``SER_MODEL_CACHE_DIR``, ``SER_MEDIUM_MODEL_ID``, ``SER_ACCURATE_MODEL_ID``,
 ``SER_OUTPUT_SCHEMA_VERSION``, ``SER_TORCH_DEVICE``, ``SER_TORCH_DTYPE``,
 ``SER_DEFAULT_LANGUAGE``, ``SER_TMP_FOLDER`` (alias ``SER_TMP_DIR``), the
-``SER_ACCURATE_<KNOB>`` runtime overrides, and the transcript lane's
+``SER_MEDIUM_<KNOB>`` and ``SER_ACCURATE_<KNOB>`` runtime overrides, and the
+transcript lane's
 ``WHISPER_BACKEND``, ``WHISPER_MODEL``, ``WHISPER_DEMUCS``, ``WHISPER_VAD``,
 ``WHISPER_DECODE_STRATEGY`` and ``SER_SEPARATION_MODEL_PATH``.
 ``SER_ALLOW_RANDOM_INIT`` / ``SER_RANDOM_INIT_SIZE`` are read where the
-weights are resolved, as in the JAX package.
+weights are resolved, and ``SER_DEVICE_POOLING`` where the medium profile
+encodes, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -68,7 +71,7 @@ def _path(env: Mapping[str, str], name: str) -> Path | None:
     return Path(raw).expanduser() if raw is not None else None
 
 
-#: The accurate runtime's knobs this path reads, each from ``SER_ACCURATE_<KNOB>``.
+#: The profile runtime knobs these paths read, each from ``SER_<PROFILE>_<KNOB>``.
 _KNOB_READERS = {
     "pool_window_size_seconds": _number(float),
     "pool_window_stride_seconds": _number(float),
@@ -101,6 +104,7 @@ def build_settings(env: Mapping[str, str] | None = None) -> AppConfig:
         **_changes(
             folder=models_folder,
             model_cache_dir=model_cache_dir,
+            medium_model_id=_str(env, "SER_MEDIUM_MODEL_ID"),
             accurate_model_id=_str(env, "SER_ACCURATE_MODEL_ID"),
         ),
     )
@@ -113,12 +117,10 @@ def build_settings(env: Mapping[str, str] | None = None) -> AppConfig:
         accurate_research_profile=bool(_bool(env, "SER_ENABLE_ACCURATE_RESEARCH_PROFILE")),
     )
 
-    accurate_runtime = dataclasses.replace(
-        base.accurate_runtime,
-        **_changes(
-            **{knob: read(env, f"SER_ACCURATE_{knob.upper()}") for knob, read in _KNOB_READERS.items()}
-        ),
-    )
+    def runtime_for(prefix: str, runtime):
+        return dataclasses.replace(
+            runtime, **_changes(**{knob: read(env, f"{prefix}_{knob.upper()}") for knob, read in _KNOB_READERS.items()})
+        )
 
     schema = dataclasses.replace(
         base.schema, **_changes(output_schema_version=_str(env, "SER_OUTPUT_SCHEMA_VERSION"))
@@ -152,7 +154,8 @@ def build_settings(env: Mapping[str, str] | None = None) -> AppConfig:
         base,
         models=models,
         runtime_flags=flags,
-        accurate_runtime=accurate_runtime,
+        medium_runtime=runtime_for("SER_MEDIUM", base.medium_runtime),
+        accurate_runtime=runtime_for("SER_ACCURATE", base.accurate_runtime),
         schema=schema,
         torch_runtime=torch_runtime,
         transcription=transcription,

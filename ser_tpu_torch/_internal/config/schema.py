@@ -2,9 +2,9 @@
 
 Counterpart of ``ser_tpu/_internal/config/schema.py``. Field names, defaults
 and the platform cache/data directories are the JAX package's, so one
-environment configures both packages alike. Only the sections the accurate
-profile's inference path and its transcript lane read are here; the full
-settings builder is later work (``ROADMAP.md``).
+environment configures both packages alike. Only the sections the medium and
+accurate profiles' inference paths and their transcript lane read are here;
+the full settings builder is later work (``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -75,6 +75,7 @@ class ModelsConfig:
 
     folder: Path = field(default_factory=lambda: default_data_root() / "models")
     model_cache_dir: Path = field(default_factory=lambda: default_cache_root() / "model-cache")
+    medium_model_id: str = field(default_factory=lambda: default_profile_model_id("medium"))
     accurate_model_id: str = field(default_factory=lambda: default_profile_model_id("accurate"))
     whisper_model: WhisperModelConfig = field(default_factory=WhisperModelConfig)
 
@@ -148,6 +149,7 @@ class AppConfig:
     audio_read: AudioReadConfig = field(default_factory=AudioReadConfig)
     models: ModelsConfig = field(default_factory=ModelsConfig)
     runtime_flags: RuntimeFlags = field(default_factory=RuntimeFlags)
+    medium_runtime: ProfileRuntimeDefaults = field(default_factory=lambda: require_ported("medium").runtime_defaults)
     accurate_runtime: ProfileRuntimeDefaults = field(
         default_factory=lambda: require_ported("accurate").runtime_defaults
     )
@@ -159,7 +161,12 @@ class AppConfig:
 
     def profile_runtime(self, profile: ProfileName) -> ProfileRuntimeDefaults:
         require_ported(profile)
-        return self.accurate_runtime
+        return {"medium": self.medium_runtime, "accurate": self.accurate_runtime}[profile]
+
+    def profile_model_id(self, profile: ProfileName) -> str:
+        """The model id the profile's backend loads (the settings override the catalog's)."""
+        require_ported(profile)
+        return {"medium": self.models.medium_model_id, "accurate": self.models.accurate_model_id}[profile]
 
 
 __all__ = [

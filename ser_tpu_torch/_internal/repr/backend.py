@@ -70,6 +70,11 @@ class EncodedSequence:
             ("frame_start_seconds", self.frame_start_seconds),
             ("frame_end_seconds", self.frame_end_seconds),
         ):
+            if not isinstance(array, np.ndarray):
+                # Embeddings left on the device (the SER_DEVICE_POOLING lane):
+                # the encode that made them ran the finite check on the
+                # device (chunked_encode); a second check here would fetch them.
+                continue
             if not np.all(np.isfinite(array)):
                 raise ValueError(f"EncodedSequence {name} contain non-finite values.")
         for name, times in (

@@ -1,13 +1,44 @@
-"""Weight resolution shared by the encoder backends.
+"""Shared machinery of the encoder backends: weight resolution, chunking and batching.
 
-Copied from ``ser_tpu/_internal/repr/encoder_backend.py``: the per-(backend,
-model) random-init seed and the local HF-cache lookup. The chunked-encode
-machinery there is the medium profile's and waits for its slice.
+Counterpart of ``ser_tpu/_internal/repr/encoder_backend.py``: the
+per-(backend, model) random-init seed, the local HF-cache lookup, and the
+chunked encode of the wav2vec2-class backends. A clip is cut into chunks of
+at most 30 s; all its chunks form one batched call, padded to the smallest
+length bucket that holds the longest (``_CHUNK_BUCKETS_SECONDS``, the JAX
+package's buckets), with the padded frames masked out of attention; frame
+timestamps are interpolated evenly over each chunk's true duration; a
+non-finite result on the valid frames is retried once through the backend's
+float32 encode. ``chunked_encode_many`` pools many clips' chunks into
+cross-clip batches, grouped by bucket, with the same batch caps.
+
+Differences from the JAX package: ``encode_batch`` returns a float32 tensor
+on the backend's device; on one device ``shard_chunk_batch`` passes its
+inputs through (no mesh); and ``_gather_valid_finite`` is one plain function
+on tensors (the JAX package builds a new ``jax.jit`` on every call).
 """
 
 from __future__ import annotations
 
+import hashlib
+import logging
+from collections.abc import Callable
 from pathlib import Path
+
+import numpy as np
+import torch
+
+from ser_tpu_torch._internal.pool.device_pool import device_pooling_enabled
+from ser_tpu_torch._internal.repr.backend import EncodedSequence
+from ser_tpu_torch._internal.utils.audio_io import resample_audio
+
+logger = logging.getLogger(__name__)
+
+ENCODER_SAMPLE_RATE = 16000
+MAX_CHUNK_SECONDS = 30.0
+#: Chunk-length buckets (seconds): the number of distinct batch shapes is bounded by them.
+_CHUNK_BUCKETS_SECONDS = (1, 2, 4, 8, 15, 30)
+
+type EncodeBatch = Callable[[np.ndarray, np.ndarray], torch.Tensor | np.ndarray]
 
 
 def random_init_seed(backend_id: str, model_id: str) -> int:
@@ -19,8 +50,6 @@ def random_init_seed(backend_id: str, model_id: str) -> int:
     identity keeps runs reproducible while giving every backend/model pair
     independent weights.
     """
-    import hashlib
-
     digest = hashlib.sha256(f"{backend_id}:{model_id}".encode("utf-8")).digest()
     return int.from_bytes(digest[:4], "big")
 
@@ -65,4 +94,267 @@ def resolve_local_model_dir(cache_root: Path, model_id: str) -> Path | None:
     return None
 
 
-__all__ = ["random_init_seed", "resolve_local_model_dir"]
+def plan_chunks(n_samples: int, sample_rate: int = ENCODER_SAMPLE_RATE) -> list[tuple[int, int]]:
+    """Splits a clip into <=30 s chunks; returns [(start, length), ...]."""
+    max_len = int(MAX_CHUNK_SECONDS * sample_rate)
+    starts = list(range(0, n_samples, max_len))
+    return [(s, min(max_len, n_samples - s)) for s in starts if n_samples - s > 0]
+
+
+def bucket_samples(length: int, sample_rate: int = ENCODER_SAMPLE_RATE) -> int:
+    """Smallest bucket (in samples) holding ``length``."""
+    for seconds in _CHUNK_BUCKETS_SECONDS:
+        if length <= seconds * sample_rate:
+            return int(seconds * sample_rate)
+    return int(_CHUNK_BUCKETS_SECONDS[-1] * sample_rate)
+
+
+def shard_chunk_batch(batch: np.ndarray, lengths: np.ndarray) -> tuple[np.ndarray, np.ndarray, int]:
+    """``(batch, lengths, true_rows)``: on one device the batch is laid out as it is."""
+    return batch, lengths, batch.shape[0]
+
+
+def _to_host(embeddings: torch.Tensor | np.ndarray) -> np.ndarray:
+    if isinstance(embeddings, torch.Tensor):
+        return embeddings.detach().to("cpu").numpy()
+    return np.asarray(embeddings)
+
+
+def _valid_frames_finite(embeddings: np.ndarray, lengths, frames_for_length) -> bool:
+    """Finiteness over VALID frames only: padded frame positions are
+    contractually arbitrary (a masked softmax row may be NaN) and must not
+    trigger the float32 retry or fail the batch."""
+    return all(
+        bool(np.all(np.isfinite(embeddings[row, : max(1, frames_for_length(int(n)))])))
+        for row, n in enumerate(lengths)
+    )
+
+
+def _gather_valid_finite(raw: torch.Tensor, valid_idx: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Valid-frame gather, float32 cast and finite reduction on the device.
+
+    ``raw`` (B, F, D), ``valid_idx`` the flat (row · F + frame) indices of the
+    valid frames. Returns ``(gathered (N, D) float32, finite)``, ``finite`` a
+    0-d bool tensor: reading it is the lane's one host sync.
+    """
+    gathered = raw.reshape(-1, raw.shape[-1]).index_select(0, valid_idx).to(torch.float32)
+    return gathered, torch.isfinite(gathered).all()
+
+
+def _retry_in_float32(
+    batch: np.ndarray,
+    lengths: np.ndarray,
+    *,
+    encode_batch: EncodeBatch,
+    float32_encode_batch: Callable[[], EncodeBatch] | None,
+    frames_for_length: Callable[[int], int],
+    backend_id: str,
+    checked_lengths: np.ndarray | None = None,
+) -> np.ndarray:
+    """The reference's retry after a non-finite result: once more through a float32 encode."""
+    logger.warning("Non-finite embeddings from %s; retrying in float32.", backend_id)
+    retry_encode = float32_encode_batch() if float32_encode_batch is not None else encode_batch
+    embeddings = _to_host(retry_encode(batch, lengths))
+    if not _valid_frames_finite(embeddings, lengths if checked_lengths is None else checked_lengths, frames_for_length):
+        raise ValueError(f"Backend {backend_id} produced non-finite embeddings.")
+    return embeddings
+
+
+def _frame_times(start: int, length: int, n_valid: int) -> tuple[np.ndarray, np.ndarray]:
+    """Start and end seconds of a chunk's frames, evenly over its true duration."""
+    frame_duration = (length / ENCODER_SAMPLE_RATE) / n_valid
+    frame_starts = start / ENCODER_SAMPLE_RATE + frame_duration * np.arange(n_valid)
+    return frame_starts, frame_starts + frame_duration
+
+
+def chunked_encode(
+    audio: np.ndarray,
+    sample_rate: int,
+    *,
+    encode_batch: EncodeBatch,
+    frames_for_length: Callable[[int], int],
+    backend_id: str,
+    float32_encode_batch: Callable[[], EncodeBatch] | None = None,
+) -> EncodedSequence:
+    """Runs one clip through the batched chunk encoder with exact timestamps.
+
+    ``encode_batch(chunks (B, L), lengths (B,)) -> (B, F_max, D)`` embeddings
+    (padded frames arbitrary); ``frames_for_length(samples) -> n_valid``.
+    ``float32_encode_batch``, when given, supplies a float32 encode for the
+    non-finite retry (re-running the same bf16 computation would change
+    nothing). With ``SER_DEVICE_POOLING=1`` the valid frames stay on the
+    device as a float32 tensor, for ``device_mean_std_pool``.
+    """
+    if audio.ndim != 1 or audio.size == 0:
+        raise ValueError("audio must be non-empty mono.")
+    audio16k = resample_audio(np.asarray(audio, dtype=np.float32), sample_rate, ENCODER_SAMPLE_RATE)
+    # Tail chunks shorter than the conv receptive field yield zero frames;
+    # emitting a fully-masked garbage row instead would poison clip-end
+    # features. Their audio tail is < one frame (~25 ms) — drop them.
+    chunks = [c for c in plan_chunks(audio16k.size) if frames_for_length(c[1]) > 0]
+    if not chunks:
+        raise ValueError(
+            f"Clip ({audio16k.size} samples) is shorter than the {backend_id} encoder receptive field."
+        )
+    bucket = max(bucket_samples(length) for _, length in chunks)
+    batch = np.zeros((len(chunks), bucket), dtype=np.float32)
+    lengths = np.zeros(len(chunks), dtype=np.int32)
+    for row, (start, length) in enumerate(chunks):
+        batch[row, :length] = audio16k[start : start + length]
+        lengths[row] = length
+    sharded_batch, sharded_lengths, true_rows = shard_chunk_batch(batch, lengths)
+
+    n_valids = [max(1, frames_for_length(length)) for _, length in chunks]
+    times = [_frame_times(start, length, n_valid) for (start, length), n_valid in zip(chunks, n_valids)]
+    retry = {
+        "encode_batch": encode_batch,
+        "float32_encode_batch": float32_encode_batch,
+        "frames_for_length": frames_for_length,
+        "backend_id": backend_id,
+    }
+
+    embeddings = None
+    embeddings_batch = None
+    raw = encode_batch(sharded_batch, sharded_lengths)[:true_rows]
+    if device_pooling_enabled() and isinstance(raw, torch.Tensor):
+        # The frames stay on the device for the device pool; one gather and
+        # one finite reduction, and the flag is the only value fetched.
+        f_max = int(raw.shape[1])
+        valid_idx = np.concatenate([row * f_max + np.arange(n) for row, n in enumerate(n_valids)])
+        gathered, finite = _gather_valid_finite(raw, torch.from_numpy(valid_idx).to(raw.device))
+        if bool(finite):
+            embeddings = gathered
+        else:
+            embeddings_batch = _retry_in_float32(batch, lengths, **retry)
+    else:
+        embeddings_batch = _to_host(raw)
+        if not _valid_frames_finite(embeddings_batch, lengths, frames_for_length):
+            embeddings_batch = _retry_in_float32(batch, lengths, **retry)
+    if embeddings is None:
+        embeddings = np.concatenate(
+            [embeddings_batch[row, :n_valid] for row, n_valid in enumerate(n_valids)]
+        ).astype(np.float32)
+
+    return EncodedSequence(
+        embeddings=embeddings,
+        frame_start_seconds=np.concatenate([starts for starts, _ in times]).astype(np.float64),
+        frame_end_seconds=np.concatenate([ends for _, ends in times]).astype(np.float64),
+        backend_id=backend_id,
+    )
+
+
+def chunked_encode_many(
+    clips: list[tuple[np.ndarray, int]],
+    *,
+    encode_batch: EncodeBatch,
+    frames_for_length: Callable[[int], int],
+    backend_id: str,
+    max_batch_chunks: int = 32,
+    attention_score_budget: float = 5e7,
+    float32_encode_batch: Callable[[], EncodeBatch] | None = None,
+) -> list[EncodedSequence]:
+    """Encodes MANY clips with chunks pooled into large cross-clip batches.
+
+    All clips' chunks are flattened, grouped by length bucket (padding every
+    1 s chunk to a 30 s outlier's bucket would blow attention cost ~900x and
+    shrink the batch cap by the same factor), and fed through the encoder in
+    fixed-shape batches: rows padded up to each bucket's cap, so the number of
+    batch shapes is bounded by the bucket count, not by the mix of clip
+    lengths. Per-batch non-finite results retry through
+    ``float32_encode_batch``, as :func:`chunked_encode` does.
+    """
+    resampled: list[np.ndarray] = []
+    work: list[tuple[int, int, int]] = []  # (clip_index, start_sample, length)
+    for clip_index, (audio, sr) in enumerate(clips):
+        if audio.ndim != 1 or audio.size == 0:
+            raise ValueError("Every clip must be non-empty mono audio.")
+        audio16k = resample_audio(np.asarray(audio, dtype=np.float32), sr, ENCODER_SAMPLE_RATE)
+        resampled.append(audio16k)
+        clip_work = [
+            (clip_index, start, length)
+            for start, length in plan_chunks(audio16k.size)
+            if frames_for_length(length) > 0
+        ]
+        if not clip_work:
+            raise ValueError(
+                f"Clip {clip_index} ({audio16k.size} samples) is shorter than "
+                f"the {backend_id} encoder receptive field."
+            )
+        work.extend(clip_work)
+
+    by_bucket: dict[int, list[int]] = {}
+    for item_index, (_, _, length) in enumerate(work):
+        by_bucket.setdefault(bucket_samples(length), []).append(item_index)
+
+    chunk_embeddings: dict[int, np.ndarray] = {}
+    for bucket in sorted(by_bucket):
+        item_indices = by_bucket[bucket]
+        # Bound B so that B * F^2 attention scores stay within budget.
+        frames_per_chunk = max(1, frames_for_length(bucket))
+        batch_cap = max(1, min(max_batch_chunks, int(attention_score_budget // (frames_per_chunk**2))))
+        for batch_start in range(0, len(item_indices), batch_cap):
+            batch_items = item_indices[batch_start : batch_start + batch_cap]
+            # Fixed row count per (bucket, cap): silent rows pad a remainder batch.
+            batch = np.zeros((batch_cap, bucket), dtype=np.float32)
+            lengths = np.zeros(batch_cap, dtype=np.int32)
+            for row, item_index in enumerate(batch_items):
+                clip_index, start, length = work[item_index]
+                batch[row, :length] = resampled[clip_index][start : start + length]
+                lengths[row] = length
+            # Padding rows reuse the last real row's length so
+            # frames_for_length stays positive for every row.
+            lengths[len(batch_items) :] = lengths[max(0, len(batch_items) - 1)]
+            sharded_batch, sharded_lengths, true_rows = shard_chunk_batch(batch, lengths)
+            out = _to_host(encode_batch(sharded_batch, sharded_lengths)[:true_rows])
+            real_lengths = lengths[: len(batch_items)]
+            if not _valid_frames_finite(out, real_lengths, frames_for_length):
+                out = _retry_in_float32(
+                    batch,
+                    lengths,
+                    encode_batch=encode_batch,
+                    float32_encode_batch=float32_encode_batch,
+                    frames_for_length=frames_for_length,
+                    backend_id=backend_id,
+                    checked_lengths=real_lengths,
+                )
+            for row, item_index in enumerate(batch_items):
+                chunk_embeddings[item_index] = out[row]
+
+    sequences: list[EncodedSequence] = []
+    work_index = 0
+    for audio16k in resampled:
+        embeddings, starts_s, ends_s = [], [], []
+        for start, length in plan_chunks(audio16k.size):
+            n_valid = frames_for_length(length)
+            if n_valid <= 0:
+                continue
+            embeddings.append(chunk_embeddings[work_index][:n_valid])
+            work_index += 1
+            frame_starts, frame_ends = _frame_times(start, length, n_valid)
+            starts_s.append(frame_starts)
+            ends_s.append(frame_ends)
+        stacked = np.concatenate(embeddings).astype(np.float32)
+        if not np.all(np.isfinite(stacked)):
+            raise ValueError(f"Backend {backend_id} produced non-finite embeddings.")
+        sequences.append(
+            EncodedSequence(
+                embeddings=stacked,
+                frame_start_seconds=np.concatenate(starts_s).astype(np.float64),
+                frame_end_seconds=np.concatenate(ends_s).astype(np.float64),
+                backend_id=backend_id,
+            )
+        )
+    return sequences
+
+
+__all__ = [
+    "ENCODER_SAMPLE_RATE",
+    "MAX_CHUNK_SECONDS",
+    "bucket_samples",
+    "chunked_encode",
+    "chunked_encode_many",
+    "plan_chunks",
+    "random_init_seed",
+    "resolve_local_model_dir",
+    "shard_chunk_batch",
+]

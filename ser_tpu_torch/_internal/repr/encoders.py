@@ -1,9 +1,12 @@
-"""Encoder-backend construction for the ported transformer profile (accurate).
+"""Encoder-backend construction for the ported transformer profiles (medium, accurate).
 
 Counterpart of ``ser_tpu/_internal/repr/encoders.py``: builds the profile's
-backend on the runtime-policy device and dtype, and reuses an instance per
-weight provenance (backend, model id, dtype, device, cache root, random-init
-mode), since a built backend holds its weights on the device.
+backend (``jax_xlsr`` for medium, ``jax_whisper_encoder`` for accurate) on the
+runtime-policy device and dtype, and reuses an instance per weight
+provenance (backend, model id, dtype, device, cache root, random-init mode),
+since a built backend holds its weights on the device. An XLS-R backend that
+switched itself to float32 after a non-finite encode stays so in the cache,
+as in the JAX package.
 """
 
 from __future__ import annotations
@@ -13,17 +16,21 @@ import threading
 
 from ser_tpu_torch._internal.config.schema import AppConfig
 from ser_tpu_torch._internal.repr.runtime_policy import resolve_feature_runtime
+from ser_tpu_torch._internal.repr.wav2vec2_backend import XlsrBackend
 from ser_tpu_torch._internal.repr.whisper_backend import WhisperEncoderBackend
 from ser_tpu_torch.profiles import ProfileName, require_ported
 
-_BACKEND_CACHE: dict[tuple, WhisperEncoderBackend] = {}
+type EncoderBackend = XlsrBackend | WhisperEncoderBackend
+
+_BACKENDS = {"jax_xlsr": XlsrBackend, "jax_whisper_encoder": WhisperEncoderBackend}
+_BACKEND_CACHE: dict[tuple, EncoderBackend] = {}
 _BACKEND_CACHE_LOCK = threading.Lock()
 
 
-def build_encoder_backend(profile: ProfileName, settings: AppConfig) -> WhisperEncoderBackend:
+def build_encoder_backend(profile: ProfileName, settings: AppConfig) -> EncoderBackend:
     """Builds (or reuses) the encoder backend for one ported profile."""
     spec = require_ported(profile)
-    model_id = settings.models.accurate_model_id
+    model_id = settings.profile_model_id(profile)
     runtime = resolve_feature_runtime(spec.backend_id, torch_runtime=settings.torch_runtime)
     cache_key = (
         spec.backend_id,
@@ -40,7 +47,7 @@ def build_encoder_backend(profile: ProfileName, settings: AppConfig) -> WhisperE
         return cached
     # Built outside the lock: loading a checkpoint takes seconds and must not
     # block unrelated cache hits. A racing duplicate build is tolerable.
-    backend = WhisperEncoderBackend(
+    backend = _BACKENDS[spec.backend_id](
         model_id=model_id,
         cache_root=settings.models.huggingface_cache_root,
         device=runtime.device,
@@ -50,4 +57,4 @@ def build_encoder_backend(profile: ProfileName, settings: AppConfig) -> WhisperE
         return _BACKEND_CACHE.setdefault(cache_key, backend)
 
 
-__all__ = ["build_encoder_backend"]
+__all__ = ["EncoderBackend", "build_encoder_backend"]

@@ -24,20 +24,20 @@ type BackendHook = Callable[[InferenceRequest], InferenceResult]
 
 
 def _profile_enabled(profile: ProfileName, settings: AppConfig) -> bool:
-    return {"accurate": settings.runtime_flags.accurate_profile}.get(profile, False)
+    flags = settings.runtime_flags
+    return {"medium": flags.medium_profile, "accurate": flags.accurate_profile}.get(profile, False)
 
 
 def build_profile_spec(profile: ProfileName, settings: AppConfig) -> ProfileBoundarySpec:
     """The boundary spec for one ported windowed profile."""
     catalog_spec = require_ported(profile)
+    model_id = settings.profile_model_id(profile)
     return ProfileBoundarySpec(
         profile=profile,
         backend_id=catalog_spec.backend_id,
-        model_id=settings.models.accurate_model_id,
+        model_id=model_id,
         backend_factory=functools.partial(build_encoder_backend, profile),
-        artifact_file_name=profile_artifact_file_name(
-            profile=profile, model_id=settings.models.accurate_model_id
-        ),
+        artifact_file_name=profile_artifact_file_name(profile=profile, model_id=model_id),
     )
 
 

@@ -70,7 +70,7 @@ class RuntimePipeline:
                 if hook is None:
                     raise UnsupportedProfileError(
                         f"Profile {profile!r} backend {backend_id!r} has no hook: the profile "
-                        "is not enabled (SER_ENABLE_ACCURATE_PROFILE=1).",
+                        f"is not enabled (SER_ENABLE_{profile.upper().replace('-', '_')}_PROFILE=1).",
                         profile=profile,
                     )
             with phases.timed_phase(phases.PHASE_EMOTION_INFERENCE, timings):

@@ -1,21 +1,23 @@
 """Pure per-profile execution pass: encode → window → pool → predict → postprocess.
 
-Copied from ``ser_tpu/_internal/runtime/profile_execution.py`` for the
-accurate profile: mean/std pooling, and no device-pooling branch (the Whisper
-backend never takes it). The profile supplies the backend and the
+Copied from ``ser_tpu/_internal/runtime/profile_execution.py``: mean/std
+(every windowed profile's strategy) or mean pooling, each on the device when
+the encode left the frames there (``SER_DEVICE_POOLING=1``). The profile
+supplies the backend and the
 postprocessing config.
 """
 
 from __future__ import annotations
 
 import logging
-from typing import Any
+from typing import Any, Literal
 
 import numpy as np
 
 from ser_tpu_torch._internal.models.fast_path import predict_frames
 from ser_tpu_torch._internal.pool import mean_std_pool, temporal_pooling_windows
-from ser_tpu_torch._internal.repr import FeatureBackend
+from ser_tpu_torch._internal.pool.device_pool import device_mean_std_pool, is_device_embeddings
+from ser_tpu_torch._internal.repr import EncodedSequence, FeatureBackend, PoolingWindow, overlap_frame_mask
 from ser_tpu_torch._internal.runtime.postprocessing import (
     SegmentPostprocessingConfig,
     postprocess_frame_predictions,
@@ -23,6 +25,20 @@ from ser_tpu_torch._internal.runtime.postprocessing import (
 from ser_tpu_torch.runtime.schema import FramePrediction, InferenceResult
 
 logger = logging.getLogger(__name__)
+
+type PoolingStrategy = Literal["mean", "mean_std"]
+
+
+def _mean_pool(encoded: EncodedSequence, windows: list[PoolingWindow]) -> np.ndarray:
+    if is_device_embeddings(encoded.embeddings):
+        # The mean half of the device pool is exactly the mean pooling.
+        pooled = device_mean_std_pool(encoded, windows)
+        return pooled[:, : pooled.shape[1] // 2]
+    rows = []
+    for window in windows:
+        mask = overlap_frame_mask(encoded, window)
+        rows.append(np.asarray(encoded.embeddings[mask], dtype=np.float64).mean(axis=0))
+    return np.vstack(rows)
 
 
 def run_windowed_inference_once(
@@ -34,6 +50,7 @@ def run_windowed_inference_once(
     pool_window_size_seconds: float,
     pool_window_stride_seconds: float,
     postprocessing_config: SegmentPostprocessingConfig,
+    pooling_strategy: PoolingStrategy = "mean_std",
     output_schema_version: str,
     expected_feature_size: int | None = None,
 ) -> InferenceResult:
@@ -44,7 +61,7 @@ def run_windowed_inference_once(
         window_size_seconds=pool_window_size_seconds,
         window_stride_seconds=pool_window_stride_seconds,
     )
-    features = mean_std_pool(encoded, windows)
+    features = mean_std_pool(encoded, windows) if pooling_strategy == "mean_std" else _mean_pool(encoded, windows)
 
     if expected_feature_size is not None and features.shape[1] != expected_feature_size:
         raise ValueError(
@@ -71,4 +88,4 @@ def run_windowed_inference_once(
     )
 
 
-__all__ = ["run_windowed_inference_once"]
+__all__ = ["PoolingStrategy", "run_windowed_inference_once"]

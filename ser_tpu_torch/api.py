@@ -1,12 +1,16 @@
-"""Public API of the PyTorch port: ``infer`` for the accurate profile.
+"""Public API of the PyTorch port: ``infer`` for the medium and accurate profiles.
 
 Counterpart of ``ser_tpu.api.infer``, returning the same ``InferenceExecution``.
 It runs on the CUDA card unless the settings ask for the CPU
 (``SER_TORCH_DEVICE=cpu`` or ``settings.torch_runtime.device == "cpu"``);
-with no card and no such request it raises. The accurate profile is ported,
-with its transcript lane (``include_transcript``, on by default as in the JAX
+with no card and no such request it raises. Ported: the accurate profile
+(Whisper large-v3 encoder) and the medium profile (XLS-R 300M encoder,
+chunked masked encode, float32 retry after a non-finite bf16 encode, pooling
+on the host or, with ``SER_DEVICE_POOLING=1``, on the card), each with the
+transcript lane (``include_transcript``, on by default as in the JAX
 package: it needs a staged HF Whisper checkpoint under the Whisper download
-root). CSV and subtitle export and the other profiles raise
+root; the medium profile's default model name is ``turbo``). CSV and
+subtitle export and the fast and accurate-research profiles raise
 ``NotImplementedError`` (``ROADMAP.md``).
 """
 

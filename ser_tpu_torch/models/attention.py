@@ -4,7 +4,11 @@ Counterpart of ``ser_tpu/models/attention.py``. Kernel K2 (``flash_attention``,
 source ``csrc/flash_attention.cu``) replaces the TPU kernel behind
 ``_flash_path`` there (``jax.experimental.pallas.ops.tpu.flash_attention``):
 softmax(QKᵀ/√D)·V with float32 softmax and accumulation, bf16 in and out,
-D = 64, and an optional (B, T) key mask. K2-bwd (``flash_attention_backward``,
+D = 64, and an optional (B, T) key mask. The same wrapper routes float32
+operands to K2-f32 (source ``csrc/flash_attention_f32.cu``), the same
+function with every product in float32, which the Pallas kernel computes when
+it is handed float32 (the medium profile's float32 retry, and any float32
+encode). K2-bwd (``flash_attention_backward``,
 the same source) replaces that kernel's dkv and dq backward kernels, which
 encoder training runs. ``FlashAttention`` is the ``torch.autograd.Function``
 that joins the two: its forward keeps K2's log-sum-exp, its backward launches
@@ -29,6 +33,8 @@ from ser_tpu_torch.ops import kernel_build
 
 #: Launches of kernel K2 (its wrapper adds one per launch).
 COUNTER = kernel_build.KernelCounter("flash_attention_fwd")
+#: Launches of kernel K2-f32 (the same wrapper, float32 operands).
+F32_COUNTER = kernel_build.KernelCounter("flash_attention_f32")
 #: Calls of K2-bwd (its wrapper adds one per call, which launches the Δ, dK/dV and dQ kernels).
 BWD_COUNTER = kernel_build.KernelCounter("flash_attention_bwd")
 
@@ -108,12 +114,13 @@ def attention_backward_reference(
     return dq, dk, dv
 
 
-def _check_operands(kernel: str, *tensors: torch.Tensor) -> None:
+def _check_operands(kernel: str, *tensors: torch.Tensor, dtypes: tuple[torch.dtype, ...] = (torch.bfloat16,)) -> None:
     q = tensors[0]
     if not (q.is_cuda and all(t.device == q.device for t in tensors)):
         raise ValueError(f"{kernel} takes its operands on one CUDA device.")
-    if any(t.dtype != torch.bfloat16 for t in tensors):
-        raise TypeError(f"{kernel} takes bfloat16 operands.")
+    if q.dtype not in dtypes or any(t.dtype != q.dtype for t in tensors):
+        names = " or ".join(str(dtype).removeprefix("torch.") for dtype in dtypes)
+        raise TypeError(f"{kernel} takes {names} operands of one dtype.")
     if any(t.shape != q.shape for t in tensors) or q.shape[-1] != _HEAD_DIM:
         raise ValueError(f"{kernel} takes equal (B, T, H, {_HEAD_DIM}) shapes.")
     if not all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in tensors):
@@ -134,9 +141,11 @@ def flash_attention(
 ) -> torch.Tensor | tuple[torch.Tensor, torch.Tensor]:
     """Kernel K2 on CUDA tensors: (B, T, H, 64) bf16 q, k, v → (B, T, H, 64) bf16.
 
-    With ``return_lse`` it also returns the float32 (B, H, T) log-sum-exp of
-    the scaled scores (natural log), a view of a (B, H, T rounded up to 128)
-    buffer that K2-bwd reads; without it the kernel writes none.
+    float32 q, k, v launch K2-f32 instead (:func:`_flash_attention_f32`),
+    which has no log-sum-exp and no backward. With ``return_lse`` a bf16 call
+    also returns the float32 (B, H, T) log-sum-exp of the scaled scores
+    (natural log), a view of a (B, H, T rounded up to 128) buffer that K2-bwd
+    reads; without it the kernel writes none.
 
     Replaces the Pallas ``flash_attention`` behind ``ser_tpu/models/attention.py::
     _flash_path``. On the H100 the tensor cores bound it: at (8, 1500, 20, 64)
@@ -149,19 +158,16 @@ def flash_attention(
     the tensor cores so that one's softmax runs under the other's products.
     It has no autograd: :class:`FlashAttention` is the differentiable route.
     """
-    _check_operands("flash_attention", q, k, v)
+    _check_operands("flash_attention", q, k, v, dtypes=(torch.bfloat16, torch.float32))
     kernel_build.refuse_grad("flash_attention", q, k, v)
+    if q.dtype == torch.float32:
+        if return_lse:
+            raise NotImplementedError("K2-f32 returns no log-sum-exp: float32 attention has no backward on the card.")
+        return _flash_attention_f32(q, k, v, frame_mask)
     batch, seq, heads, head_dim = q.shape
     padded = _padded_len(seq)
-    mask_ptr = None
-    mask = None
-    if frame_mask is not None:
-        if frame_mask.shape != (batch, seq):
-            raise ValueError(f"frame_mask must be (B, T) = {(batch, seq)}.")
-        # Rows of T rounded up to the key tile: each tile's bytes arrive in one aligned copy.
-        mask = torch.zeros((batch, padded), dtype=torch.uint8, device=q.device)
-        mask[:, :seq] = frame_mask
-        mask_ptr = mask.data_ptr()
+    mask = _padded_mask(frame_mask, batch, seq)
+    mask_ptr = None if mask is None else mask.data_ptr()
     entry = kernel_build.load("flash_attention")
     out = torch.empty_like(q)
     lse = None
@@ -179,6 +185,50 @@ def flash_attention(
     if lse is None:
         return out
     return out, lse[..., :seq]
+
+
+def _padded_mask(frame_mask: torch.Tensor | None, batch: int, seq: int) -> torch.Tensor | None:
+    """The (B, T) key mask as the kernels read it: uint8 rows of T rounded up to 128.
+
+    Each key tile's mask bytes then arrive in one aligned copy; the kernels
+    never read the bytes past T.
+    """
+    if frame_mask is None:
+        return None
+    if frame_mask.shape != (batch, seq):
+        raise ValueError(f"frame_mask must be (B, T) = {(batch, seq)}.")
+    mask = torch.zeros((batch, _padded_len(seq)), dtype=torch.uint8, device=frame_mask.device)
+    mask[:, :seq] = frame_mask
+    return mask
+
+
+def _flash_attention_f32(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, frame_mask: torch.Tensor | None
+) -> torch.Tensor:
+    """Kernel K2-f32: (B, T, H, 64) float32 q, k, v → (B, T, H, 64) float32.
+
+    The float32 form of the Pallas ``flash_attention`` behind ``_flash_path``.
+    On the H100 the arithmetic bounds it: at the medium profile's (8, 1499,
+    16, 64) one call is 73.6 GFLOP against 123 MB, 1.10 ms at the float32 FMA
+    peak (67 TFLOP/s; 0.45 ms for float32-grade products on the tensor cores,
+    three TF32 products each). The kernel (``csrc/flash_attention_f32.cu``)
+    computes in plain float32 FMAs: one query row per thread with its
+    accumulator in registers, K/V tiles double-buffered through shared memory
+    by ``cp.async``, the online softmax over chunks of 16 keys. No product is
+    rounded to TF32, whatever PyTorch's TF32 switches say.
+    """
+    batch, seq, heads, head_dim = q.shape
+    mask = _padded_mask(frame_mask, batch, seq)
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    code = kernel_build.load("flash_attention_f32")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), None if mask is None else mask.data_ptr(), out.data_ptr(),
+        batch, seq, heads, head_dim, _padded_len(seq), 1.0 / math.sqrt(head_dim), stream,
+    )
+    kernel_build.check(code, "flash_attention_f32")
+    F32_COUNTER.launches += 1
+    del mask  # the launch is enqueued; the caching allocator keeps the block stream-ordered
+    return out
 
 
 def _padded_lse(lse: torch.Tensor, batch: int, heads: int, seq: int) -> torch.Tensor:
@@ -287,8 +337,9 @@ def multi_head_attention(
 
     ``frame_mask`` (B, T) excludes padded frames from the keys. CPU tensors
     run :func:`attention_reference`, which autograd differentiates. CUDA
-    tensors run kernel K2, through :class:`FlashAttention` (K2-bwd as its
-    backward) when grad mode is on and an input requires grad.
+    tensors run kernel K2 (bf16) or K2-f32 (float32), through
+    :class:`FlashAttention` (K2-bwd as its backward, bf16 only) when grad
+    mode is on and an input requires grad.
     """
     if q.device.type == "cpu":
         return attention_reference(q, k, v, frame_mask=frame_mask, compute_dtype=compute_dtype)
@@ -300,6 +351,7 @@ def multi_head_attention(
 __all__ = [
     "BWD_COUNTER",
     "COUNTER",
+    "F32_COUNTER",
     "FlashAttention",
     "attention_backward_reference",
     "attention_reference",

@@ -11,6 +11,13 @@
   the ``state_dict`` of ``ser_tpu_torch.models.whisper.WhisperDecoder``, with
   the same layout rules; ``tok_embed`` and ``pos_embed`` carry over as they
   are, and the bias-free ``k`` projections stay bias-free.
+- ``wav2vec2_state_dict``: the flax tree of ``ser_tpu.models.wav2vec2.
+  Wav2Vec2Encoder`` (``init_wav2vec2_params`` or ``load_hf_wav2vec2_params``)
+  → the ``state_dict`` of ``ser_tpu_torch.models.wav2vec2.Wav2Vec2Encoder``,
+  and ``flax_wav2vec2_params`` its inverse. The front end's ``conv_{i}``,
+  ``conv_ln_{i}`` become ``conv.{i}``, ``conv_ln.{i}``, a stacked positional
+  encoder's ``pos_conv_{i}`` becomes ``pos_conv.{i}``, and ``layer_{i}``
+  becomes ``layers.{i}``; both front ends share the conv layout.
 - ``mlp_head_layers``: a ``ser_tpu_mlp`` head state (``JaxMLPClassifier.
   get_state()``) → the head's (weight (in, out), bias) float32 pairs, as
   ``ser_tpu_torch.models.mlp_head.TorchMLPClassifier.from_state`` reads them.
@@ -96,6 +103,41 @@ def whisper_decoder_state_dict(params: Mapping) -> dict[str, torch.Tensor]:
     return state
 
 
+def wav2vec2_state_dict(params: Mapping) -> dict[str, torch.Tensor]:
+    """flax wav2vec2-encoder tree → port ``state_dict`` (float32 CPU tensors)."""
+    fe = params["feature_encoder"]
+    state: dict[str, torch.Tensor] = {}
+    n_convs = sum(1 for key in fe if key.startswith("conv_") and key[5:].isdigit())
+    for i in range(n_convs):
+        conv = fe[f"conv_{i}"]
+        state[f"feature_encoder.conv.{i}.weight"] = _tensor(np.asarray(conv["kernel"]).transpose(2, 1, 0))
+        if "bias" in conv:
+            state[f"feature_encoder.conv.{i}.bias"] = _tensor(conv["bias"])
+        if f"conv_ln_{i}" in fe:
+            state.update(_layer_norm(f"feature_encoder.conv_ln.{i}", fe[f"conv_ln_{i}"]))
+    if "conv_gn" in fe:
+        state.update(_layer_norm("feature_encoder.conv_gn", fe["conv_gn"]))
+    if "feature_ln" in params:
+        state.update(_layer_norm("feature_ln", params["feature_ln"]))
+    state.update(_dense("feature_projection", params["feature_projection"]))
+    pos = params["pos_embed"]
+    if "pos_conv" in pos:
+        state.update(_conv("pos_embed.pos_conv", pos["pos_conv"]))
+    for i in range(sum(1 for key in pos if key.startswith("pos_conv_"))):
+        state.update(_conv(f"pos_embed.pos_conv.{i}", pos[f"pos_conv_{i}"]))
+    for name in ("encoder_pre_ln", "encoder_final_ln"):
+        if name in params:
+            state.update(_layer_norm(name, params[name]))
+    n_layers = sum(1 for key in params if key.startswith("layer_"))
+    for i in range(n_layers):
+        layer = params[f"layer_{i}"]
+        for name in ("attn_ln", "ffn_ln"):
+            state.update(_layer_norm(f"layers.{i}.{name}", layer[name]))
+        for name in ("q", "k", "v", "attn_out", "ffn_in", "ffn_out"):
+            state.update(_dense(f"layers.{i}.{name}", layer[name]))
+    return state
+
+
 def mlp_head_layers(state: Mapping) -> list[tuple[torch.Tensor, torch.Tensor]]:
     """``ser_tpu_mlp`` head state → [(weight (in, out), bias (out,))] float32."""
     if state.get("kind") != "ser_tpu_mlp":
@@ -142,6 +184,55 @@ def flax_whisper_encoder_params(state: Mapping[str, torch.Tensor]) -> dict:
     return params
 
 
+def flax_wav2vec2_params(state: Mapping[str, torch.Tensor]) -> dict:
+    """Port wav2vec2 ``state_dict`` → flax tree of numpy float32 (the inverse of ``wav2vec2_state_dict``)."""
+
+    def kernel(prefix: str) -> np.ndarray:
+        return np.ascontiguousarray(_array(state[f"{prefix}.weight"]).transpose(2, 1, 0))
+
+    def dense(prefix: str) -> dict:
+        return {"kernel": np.ascontiguousarray(_array(state[f"{prefix}.weight"]).T), "bias": _array(state[f"{prefix}.bias"])}
+
+    def layer_norm(prefix: str) -> dict:
+        return {"scale": _array(state[f"{prefix}.weight"]), "bias": _array(state[f"{prefix}.bias"])}
+
+    fe: dict = {}
+    i = 0
+    while f"feature_encoder.conv.{i}.weight" in state:
+        base = f"feature_encoder.conv.{i}"
+        fe[f"conv_{i}"] = {"kernel": kernel(base)}
+        if f"{base}.bias" in state:
+            fe[f"conv_{i}"]["bias"] = _array(state[f"{base}.bias"])
+        if f"feature_encoder.conv_ln.{i}.weight" in state:
+            fe[f"conv_ln_{i}"] = layer_norm(f"feature_encoder.conv_ln.{i}")
+        i += 1
+    if "feature_encoder.conv_gn.weight" in state:
+        fe["conv_gn"] = layer_norm("feature_encoder.conv_gn")
+    params: dict = {"feature_encoder": fe, "feature_projection": dense("feature_projection"), "pos_embed": {}}
+    if "feature_ln.weight" in state:
+        params["feature_ln"] = layer_norm("feature_ln")
+    if "pos_embed.pos_conv.weight" in state:
+        params["pos_embed"]["pos_conv"] = {"kernel": kernel("pos_embed.pos_conv"),
+                                           "bias": _array(state["pos_embed.pos_conv.bias"])}
+    i = 0
+    while f"pos_embed.pos_conv.{i}.weight" in state:
+        params["pos_embed"][f"pos_conv_{i}"] = {"kernel": kernel(f"pos_embed.pos_conv.{i}"),
+                                                "bias": _array(state[f"pos_embed.pos_conv.{i}.bias"])}
+        i += 1
+    for name in ("encoder_pre_ln", "encoder_final_ln"):
+        if f"{name}.weight" in state:
+            params[name] = layer_norm(name)
+    i = 0
+    while f"layers.{i}.attn_ln.weight" in state:
+        base = f"layers.{i}"
+        params[f"layer_{i}"] = {
+            **{name: layer_norm(f"{base}.{name}") for name in ("attn_ln", "ffn_ln")},
+            **{name: dense(f"{base}.{name}") for name in ("q", "k", "v", "attn_out", "ffn_in", "ffn_out")},
+        }
+        i += 1
+    return params
+
+
 def flax_head_params(head: Mapping[str, torch.Tensor]) -> dict[str, np.ndarray]:
     """Training head tensors (or their gradients) → flax dict of numpy float32."""
     return {name: _array(head[name]) for name in ("w1", "b1", "w2", "b2")}
@@ -149,9 +240,11 @@ def flax_head_params(head: Mapping[str, torch.Tensor]) -> dict[str, np.ndarray]:
 
 __all__ = [
     "flax_head_params",
+    "flax_wav2vec2_params",
     "flax_whisper_encoder_params",
     "mlp_head_layers",
     "train_head_params",
+    "wav2vec2_state_dict",
     "whisper_decoder_state_dict",
     "whisper_encoder_state_dict",
 ]

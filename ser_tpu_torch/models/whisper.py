@@ -40,7 +40,6 @@ import json
 import logging
 import math
 import os
-import struct
 import warnings
 import zlib
 from dataclasses import dataclass
@@ -59,10 +58,13 @@ from torch.utils.checkpoint import (
 )
 
 from ser_tpu_torch.domain import TranscriptWord
+from ser_tpu_torch._internal.repr.runtime_policy import refuse_float32_decode_on_card
 from ser_tpu_torch.models import whisper_decode
 from ser_tpu_torch.models.attention import multi_head_attention
 from ser_tpu_torch.models.checkpoint_audit import AuditedState, unconsumed_key_error
+from ser_tpu_torch.models.hf_checkpoint import read_hf_tensors
 from ser_tpu_torch.ops.activations import gelu_erf
+from ser_tpu_torch.ops.decode_step_kernels import require_fused_decode_shapes
 from ser_tpu_torch.ops.log_mel import log_mel_raw, normalize_log_mel, set_strict_float32
 
 logger = logging.getLogger(__name__)
@@ -562,68 +564,6 @@ def suppress_tokens_from_hf_dir(model_dir) -> tuple[int, ...]:
     return tuple(sorted({int(token) for token in tokens}))
 
 
-_SAFETENSORS_DTYPES = {
-    "F64": "<f8",
-    "F32": "<f4",
-    "F16": "<f2",
-    "I64": "<i8",
-    "I32": "<i4",
-    "I16": "<i2",
-    "I8": "i1",
-    "U8": "u1",
-    "BOOL": "?",
-}
-
-
-def _read_safetensors(path: Path) -> dict[str, np.ndarray]:
-    """A ``*.safetensors`` file as numpy arrays (bf16 widened to float32).
-
-    The format: an 8-byte little-endian header length, a JSON header mapping
-    each name to its dtype, shape and byte range, then the raw tensors.
-    """
-    with path.open("rb") as handle:
-        (header_len,) = struct.unpack("<Q", handle.read(8))
-        header = json.loads(handle.read(header_len))
-    data = np.memmap(path, dtype=np.uint8, mode="r", offset=8 + header_len)
-    tensors: dict[str, np.ndarray] = {}
-    for name, info in header.items():
-        if name == "__metadata__":
-            continue
-        begin, end = info["data_offsets"]
-        raw = data[begin:end]
-        if info["dtype"] == "BF16":
-            flat = (raw.view("<u2").astype(np.uint32) << 16).view(np.float32)
-        elif info["dtype"] in _SAFETENSORS_DTYPES:
-            flat = raw.view(_SAFETENSORS_DTYPES[info["dtype"]])
-        else:
-            raise ValueError(f"Unsupported safetensors dtype {info['dtype']!r} for {name!r} in {path}.")
-        tensors[name] = np.array(flat.reshape(info["shape"]))
-    return tensors
-
-
-def _hf_tensors(model_dir) -> dict[str, np.ndarray]:
-    """A local HF checkpoint's tensors as numpy (safetensors or ``pytorch_model*.bin``)."""
-    model_dir = Path(model_dir)
-    safetensor_files = sorted(model_dir.glob("*.safetensors"))
-    merged: dict[str, np.ndarray] = {}
-    if safetensor_files:
-        for file in safetensor_files:
-            merged.update(_read_safetensors(file))
-        return merged
-    bin_files = sorted(model_dir.glob("pytorch_model*.bin"))
-    if not bin_files:
-        raise FileNotFoundError(f"No model weights (*.safetensors / *.bin) in {model_dir}.")
-    for file in bin_files:
-        state = torch.load(str(file), map_location="cpu", weights_only=True)
-        merged.update(
-            {
-                key: (value.float() if value.dtype == torch.bfloat16 else value).numpy()
-                for key, value in state.items()
-            }
-        )
-    return merged
-
-
 def _attention_params(t, base_hf: str) -> dict:
     return {
         "q": {"kernel": t(f"{base_hf}.q_proj.weight").T, "bias": t(f"{base_hf}.q_proj.bias")},
@@ -641,7 +581,7 @@ def load_hf_whisper_encoder_params(model_dir, config: WhisperConfig) -> dict:
     encoder tensors the conversion never consumed refuse the load. The fixed
     sinusoidal position table is recomputed, not loaded.
     """
-    sd = AuditedState(_hf_tensors(model_dir))
+    sd = AuditedState(read_hf_tensors(model_dir))
 
     def t(name):
         for key in (name, f"model.{name}"):
@@ -698,7 +638,7 @@ def load_hf_whisper_decoder_params(model_dir, config: WhisperConfig) -> dict:
     with the same consumed-key audit over the decoder's tensors (``proj_out``
     is the tied output head and is never loaded on its own).
     """
-    sd = AuditedState(_hf_tensors(model_dir))
+    sd = AuditedState(read_hf_tensors(model_dir))
 
     def t(name):
         for key in (name, f"model.{name}"):
@@ -747,7 +687,10 @@ class WhisperForTranscription:
     kernels K3-K5 (``fused=True``), where the JAX package keeps XLA's route
     (``ROADMAP.md``, Queue 3); on CPU tensors the kernels' plain versions run.
     ``decode_strategy="beam"`` and the int8 decode stream are not ported yet
-    and raise ``NotImplementedError``.
+    and raise ``NotImplementedError``. On a CUDA device the model is checked
+    before any weight is built: float32 raises the runtime policy's
+    ``NotImplementedError`` (K3-K5 take bf16 only), and a shape that K3-K5
+    refuse raises ``ValueError`` naming the rule.
     """
 
     PREFIX_LEN = 3  # <|startoftranscript|> <|lang|> <|transcribe|>
@@ -781,8 +724,14 @@ class WhisperForTranscription:
             raise NotImplementedError("The int8 decode weight stream is not ported to ser_tpu_torch yet; see ROADMAP.md.")
         if compute_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"Unknown compute dtype {compute_dtype!r}")
-        self.config = config
         self.device = torch.device(device)
+        if self.device.type == "cuda":
+            if compute_dtype == "float32":
+                refuse_float32_decode_on_card(self.device)
+            require_fused_decode_shapes(
+                config.d_model, config.n_heads, CHUNK_FRAMES // 2, config.max_target_positions
+            )
+        self.config = config
         self.compute_dtype = torch.bfloat16 if compute_dtype == "bfloat16" else torch.float32
         self.encoder = build_whisper_encoder(config, encoder_state, device=self.device, dtype=self.compute_dtype)
         self.decoder = build_whisper_decoder(config, decoder_state, device=self.device, dtype=self.compute_dtype)

@@ -133,6 +133,28 @@ def cross_attention_step_reference(
 # --------------------------------------------------------------------------- #
 
 
+def require_fused_decode_shapes(d_model: int, heads: int, n_states: int, max_positions: int) -> None:
+    """Raises ``ValueError`` naming the first shape rule of K3-K5 that a model breaks.
+
+    The rules the kernels' wrappers check at every step, checked once where a
+    model is built for the card: a head dimension of 64, d a multiple of 64
+    (K4/K5 cut d into one slice of 16-byte column groups per CTA), and a
+    number of encoder states and a cache length that are multiples of 4 (each
+    CTA's chunk of keys starts at a multiple of 4 keys). There is no other
+    route on the card.
+    """
+    rules = (  # in this order: the first broken rule is named
+        (d_model % _D_ALIGN == 0, f"d % {_D_ALIGN} == 0 (got d = {d_model})"),
+        (d_model == heads * _HEAD_DIM, f"a head dimension Dh = d / heads of {_HEAD_DIM} (got {d_model} / {heads})"),
+        (n_states % _KEY_ALIGN == 0, f"S % {_KEY_ALIGN} == 0 encoder states (got S = {n_states})"),
+        (max_positions % _KEY_ALIGN == 0,
+         f"max_target_positions % {_KEY_ALIGN} == 0 (got {max_positions})"),
+    )
+    for holds, rule in rules:
+        if not holds:
+            raise ValueError(f"The fused decode (kernels K3-K5) on the card needs {rule}; there is no other route.")
+
+
 def _require(condition: bool, kernel: str, what: str) -> None:
     if not condition:
         raise ValueError(f"{kernel} takes {what}.")
@@ -366,6 +388,7 @@ __all__ = [
     "ln_qkv_project_reference",
     "per_head_out_proj",
     "per_head_q_proj",
+    "require_fused_decode_shapes",
     "self_attend_and_out",
     "self_attend_and_out_reference",
 ]

@@ -51,6 +51,9 @@ ENTRY_POINTS = {
         "flash_attention": ("ser_flash_attention_fwd", [_POINTER] * 6 + [_INT] * 5 + [_FLOAT, _POINTER]),
         "flash_attention_bwd": ("ser_flash_attention_bwd", [_POINTER] * 10 + [_INT] * 5 + [_FLOAT, _POINTER]),
     },
+    "flash_attention_f32": {
+        "flash_attention_f32": ("ser_flash_attention_f32", [_POINTER] * 5 + [_INT] * 5 + [_FLOAT, _POINTER]),
+    },
     "decode_step": {
         "ln_qkv_project": ("ser_ln_qkv_project", [_POINTER] * 6 + [_INT] * 3 + [_FLOAT, _POINTER]),
         "self_attend_and_out": (

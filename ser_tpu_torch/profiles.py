@@ -1,12 +1,14 @@
 """Runtime profile catalog of the PyTorch port, held as Python data.
 
 Counterpart of ``ser_tpu/profiles.py`` + ``ser_tpu/profile_defs.yaml``. The
-port reads no YAML: the ``accurate`` entry is written out here with the same
-``backend_id``, default model id, runtime and transcription defaults as the
-JAX catalog, so
+port reads no YAML: the ``medium`` and ``accurate`` entries are written out
+here with the same ``backend_id``, default model id, runtime and
+transcription defaults as the JAX catalog (``profile_defs.yaml``), so
 artifacts trained by either package load in the other. The other profiles are
 named (``ProfileName``) but not yet ported; asking for one raises
-``NotImplementedError`` (see ``ROADMAP.md``).
+``NotImplementedError`` (see ``ROADMAP.md``). The catalog's
+``feature_runtime_defaults`` are not read at run time, in either package: the
+runtime policy resolves the dtype (``_internal/repr/runtime_policy.py``).
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ PROFILE_NAMES: tuple[ProfileName, ...] = ("fast", "medium", "accurate", "accurat
 PROFILE_PRECEDENCE: tuple[ProfileName, ...] = ("accurate-research", "accurate", "medium", "fast")
 
 #: Profiles the port runs so far.
-PORTED_PROFILES: tuple[ProfileName, ...] = ("accurate",)
+PORTED_PROFILES: tuple[ProfileName, ...] = ("medium", "accurate")
 
 
 @dataclass(frozen=True)
@@ -69,6 +71,27 @@ class ProfileSpec:
 
 
 _CATALOG: dict[ProfileName, ProfileSpec] = {
+    "medium": ProfileSpec(
+        name="medium",
+        backend_id="jax_xlsr",
+        default_model_id="facebook/wav2vec2-xls-r-300m",
+        runtime_defaults=ProfileRuntimeDefaults(
+            timeout_seconds=60.0,
+            max_timeout_retries=1,
+            max_transient_retries=1,
+            retry_backoff_seconds=0.25,
+            pool_window_size_seconds=1.0,
+            pool_window_stride_seconds=1.0,
+            post_smoothing_window_frames=3,
+            post_hysteresis_enter_confidence=0.60,
+            post_hysteresis_exit_confidence=0.45,
+            post_min_segment_duration_seconds=0.40,
+            process_isolation=False,
+        ),
+        transcription_defaults=ProfileTranscriptionDefaults(
+            backend_id="jax_whisper", model_name="turbo", use_demucs=True, use_vad=True
+        ),
+    ),
     "accurate": ProfileSpec(
         name="accurate",
         backend_id="jax_whisper_encoder",

@@ -180,7 +180,7 @@ def test_auto_device_raises_without_a_card(staged) -> None:
         {"save_transcript": True},
         {"subtitle_output_path": "out.srt"},
         {"profile": "fast"},
-        {"profile": "medium"},
+        {"profile": "accurate-research"},
     ],
 )
 def test_unported_options_raise(staged, options) -> None:

@@ -111,6 +111,22 @@ def test_training_module_is_imported(fresh_import, module: str) -> None:
     assert module in fresh_import["imported"]
 
 
+#: The medium profile's modules: imported in the fresh interpreter like every other.
+MEDIUM_LANE_MODULES = (
+    "ser_tpu_torch.models.wav2vec2",
+    "ser_tpu_torch.models.param_utils",
+    "ser_tpu_torch.models.hf_checkpoint",
+    "ser_tpu_torch._internal.repr.wav2vec2_backend",
+    "ser_tpu_torch._internal.repr.encode_util",
+    "ser_tpu_torch._internal.pool.device_pool",
+)
+
+
+@pytest.mark.parametrize("module", MEDIUM_LANE_MODULES)
+def test_medium_lane_module_is_imported(fresh_import, module: str) -> None:
+    assert module in fresh_import["imported"]
+
+
 def test_port_import_loads_no_tokenizer_library(fresh_import) -> None:
     """``transformers`` is imported only inside ``from_pretrained_dir``."""
     assert not [name for name in fresh_import["added"] if name.split(".")[0] == "transformers"]

@@ -18,7 +18,7 @@ import pytest
 import torch
 
 from ser_tpu.models import whisper as jax_whisper
-from ser_tpu_torch.models import convert
+from ser_tpu_torch.models import convert, hf_checkpoint
 from ser_tpu_torch.models import whisper as torch_whisper
 
 ATOL = 1e-4
@@ -148,7 +148,7 @@ def test_hf_loader_matches_jax_loader(hf_whisper_dir) -> None:
 def test_safetensors_reader_matches_library(hf_whisper_dir) -> None:
     safetensors_numpy = pytest.importorskip("safetensors.numpy")
     path = next(hf_whisper_dir.glob("*.safetensors"))
-    ours = torch_whisper._read_safetensors(path)
+    ours = hf_checkpoint.read_safetensors(path)
     ref = safetensors_numpy.load_file(str(path))
     assert set(ours) == set(ref)
     for name in ref:
@@ -159,7 +159,7 @@ def test_unconsumed_encoder_tensor_refuses_the_load(hf_whisper_dir, tmp_path) ->
     """A .bin checkpoint with an extra encoder tensor: both loaders refuse it."""
     state = {
         name: torch.from_numpy(np.array(array))
-        for name, array in torch_whisper._hf_tensors(hf_whisper_dir).items()
+        for name, array in hf_checkpoint.read_hf_tensors(hf_whisper_dir).items()
     }
     state["encoder.adapter.weight"] = torch.zeros(4, 4)
     torch.save(state, tmp_path / "pytorch_model.bin")
