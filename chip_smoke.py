@@ -507,6 +507,28 @@ def _tf32_attention(q, k, v, frame_mask):
     return torch.einsum("bhqk,bkhd->bqhd", _tf32(weights), _tf32(v))
 
 
+def _split_attention(q, k, v, frame_mask, *, drop_cross: bool):
+    """The plain version with each product as K2-f32 splits it: x = hi + lo (TF32 each),
+    x y = lo_x hi_y + hi_x lo_y + hi_x hi_y. ``drop_cross`` leaves out lo_x hi_y (a planted
+    fault: one cross term dropped)."""
+    import torch
+
+    def product(equation, x, y):
+        x_hi, y_hi = _tf32(x), _tf32(y)
+        x_lo, y_lo = _tf32(x - x_hi), _tf32(y - y_hi)
+        total = torch.einsum(equation, x_hi, y_lo) + torch.einsum(equation, x_hi, y_hi)
+        if not drop_cross:
+            total = torch.einsum(equation, x_lo, y_hi) + total
+        return total
+
+    scores = product("bqhd,bkhd->bhqk", q, k) / math.sqrt(q.shape[-1])
+    if frame_mask is not None:
+        scores = scores + torch.where(frame_mask[:, None, None, :], 0.0, -1e30)
+    weights = torch.softmax(scores, dim=-1)
+    del scores
+    return product("bhqk,bkhd->bqhd", weights, v)
+
+
 def _sdpa_ms(q, k, v, frame_mask) -> float:
     """SDPA's time on the same tensors (the library call; the port never calls it)."""
     import torch.nn.functional as F
@@ -542,9 +564,12 @@ def phase_k2_f32() -> dict:
         if label == "ragged":
             lines[label] = line
             continue
-        # Planted faults the limit must catch: TF32 operands; the masked keys let into the softmax.
+        # Planted faults the limit must catch: TF32 operands; the split with one cross
+        # term dropped; the masked keys let into the softmax.
         line["tf32_fault"] = (_tf32_attention(q, k, v, mask) - ref).abs().max().item()
-        faults = [line["tf32_fault"]]
+        line["dropped_term_fault"] = (_split_attention(q, k, v, mask, drop_cross=True) - ref).abs().max().item()
+        line["split_emulation_err"] = (_split_attention(q, k, v, mask, drop_cross=False) - ref).abs().max().item()
+        faults = [line["tf32_fault"], line["dropped_term_fault"]]
         if masked:
             leaky = attention.attention_reference(q, k, v)
             line["mask_leak_fault"] = (leaky - ref)[mask].abs().max().item()
@@ -795,6 +820,7 @@ def phase_k3() -> dict:
     from ser_tpu_torch.ops import decode_step_kernels as dsk
 
     rows, d, n_out, eps = 2, 1280, 3840, 1e-5
+    heads, s_max = d // 64, 448
     gen = torch.Generator(device="cuda").manual_seed(3)
 
     def operands():
@@ -807,11 +833,15 @@ def phase_k3() -> dict:
             _bf16(gen, 1, n_out, scale=0.1),
         )
 
+    def caches():
+        return _bf16(gen, rows, heads, 64, s_max), _bf16(gen, rows, heads, s_max, 64)
+
     args = operands()
     out = dsk.ln_qkv_project(*args, eps=eps)
     ref = dsk.ln_qkv_project_reference(*(t.float() for t in args), eps=eps)
     torch.cuda.synchronize()
     err, rel = (out.float() - ref).abs().max().item(), rel_l2(out, ref)
+    same_bits = torch.equal(out, dsk.ln_qkv_project(*args, eps=eps))
     # Planted fault: a LayerNorm that does not subtract the mean.
     x, scale, bias, w, b = (t.float() for t in args)
     no_mean = x * torch.rsqrt((x * x).mean(-1, keepdim=True) + eps) * scale + bias
@@ -820,20 +850,41 @@ def phase_k3() -> dict:
         raise AssertionError(f"K3 disagrees with its plain version: rel L2 {rel} > {K3_REL_L2_TOLERANCE}")
     if not fault > K3_REL_L2_TOLERANCE:
         raise AssertionError(f"K3's limit would pass a LayerNorm without its mean: {fault}")
+    if not same_bits:
+        raise AssertionError("K3 gave other bits on a second run")
+
+    # The cache form: q, and the K and V columns at `position` written in place, exactly
+    # the plain version's cache writes of the same output; no other slot moves.
+    cache_positions = (0, 100, s_max - 1)
+    for position in cache_positions:
+        k_cache, v_cache = caches()
+        k_plain, v_plain = k_cache.clone(), v_cache.clone()
+        q = dsk.ln_qkv_project_to_cache(*args, k_cache, v_cache, position, eps=eps)
+        q_plain = dsk.write_cache_columns(out, k_plain, v_plain, position)
+        torch.cuda.synchronize()
+        if not (torch.equal(q, q_plain) and torch.equal(k_cache, k_plain) and torch.equal(v_cache, v_plain)):
+            raise AssertionError(f"K3's cache form differs from the plain cache writes at position {position}")
 
     bytes_moved = 2 * (rows * d + 2 * d + d * n_out + n_out + rows * n_out)
     sets = [args] + [operands() for _ in range(copies_for(bytes_moved) - 1)]
     ms = rotating_ms(lambda *a: dsk.ln_qkv_project(*a, eps=eps), sets)
+    cache_sets = [a + caches() for a in sets]
+    cache_ms = rotating_ms(lambda *a: dsk.ln_qkv_project_to_cache(*a, s_max - 1, eps=eps), cache_sets)
     plain_ms = rotating_ms(lambda *a: dsk.ln_qkv_project_reference(*a, eps=eps), sets)
     unfused_ms = rotating_ms(
         lambda x, s, bi, w, b: wd._dense_kernel({"kernel": w, "bias": b}, wd._layer_norm(_Affine(s, bi), x, eps),
                                                 torch.bfloat16),
         sets,
     )
+    plain_cache_ms = rotating_ms(
+        lambda *a: dsk.ln_qkv_project_to_cache_reference(*a, s_max - 1, eps=eps), cache_sets
+    )
     bound, bound_by = bound_ms(bytes_moved=bytes_moved, flops=2.0 * rows * d * n_out, peak_flops=PEAK_BF16_FLOPS)
     say("K3", shape=f"x({rows},{d}) W({d},{n_out}) bf16", max_abs_err=err, rel_l2_err=rel,
-        rel_l2_tolerance=K3_REL_L2_TOLERANCE, no_mean_fault_rel_l2=fault, ms=f"{ms:.4f}",
-        plain_ms=f"{plain_ms:.4f}", unfused_ms=f"{unfused_ms:.4f}", bound_ms=f"{bound:.4f}", bound_by=bound_by,
+        rel_l2_tolerance=K3_REL_L2_TOLERANCE, no_mean_fault_rel_l2=fault, same_bits=same_bits,
+        cache_form_exact_at=json.dumps(list(cache_positions)), ms=f"{ms:.4f}", cache_form_ms=f"{cache_ms:.4f}",
+        plain_ms=f"{plain_ms:.4f}", plain_cache_form_ms=f"{plain_cache_ms:.4f}", unfused_ms=f"{unfused_ms:.4f}",
+        bound_ms=f"{bound:.4f}", bound_by=bound_by, bound_share=f"{bound / ms:.3f}",
         gb_per_s=f"{bytes_moved / ms / 1e6:.1f}")
     return {
         "name": "ln_qkv_project",
@@ -845,6 +896,7 @@ def phase_k3() -> dict:
         "tolerance": K3_REL_L2_TOLERANCE,
         "tolerance_on": "rel_l2_err",
         "ms": ms,
+        "cache_form_ms": cache_ms,
         "plain_ms": plain_ms,
         "unfused_ms": unfused_ms,
         "bound_ms": bound,
@@ -1073,7 +1125,7 @@ def _encoder_flops(config, n_windows: int) -> float:
 
 
 _KERNEL_GROUPS = (
-    ("K3 ln_qkv_project", ("gemv_kernel",)),
+    ("K3 ln_qkv_project", ("ln_qkv_kernel",)),
     ("K4 self_attend_and_out", ("attend_cluster_kernel<false>",)),
     ("K5 cross_attention_step", ("attend_cluster_kernel<true>",)),
     ("K2 flash_attention", ("flash_attention_fwd_kernel",)),
@@ -1092,6 +1144,10 @@ def _kernel_group(name: str) -> str:
         if any(needle in name for needle in needles):
             return group
     return "other"
+
+
+#: Device ms by kernel group of the last profiled run (filled by :func:`_profile`).
+_LAST_PROFILE_GROUPS: dict[str, float] = {}
 
 
 def _profile(run, label: str) -> str:
@@ -1139,7 +1195,8 @@ def _profile(run, label: str) -> str:
     else:
         return "unavailable (no device events traced)"
     device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    groups: dict[str, float] = {}
+    groups = _LAST_PROFILE_GROUPS
+    groups.clear()
     for event in kernels:
         group = _kernel_group(event.key)
         groups[group] = groups.get(group, 0.0) + event.self_device_time_total / 1e3
@@ -1389,8 +1446,13 @@ def phase_decode() -> dict:
         logits_rel_l2=f"{logits_rel:.5f}", bound=DECODE_LOGITS_REL_L2_BOUND)
     if not logits_rel <= DECODE_LOGITS_REL_L2_BOUND:
         raise AssertionError(f"fused and unfused logits differ: rel L2 {logits_rel} > {DECODE_LOGITS_REL_L2_BOUND}")
+    dsk.LN_QKV_COUNTER.launches = 0
+    decode(True, budget=64)
+    profiled_steps = dsk.LN_QKV_COUNTER.launches / config.decoder_layers  # K3 runs once a layer a step
     breakdown = _profile(lambda: decode(True, budget=64), "decode")
-    say("decode-profile", route="fused", budget=64, detail=breakdown)
+    k3_step_ms = _LAST_PROFILE_GROUPS.get("K3 ln_qkv_project", 0.0) / profiled_steps if profiled_steps else 0.0
+    say("decode-profile", route="fused", budget=64, steps=profiled_steps, k3_device_ms_per_step=f"{k3_step_ms:.4f}",
+        detail=breakdown)
     breakdown = _profile(lambda: decode(False, budget=64), "decode-unfused")
     say("decode-profile", route="unfused", budget=64, detail=breakdown)
     del decoder, weights
@@ -1718,6 +1780,30 @@ def phase_medium_encoder() -> dict:
     breakdown = _profile(lambda: backend._encode_batch(batch, lengths), "medium-encoder")
     say("medium-encoder-profile", detail=breakdown)
     chunk = torch.from_numpy(batch[:1]).to(cuda)
+    del backend, states
+    torch.cuda.empty_cache()
+
+    # One float32 encode of the same batch (the float32 request's and the retry's path):
+    # its time, its K2-f32 launches, and K2-f32's share of its device time.
+    backend = XlsrBackend(model_id=MEDIUM_MODEL_ID, cache_root=REPO / "build", device=cuda, dtype="float32",
+                          config=config, state=w2v.random_wav2vec2_state(config, seed=0, device=cuda))
+    states = backend._encode_batch(batch, lengths)  # warm-up
+    torch.cuda.synchronize()
+    attention.F32_COUNTER.launches = 0
+    started = time.perf_counter()
+    states = backend._encode_batch(batch, lengths)
+    torch.cuda.synchronize()
+    f32_seconds = time.perf_counter() - started
+    f32_launches = attention.F32_COUNTER.launches
+    if states.dtype != torch.float32 or not torch.isfinite(states).all() or f32_launches != config.num_hidden_layers:
+        raise AssertionError(f"float32 encode: {states.dtype}, {f32_launches} K2-f32 launches (expected 24)")
+    f32_breakdown = _profile(lambda: backend._encode_batch(batch, lengths), "medium-encoder-f32")
+    k2_f32_ms = _LAST_PROFILE_GROUPS.get("K2-f32 flash_attention_f32", 0.0)
+    device_ms = sum(_LAST_PROFILE_GROUPS.values())
+    say("medium-encoder-f32", chunks=n_chunks, ms_per_encode=f"{f32_seconds * 1e3:.2f}",
+        audio_s_per_s=f"{n_chunks * 30.0 / f32_seconds:.1f}", k2_f32_per_encode=f32_launches,
+        k2_f32_device_ms=f"{k2_f32_ms:.3f}", k2_f32_share_of_device=f"{k2_f32_ms / device_ms if device_ms else 0.0:.4f}",
+        detail=f32_breakdown)
     del backend, states
     torch.cuda.empty_cache()
 

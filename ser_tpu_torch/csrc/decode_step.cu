@@ -21,10 +21,17 @@
 // 6.6 us; K4 moves 7.9 MB at position 447 (W_out 3.3 MB and the cache up to position),
 // so 2.4 us.
 //
-// K3 is one GEMV kernel: a block owns 32 output columns, its 256 threads split the
-// reduction dimension 64 ways and each reads 16 bytes of a weight row per step, four
-// steps in flight; the partial sums meet in a fixed order. Each block recomputes the
-// LayerNorm of its rows, which is cheaper than a second launch.
+// K3 is one GEMV kernel whose weight stream is a single round trip: a block owns 32
+// output columns (3840 / 32 = 120 blocks at large-v3), and at entry one thread puts the
+// block's whole weight slice in flight into shared memory (TMA boxes of 256 rows x 64
+// bytes, 80 KB at d = 1280, each on its own barrier) before anything else. The block
+// computes the LayerNorm of its rows (cheaper to recompute than a second launch; every
+// load it needs issued at once) while those bytes arrive, then reduces each box as soon
+// as it lands, on the tensor cores (mma.sync, bf16 in, float32 accumulation: the rounded
+// LayerNorm output is exact in bf16), so that little work is left once the last byte is
+// in. The warps' partial sums meet in a fixed order: a call gives the same bits on every
+// run. Given the self-attention caches, K3 writes the K and V columns of its output into
+// them at `position` and only q to its output, so the decode step needs no scatter.
 //
 // K4 and K5 are one cluster kernel, one launch each. At R = 2 a block per (row, head)
 // leaves most of the 132 SMs idle and each block latency-bound, so the work of one head
@@ -65,6 +72,7 @@
 // keys is read key by key. V's chunk (keys x 128 bytes) is contiguous: 16-byte cp.async.
 
 #include <cooperative_groups.h>
+#include <cuda.h>
 #include <cuda/atomic>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -72,6 +80,8 @@
 #include <cmath>
 #include <cstdint>
 #include <mutex>
+
+#include "hopper_common.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -81,12 +91,19 @@ using bf16 = __nv_bfloat16;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kTileCols = 32;                            // output columns per GEMV block
-constexpr int kColsPerThread = 8;                        // one 16-byte load of bf16
-constexpr int kColThreads = kTileCols / kColsPerThread;  // 4 threads span a tile row
-constexpr int kSlices = kThreads / kColThreads;          // 64 slices of the reduction dim
-constexpr int kRowGroup = 4;                             // input rows per pass over W
-constexpr int kUnroll = 4;                               // weight loads in flight per thread
+constexpr int kRowGroup = 4;                             // input rows per pass over W_q (K5)
+
+// The GEMV kernel (K3).
+constexpr int kGemvThreads = 256;
+constexpr int kGemvWarps = kGemvThreads / 32;
+constexpr int kTileCols = 32;                            // output columns per block: 4 n8 tiles of mma
+constexpr int kBoxRows = 256;                            // weight rows per TMA box (the box limit)
+constexpr int kBoxBytes = kBoxRows * kTileCols * 2;      // 16 KB: rows of 64 bytes, 64-byte swizzled
+constexpr int kStepsPerWarp = kBoxRows / 16 / kGemvWarps;  // k16 steps of a box per warp
+constexpr int kLnQkvSmem = 200 * 1024;                   // dynamic shared memory at most (d up to 2304)
+constexpr int kMaxBoxes = 16;                            // d up to 4096 rows of W (shared memory allows 2304)
+constexpr int kLnChunks = 2;                             // 16-byte chunks of a row per thread (d up to 4096)
+constexpr int kLnRows = 4;                               // input rows per pass over the weights
 constexpr int kHeadDim = 64;
 
 // The attention cluster kernel (K4, K5).
@@ -119,119 +136,243 @@ __device__ __forceinline__ void unpack8(const uint4& packed, float* out) {
   }
 }
 
-// Sum (or max) of one float per thread over the block; every thread gets the same value.
-template <bool kMax>
-__device__ float block_reduce(float value, float* scratch) {
-  for (int offset = 16; offset > 0; offset >>= 1) {
-    const float other = __shfl_xor_sync(0xffffffffu, value, offset);
-    value = kMax ? fmaxf(value, other) : value + other;
+struct LnQkvParams {
+  const bf16* x;         // (R, K)
+  const bf16* ln_scale;  // (K)
+  const bf16* ln_bias;   // (K)
+  const bf16* bias;      // (N)
+  bf16* out;             // (R, N); with the caches, q only: (R, N / 3)
+  bf16* k_cache;         // (R, H, 64, s_max) or null: column `position` gets the K part
+  bf16* v_cache;         // (R, H, s_max, 64) or null: row `position` gets the V part
+  int rows, K, N, position, s_max;
+  float eps;
+};
+
+// A thread's share of the LayerNorm's inputs for rows r0 .. r0 + kRows - 1 of x (zeros
+// past p.rows): its 16-byte chunks of each row, of the scale and of the bias.
+struct LnInputs {
+  static constexpr int kRows = kLnRows;
+  uint4 x[kRows][kLnChunks], scale[kLnChunks], bias[kLnChunks];
+
+  // Issues every load at once (one round trip); nothing waits for them here.
+  __device__ __forceinline__ void load(const LnQkvParams& p, int r0) {
+    const int chunks = p.K / 8;
+#pragma unroll
+    for (int c = 0; c < kLnChunks; ++c) {
+      const int idx = threadIdx.x + c * kGemvThreads;
+      const bool live = idx < chunks;
+      scale[c] = live ? reinterpret_cast<const uint4*>(p.ln_scale)[idx] : make_uint4(0u, 0u, 0u, 0u);
+      bias[c] = live ? reinterpret_cast<const uint4*>(p.ln_bias)[idx] : make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        x[r][c] = live && r0 + r < p.rows
+                      ? reinterpret_cast<const uint4*>(p.x + static_cast<int64_t>(r0 + r) * p.K)[idx]
+                      : make_uint4(0u, 0u, 0u, 0u);
+      }
+    }
   }
-  __syncthreads();  // the previous reduction's readers are done with scratch
-  if (threadIdx.x % 32 == 0) scratch[threadIdx.x / 32] = value;
+};
+
+// The LayerNorm of rows r0 .. r0 + kLnRows - 1 of x (those < p.rows; the others are zeros)
+// into a_s (kLnRows x K, rounded to bf16), from the loaded inputs; all rows' sums meet in
+// one block reduction.
+__device__ __forceinline__ void layer_norm_rows(const LnQkvParams& p, int r0, const LnInputs& in, bf16* a_s,
+                                                float* red_s) {
+  constexpr int kRows = kLnRows;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int K = p.K, chunks = K / 8;
+  const auto& xv = in.x;
+  const auto& scale = in.scale;
+  const auto& bias = in.bias;
+  float sums[2 * kRows];  // sum and sum of squares of each row
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    float s = 0.f, sq = 0.f;
+#pragma unroll
+    for (int c = 0; c < kLnChunks; ++c) {
+      float v[8];
+      unpack8(xv[r][c], v);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        s += v[j];
+        sq += v[j] * v[j];
+      }
+    }
+    sums[2 * r] = s;
+    sums[2 * r + 1] = sq;
+  }
+#pragma unroll
+  for (int i = 0; i < 2 * kRows; ++i) {
+    for (int offset = 16; offset > 0; offset >>= 1) sums[i] += __shfl_xor_sync(0xffffffffu, sums[i], offset);
+  }
+  __syncthreads();  // the previous row group's readers are done with red_s and a_s
+  if (lane == 0) {
+#pragma unroll
+    for (int i = 0; i < 2 * kRows; ++i) red_s[warp * 2 * kRows + i] = sums[i];
+  }
   __syncthreads();
-  float total = scratch[0];
-  for (int w = 1; w < kWarps; ++w) total = kMax ? fmaxf(total, scratch[w]) : total + scratch[w];
-  return total;
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    float s = red_s[2 * r], sq = red_s[2 * r + 1];
+    for (int w = 1; w < kGemvWarps; ++w) {
+      s += red_s[w * 2 * kRows + 2 * r];
+      sq += red_s[w * 2 * kRows + 2 * r + 1];
+    }
+    const float mean = s / K;
+    const float inv = rsqrtf(fmaxf(0.f, sq / K - mean * mean) + p.eps);
+    const bool live_row = r0 + r < p.rows;
+#pragma unroll
+    for (int c = 0; c < kLnChunks; ++c) {
+      const int idx = tid + c * kGemvThreads;
+      if (idx >= chunks) continue;
+      float v[8], sc[8], bi[8];
+      unpack8(xv[r][c], v);
+      unpack8(scale[c], sc);
+      unpack8(bias[c], bi);
+      uint4 packed;
+      uint32_t* words = reinterpret_cast<uint32_t*>(&packed);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float lo = live_row ? (v[2 * j] - mean) * inv * sc[2 * j] + bi[2 * j] : 0.f;
+        const float hi = live_row ? (v[2 * j + 1] - mean) * inv * sc[2 * j + 1] + bi[2 * j + 1] : 0.f;
+        const __nv_bfloat162 pair = __floats2bfloat162_rn(lo, hi);
+        words[j] = *reinterpret_cast<const uint32_t*>(&pair);
+      }
+      *reinterpret_cast<uint4*>(a_s + r * K + idx * 8) = packed;
+    }
+  }
+}
+
+// Four 8x8 bf16 matrices from shared memory, transposed: lane l gives the address of row
+// l % 8 of matrix l / 8; register i gets the pair that mma's B fragment wants of matrix i.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// d (16 x 8, float32) += A (16 x 16, bf16, rows 0-7 only: a0 = (g, 2t..2t+1), a2 = (g, 2t+8..2t+9))
+// * B (16 x 8, bf16).
+__device__ __forceinline__ void mma_bf16_16816(float (&d)[4], uint32_t a0, uint32_t a2, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(0u), "r"(a2), "r"(0u), "r"(b0), "r"(b1));
 }
 
 // K3. out[r, n] = bf16(bf16(sum_k ln(x)[r, k] W[k, n]) + bias[n]), with ln(x) the float32
 // LayerNorm of x (fast variance E[x^2] - E[x]^2, as flax) rounded to bf16. W is (K, N)
-// row-major. Grid: N / 32 blocks.
-__global__ void __launch_bounds__(kThreads)
-gemv_kernel(const bf16* __restrict__ x, const bf16* __restrict__ ln_scale, const bf16* __restrict__ ln_bias,
-            const bf16* __restrict__ w, const bf16* __restrict__ bias, bf16* __restrict__ out, int rows, int K,
-            int N, float eps) {
-  extern __shared__ float a_s[];  // kRowGroup * K
-  __shared__ float part_s[kWarps][kRowGroup][kTileCols];
-  __shared__ float red_s[kWarps];
+// row-major, read through `w_map` (boxes of 32 columns x 256 rows, 64-byte swizzled), each
+// box on a barrier of its own so that the reduction starts on the first box to land. The
+// products run on the tensor cores (mma.sync m16n8k16, bf16 in, float32 accumulation): the
+// rounded LayerNorm rows are exact in bf16, and the CUDA cores' share of the work after
+// the last byte lands is then a few instructions. Warp w takes the k16 steps w, w + 8, ...;
+// its float32 partials meet the other warps' in warp order. kLnRows input rows per pass
+// over the weights (the A operand's other rows are zeros). Grid: N / 32 blocks.
+__global__ void __launch_bounds__(kGemvThreads)
+ln_qkv_kernel(const __grid_constant__ CUtensorMap w_map, const LnQkvParams p) {
+  constexpr int kRows = kLnRows;
+  extern __shared__ uint8_t smem_raw[];  // W slice (n_boxes * 256 rows x 32 columns), then kRows x K bf16
+  __shared__ uint64_t bars_s[kMaxBoxes];
+  __shared__ float part_s[kGemvWarps][kRows][kTileCols];
+  __shared__ float red_s[kGemvWarps * 2 * kRows];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const int K = p.K;
+  const int n_boxes = (K + kBoxRows - 1) / kBoxRows;
+  bf16* a_s = reinterpret_cast<bf16*>(smem_raw + (base - raw) + n_boxes * kBoxBytes);
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int col_thread = lane % kColThreads;
-  const int slice = warp * (32 / kColThreads) + lane / kColThreads;
+  const int g = lane >> 2, t4 = lane & 3;
   const int n0 = blockIdx.x * kTileCols;
-  const bf16* w_col = w + n0 + col_thread * kColsPerThread;
 
-  for (int r0 = 0; r0 < rows; r0 += kRowGroup) {
-    const int group = min(kRowGroup, rows - r0);
-    for (int r = 0; r < kRowGroup; ++r) {
-      float* a_row = a_s + r * K;
-      if (r >= group) {
-        for (int k = tid; k < K; k += kThreads) a_row[k] = 0.f;
-        continue;
-      }
-      const bf16* x_row = x + static_cast<int64_t>(r0 + r) * K;
-      float sum = 0.f, sum_sq = 0.f;
-      for (int k = tid; k < K; k += kThreads) {
-        const float v = to_float(x_row[k]);
-        sum += v;
-        sum_sq += v * v;
-      }
-      const float mean = block_reduce<false>(sum, red_s) / K;
-      const float mean_sq = block_reduce<false>(sum_sq, red_s) / K;
-      const float inv = rsqrtf(fmaxf(0.f, mean_sq - mean * mean) + eps);
-      for (int k = tid; k < K; k += kThreads) {
-        const float normed = (to_float(x_row[k]) - mean) * inv;
-        a_row[k] = round_bf16(normed * to_float(ln_scale[k]) + to_float(ln_bias[k]));
-      }
+  // The LayerNorm's inputs and the bias of this thread's output column are asked for
+  // first, then the whole weight slice goes in flight: one round trip to device memory,
+  // with the small loads queued ahead of the 80 KB.
+  LnInputs ln_in;
+  ln_in.load(p, 0);
+  const float bias_c = to_float(p.bias[n0 + tid % kTileCols]);
+  __syncthreads();
+  if (tid == 0) {
+    for (int i = 0; i < n_boxes; ++i) mbar_init(smem_addr(&bars_s[i]), 1);
+    fence_barrier_init();
+    for (int i = 0; i < n_boxes; ++i) {
+      const uint32_t bar = smem_addr(&bars_s[i]);
+      mbar_expect_tx(bar, kBoxBytes);
+      tma_load_2d(base + i * kBoxBytes, w_map, bar, n0, i * kBoxRows);
     }
+  }
+
+  // This lane's ldmatrix row: matrix m = lane / 8 is k rows 8 (m % 2) .. + 7 of a k16 step
+  // and n8 tile m / 2 of a pair of tiles. In the 64-byte swizzle, 16-byte chunk c of row k
+  // lies at chunk c ^ ((k / 2) % 4).
+  const int lm_row = (lane >> 3 & 1) * 8 + (lane & 7);
+  const int lm_tile = lane >> 4;
+
+  for (int r0 = 0; r0 < p.rows; r0 += kRows) {
+    const int group = min(kRows, p.rows - r0);
+    if (r0 > 0) ln_in.load(p, r0);
+    layer_norm_rows(p, r0, ln_in, a_s, red_s);  // the first group's runs while the weights arrive
     __syncthreads();
 
-    float acc[kRowGroup][kColsPerThread];
+    float acc[kTileCols / 8][4];
 #pragma unroll
-    for (int r = 0; r < kRowGroup; ++r) {
+    for (int j = 0; j < kTileCols / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+    const bf16* a_row = a_s + (g < kRows ? g : 0) * K;
+    for (int box = 0; box < n_boxes; ++box) {
+      if (r0 == 0) mbar_wait(smem_addr(&bars_s[box]), 0);
 #pragma unroll
-      for (int j = 0; j < kColsPerThread; ++j) acc[r][j] = 0.f;
-    }
-    for (int k_base = slice; k_base < K; k_base += kSlices * kUnroll) {
-      uint4 packed[kUnroll];
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const int k = k_base + u * kSlices;
-        packed[u] = k < K ? *reinterpret_cast<const uint4*>(w_col + static_cast<int64_t>(k) * N)
-                          : make_uint4(0u, 0u, 0u, 0u);
-      }
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const int k = k_base + u * kSlices;
-        if (k >= K) break;
-        float wv[kColsPerThread];
-        unpack8(packed[u], wv);
-#pragma unroll
-        for (int r = 0; r < kRowGroup; ++r) {
-          const float a = a_s[r * K + k];
-#pragma unroll
-          for (int j = 0; j < kColsPerThread; ++j) acc[r][j] = fmaf(a, wv[j], acc[r][j]);
+      for (int i = 0; i < kStepsPerWarp; ++i) {
+        const int k_box = (warp + i * kGemvWarps) * 16;  // the step's first row inside the box
+        const int k0 = box * kBoxRows + k_box;
+        if (k0 >= K) break;
+        uint32_t a0 = 0u, a2 = 0u;
+        if (g < kRows) {
+          a0 = *reinterpret_cast<const uint32_t*>(a_row + k0 + 2 * t4);
+          a2 = *reinterpret_cast<const uint32_t*>(a_row + k0 + 8 + 2 * t4);
         }
-      }
-    }
-    // The 8 slices of a warp differ in lane / kColThreads: fold them by shuffles.
-#pragma unroll
-    for (int r = 0; r < kRowGroup; ++r) {
-#pragma unroll
-      for (int j = 0; j < kColsPerThread; ++j) {
-        float v = acc[r][j];
-        for (int offset = kColThreads; offset < 32; offset <<= 1) {
-          v += __shfl_xor_sync(0xffffffffu, v, offset);
-        }
-        acc[r][j] = v;
+        const int k = k_box + lm_row;
+        const uint32_t row_addr = base + box * kBoxBytes + k * (kTileCols * 2);
+        uint32_t b01[4], b23[4];
+        ldmatrix_x4_trans(row_addr + (((0 + lm_tile) ^ ((k >> 1) & 3)) << 4), b01);
+        ldmatrix_x4_trans(row_addr + (((2 + lm_tile) ^ ((k >> 1) & 3)) << 4), b23);
+        mma_bf16_16816(acc[0], a0, a2, b01[0], b01[1]);
+        mma_bf16_16816(acc[1], a0, a2, b01[2], b01[3]);
+        mma_bf16_16816(acc[2], a0, a2, b23[0], b23[1]);
+        mma_bf16_16816(acc[3], a0, a2, b23[2], b23[3]);
       }
     }
-    if (lane < kColThreads) {
+    // Rows g < kRows of this warp's partial: columns 8j + 2 t4 and 8j + 2 t4 + 1.
+    if (g < kRows) {
 #pragma unroll
-      for (int r = 0; r < kRowGroup; ++r) {
-#pragma unroll
-        for (int j = 0; j < kColsPerThread; ++j) {
-          part_s[warp][r][col_thread * kColsPerThread + j] = acc[r][j];
-        }
+      for (int j = 0; j < kTileCols / 8; ++j) {
+        part_s[warp][g][8 * j + 2 * t4] = acc[j][0];
+        part_s[warp][g][8 * j + 2 * t4 + 1] = acc[j][1];
       }
     }
     __syncthreads();
     if (tid < group * kTileCols) {
       const int r = tid / kTileCols, c = tid % kTileCols, n = n0 + c;
+      const int64_t row = r0 + r;
       float sum = 0.f;
-      for (int w_i = 0; w_i < kWarps; ++w_i) sum += part_s[w_i][r][c];
-      out[static_cast<int64_t>(r0 + r) * N + n] = __float2bfloat16(round_bf16(round_bf16(sum) + to_float(bias[n])));
+      for (int w_i = 0; w_i < kGemvWarps; ++w_i) sum += part_s[w_i][r][c];
+      const bf16 y = __float2bfloat16(round_bf16(round_bf16(sum) + bias_c));
+      if (p.k_cache == nullptr) {
+        p.out[row * p.N + n] = y;
+      } else {
+        const int d = p.N / 3, heads = d / kHeadDim;
+        if (n < d) {
+          p.out[row * d + n] = y;
+        } else if (n < 2 * d) {
+          const int h = (n - d) / kHeadDim, e = (n - d) % kHeadDim;
+          p.k_cache[((row * heads + h) * kHeadDim + e) * p.s_max + p.position] = y;
+        } else {
+          const int h = (n - 2 * d) / kHeadDim, e = (n - 2 * d) % kHeadDim;
+          p.v_cache[((row * heads + h) * p.s_max + p.position) * kHeadDim + e] = y;
+        }
+      }
     }
-    __syncthreads();  // a_s and part_s are rewritten by the next row group
+    // The next row group's LayerNorm starts with a __syncthreads(): part_s is read by then.
   }
 }
 
@@ -765,16 +906,58 @@ cudaError_t launch_attend(const AttendParams& params, int cluster, cudaStream_t 
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
+// The TMA map of a (K, N) row-major bf16 weight: boxes of 32 columns x 256 rows, 64-byte
+// swizzled (ldmatrix then reads 8 rows without bank conflicts).
+bool weight_map(CUtensorMap* map, const void* w, int K, int N) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(N), static_cast<cuuint64_t>(K)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(N) * 2};
+  const cuuint32_t box[2] = {kTileCols, kBoxRows};
+  const cuuint32_t unit[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(w), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_64B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 }  // namespace
 
 // K3. x (R, d), ln_scale/ln_bias (d), w (d, n_out), b (n_out) bf16 -> out (R, n_out) bf16.
-extern "C" int ser_ln_qkv_project(const void* x, const void* ln_scale, const void* ln_bias,
-                                  const void* w, const void* b, void* out, int rows, int d,
-                                  int n_out, float eps, void* stream) {
-  gemv_kernel<<<n_out / kTileCols, kThreads, sizeof(float) * kRowGroup * static_cast<size_t>(d),
-                static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(ln_scale), static_cast<const bf16*>(ln_bias),
-      static_cast<const bf16*>(w), static_cast<const bf16*>(b), static_cast<bf16*>(out), rows, d, n_out, eps);
+// With k_cache (R, H, 64, s_max) and v_cache (R, H, s_max, 64) (both or neither; n_out = 3d,
+// d = 64 H), out is q (R, d) and the K and V parts go into the caches at `position`.
+extern "C" int ser_ln_qkv_project(const void* x, const void* ln_scale, const void* ln_bias, const void* w,
+                                  const void* b, void* out, void* k_cache, void* v_cache, int rows, int d,
+                                  int n_out, int position, int s_max, float eps, void* stream) {
+  const bool cached = k_cache != nullptr;
+  if (rows <= 0 || d <= 0 || n_out <= 0 || n_out % kTileCols != 0 || cached != (v_cache != nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (cached && (n_out != 3 * d || d % kHeadDim != 0 || position < 0 || position >= s_max)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t smem = 1024 + static_cast<size_t>((d + kBoxRows - 1) / kBoxRows) * kBoxBytes +
+                      sizeof(bf16) * kLnRows * static_cast<size_t>(d);
+  if (d % 16 != 0 || smem > static_cast<size_t>(kLnQkvSmem)) return static_cast<int>(cudaErrorInvalidValue);
+  static const cudaError_t allowed =
+      cudaFuncSetAttribute(ln_qkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kLnQkvSmem);
+  if (allowed != cudaSuccess) return static_cast<int>(allowed);
+  CUtensorMap w_map;
+  if (!weight_map(&w_map, w, d, n_out)) return static_cast<int>(cudaErrorInvalidValue);
+  LnQkvParams params = {};
+  params.x = static_cast<const bf16*>(x);
+  params.ln_scale = static_cast<const bf16*>(ln_scale);
+  params.ln_bias = static_cast<const bf16*>(ln_bias);
+  params.bias = static_cast<const bf16*>(b);
+  params.out = static_cast<bf16*>(out);
+  params.k_cache = static_cast<bf16*>(k_cache);
+  params.v_cache = static_cast<bf16*>(v_cache);
+  params.rows = rows;
+  params.K = d;
+  params.N = n_out;
+  params.position = position;
+  params.s_max = s_max;
+  params.eps = eps;
+  ln_qkv_kernel<<<n_out / kTileCols, kGemvThreads, smem, static_cast<cudaStream_t>(stream)>>>(w_map, params);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -70,6 +70,8 @@
 #include <math_constants.h>
 #include <stdint.h>
 
+#include "hopper_common.cuh"
+
 namespace {
 
 constexpr int kHeadDim = 64;
@@ -91,54 +93,11 @@ static_assert(kBlockQ == kBlockK, "the key mask and the lse share one padded row
 
 // ---- shared memory, barriers, TMA ------------------------------------------ //
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void fence_barrier_init() {
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-
-// The producer's arrival, announcing `bytes` of TMA traffic on this phase.
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-// Waits until the phase of parity `parity` of the barrier has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n.reg .pred done;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
-      "@!done bra WAIT;\n}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-
 // One 64-row box of a (D, H, T, B) map: rows row..row+63 of head h, batch b;
 // rows at or past T arrive as zeros. Completion is counted on `bar`.
 __device__ __forceinline__ void tma_load_box(uint32_t dst, const CUtensorMap& map, uint32_t bar, int h, int row,
                                              int b) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(&map)), "r"(bar), "r"(0), "r"(h), "r"(row), "r"(b)
-      : "memory");
-}
-
-// `bytes` contiguous bytes (16-byte aligned, a multiple of 16), counted on `bar`.
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes, uint32_t bar) {
-  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(dst),
-               "l"(src), "r"(bytes), "r"(bar)
-               : "memory");
+  tma_load_4d(dst, map, bar, 0, h, row, b);
 }
 
 // Position in the ring of kStages buffers, and the parity of its current round.
@@ -157,16 +116,6 @@ struct Ring {
 __device__ __forceinline__ void release(uint32_t empty_bar) {
   __syncwarp();
   if ((threadIdx.x & 31) == 0) mbar_arrive(empty_bar);
-}
-
-template <int kRegs>
-__device__ __forceinline__ void regs_dealloc() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kRegs));
-}
-
-template <int kRegs>
-__device__ __forceinline__ void regs_alloc() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kRegs));
 }
 
 constexpr int kProducerRegs = 40;
@@ -197,20 +146,6 @@ struct Turns {
 __device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
   constexpr uint64_t kOffset = kSwizzleAtom >> 4;
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (kOffset << 16) | (kOffset << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
-template <int kPending>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(kPending) : "memory");
-}
-
-// Keeps the compiler from moving accesses to an accumulator across a wgmma boundary.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
 
 // D (64 x 128, float32) (+)= A (64 x 16, K-major in shared memory) * B (16 x 128, K-major).
@@ -276,12 +211,6 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_
 __device__ __forceinline__ uint32_t pack_pair(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
 }
 
 // A float32 m64nN accumulator (N = 16 * kSteps), rounded to bf16, as the A
@@ -1004,26 +933,6 @@ flash_attention_bwd_dq_kernel(const __grid_constant__ CUtensorMap q_map, const _
 
 // ---- host ------------------------------------------------------------------ //
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// The driver's cuTensorMapEncodeTiled, through the runtime (no -lcuda needed).
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
-                                                             &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p) : nullptr;
-  }();
-  return fn;
-}
-
 // A (D, H, T, B) map over a contiguous (B, T, H, 64) bf16 tensor: 64-row boxes
 // of one (batch, head), 128-byte swizzle, rows past T read as zeros.
 bool head_map(CUtensorMap* map, const void* tensor, int batch, int seq, int heads) {
@@ -1038,14 +947,6 @@ bool head_map(CUtensorMap* map, const void* tensor, int batch, int seq, int head
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(tensor), dims, strides, box, unit,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-// Blocks of a persistent grid over `work` items: one per SM of the current device, at most one per item.
-int persistent_grid(int work, cudaError_t* err) {
-  int device = 0, sms = 0;
-  *err = cudaGetDevice(&device);
-  if (*err == cudaSuccess) *err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  return work < sms ? work : sms;
 }
 
 }  // namespace

@@ -209,13 +209,14 @@ def _flash_attention_f32(
 
     The float32 form of the Pallas ``flash_attention`` behind ``_flash_path``.
     On the H100 the arithmetic bounds it: at the medium profile's (8, 1499,
-    16, 64) one call is 73.6 GFLOP against 123 MB, 1.10 ms at the float32 FMA
-    peak (67 TFLOP/s; 0.45 ms for float32-grade products on the tensor cores,
-    three TF32 products each). The kernel (``csrc/flash_attention_f32.cu``)
-    computes in plain float32 FMAs: one query row per thread with its
-    accumulator in registers, K/V tiles double-buffered through shared memory
-    by ``cp.async``, the online softmax over chunks of 16 keys. No product is
-    rounded to TF32, whatever PyTorch's TF32 switches say.
+    16, 64) one call is 73.6 GFLOP against 123 MB, 0.45 ms for float32-grade
+    products on the tensor cores (three TF32 products each). The kernel
+    (``csrc/flash_attention_f32.cu``) forms every product as three TF32
+    ``wgmma`` products of split operands (x = hi + lo, lo·hi + hi·lo + hi·hi,
+    float32 accumulation): a persistent, warp-specialised Hopper kernel with
+    K/V tiles by TMA, a warp group that splits them (and transposes V), and
+    two consumer warp groups. Whatever PyTorch's TF32 switches say, the result
+    is float32-grade.
     """
     batch, seq, heads, head_dim = q.shape
     mask = _padded_mask(frame_mask, batch, seq)

@@ -244,7 +244,7 @@ def _decoder_token_step(
     float32 logits ``(rows, V)`` and the alignment rows ``(rows, 1, S)``, one
     per ``align_spec`` pair. ``fused=True`` runs each layer's attention groups
     through K3, K4 and K5 (same op order and rounding points as the route
-    through separate PyTorch ops).
+    through separate PyTorch ops); K3 then writes the K/V columns itself.
     """
     if beams != 1:
         raise NotImplementedError("Beam decode is not ported to ser_tpu_torch yet; see ROADMAP.md.")
@@ -266,10 +266,10 @@ def _decoder_token_step(
             raise ValueError("fused=True needs DecodeWeights prepared with fused=True.")
         for i, layer in enumerate(layers):
             fw = weights.fused[i]
-            qkv = dsk.ln_qkv_project(x, *fw["attn_ln"], weights.qkv[i]["kernel"], weights.qkv[i]["bias"][None, :], eps=eps)
-            q_heads = qkv[:, :d_model].reshape(rows, n_heads, -1)
-            self_k[i][:, :, :, position] = qkv[:, d_model : 2 * d_model].reshape(rows, n_heads, -1)
-            self_v[i][:, :, position, :] = qkv[:, 2 * d_model :].reshape(rows, n_heads, -1)
+            q_heads = dsk.ln_qkv_project_to_cache(
+                x, *fw["attn_ln"], weights.qkv[i]["kernel"], weights.qkv[i]["bias"][None, :], self_k[i], self_v[i],
+                position, eps=eps,
+            ).reshape(rows, n_heads, -1)
             x = dsk.self_attend_and_out(q_heads, self_k[i], self_v[i], fw["w_out_self"], fw["b_out_self"], x, position)
             x, attn_weights = dsk.cross_attention_step(
                 x, *fw["cross_ln"], fw["w_q_cross"], fw["b_q_cross"], cross_k[i], cross_v[i],

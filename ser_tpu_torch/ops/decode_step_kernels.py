@@ -26,9 +26,11 @@ once; bias and residual adds are in the compute dtype.
 K4 and K5 launch one thread-block cluster per head and split the keys over its
 CTAs (:func:`chunk_bounds`); the CTAs combine their softmax statistics, P·V
 partials and (K5) Q-projection partials in rank order, so the sums' order is
-fixed and the output is the same bits on every run. The K/V cache update stays
-outside the kernels, as in the JAX package (the decode updates the caches in
-place).
+fixed and the output is the same bits on every run. The JAX package updates
+the K/V caches outside its kernels; here K3 can write them itself
+(:func:`ln_qkv_project_to_cache`): the K and V parts of its output go into the
+caches at ``position`` and only q comes back, the values those two scatters
+would write.
 """
 
 from __future__ import annotations
@@ -107,6 +109,25 @@ def ln_qkv_project_reference(x, ln_scale, ln_bias, w_qkv, b_qkv, *, eps: float) 
     """Plain version of K3: (R, d) → (R, 3d) in ``x``'s dtype."""
     h = ln_f32(x, ln_scale, ln_bias, eps)
     return (torch.matmul(h.to(w_qkv.dtype), w_qkv) + b_qkv).to(x.dtype)
+
+
+def write_cache_columns(qkv, k_cache, v_cache, position: int) -> torch.Tensor:
+    """The decode step's cache update from a (R, 3d) K3 output: K into column
+    ``position`` of the (R, H, Dh, S) cache, V into row ``position`` of the
+    (R, H, S, Dh) cache, in place. Returns q (R, d)."""
+    rows, heads = k_cache.shape[:2]
+    d_model = qkv.shape[1] // 3
+    k_cache[:, :, :, position] = qkv[:, d_model : 2 * d_model].reshape(rows, heads, -1)
+    v_cache[:, :, position, :] = qkv[:, 2 * d_model :].reshape(rows, heads, -1)
+    return qkv[:, :d_model]
+
+
+def ln_qkv_project_to_cache_reference(
+    x, ln_scale, ln_bias, w_qkv, b_qkv, k_cache, v_cache, position: int, *, eps: float
+) -> torch.Tensor:
+    """Plain version of K3's cache form: ``ln_qkv_project_reference``, then the two scatters."""
+    qkv = ln_qkv_project_reference(x, ln_scale, ln_bias, w_qkv, b_qkv, eps=eps)
+    return write_cache_columns(qkv, k_cache, v_cache, position)
 
 
 def self_attend_and_out_reference(q_heads, k_cache, v_cache, w_out_heads, b_out, x_residual, position: int):
@@ -235,27 +256,66 @@ def ln_qkv_project(x, ln_scale, ln_bias, w_qkv, b_qkv, *, eps: float) -> torch.T
 
     Replaces ``ser_tpu/ops/decode_step_kernels.py::ln_qkv_project``. On the
     H100 it is bound by the bytes of ``w_qkv`` (9.8 MB at large-v3, read
-    once): a GEMV over 32-column tiles, the LayerNorm recomputed per block.
+    once): a GEMV over 32-column tiles whose block puts its whole weight slice
+    in flight (TMA into shared memory) before it computes the LayerNorm, then
+    reduces each landed box on the tensor cores (float32 accumulation).
     ``ln_scale``, ``ln_bias`` (1, d); ``w_qkv`` (d, 3d); ``b_qkv`` (1, 3d).
     """
     if x.device.type == "cpu":
         return ln_qkv_project_reference(x, ln_scale, ln_bias, w_qkv, b_qkv, eps=eps)
+    out = torch.empty((x.shape[0], w_qkv.shape[1]), dtype=x.dtype, device=x.device)
+    _launch_ln_qkv(x, ln_scale, ln_bias, w_qkv, b_qkv, out, None, None, 0, eps)
+    return out
+
+
+def ln_qkv_project_to_cache(
+    x, ln_scale, ln_bias, w_qkv, b_qkv, k_cache, v_cache, position: int, *, eps: float
+) -> torch.Tensor:
+    """K3 writing its own cache columns: returns q (R, d); K and V go in place.
+
+    The same projection as :func:`ln_qkv_project` (same kernel, same bits),
+    with the K part written into column ``position`` of ``k_cache`` (R, H, Dh,
+    Smax) and the V part into row ``position`` of ``v_cache`` (R, H, Smax, Dh),
+    as :func:`write_cache_columns` does; no other cache slot is touched. The
+    decode step then needs no scatter of its own. ``position`` is a host int.
+    """
+    if x.device.type == "cpu":
+        return ln_qkv_project_to_cache_reference(
+            x, ln_scale, ln_bias, w_qkv, b_qkv, k_cache, v_cache, position, eps=eps
+        )
+    kernel = "ln_qkv_project"
+    rows, d_model = x.shape
+    heads = d_model // _HEAD_DIM
+    s_max = k_cache.shape[-1]
+    _check_cuda_bf16(kernel, x.device, k_cache, v_cache)
+    kernel_build.refuse_grad(kernel, k_cache, v_cache)
+    _require(w_qkv.shape[1] == 3 * d_model and d_model % _HEAD_DIM == 0, kernel, "w_qkv (d, 3d) with d = 64 H")
+    _require(k_cache.shape == (rows, heads, _HEAD_DIM, s_max) and v_cache.shape == (rows, heads, s_max, _HEAD_DIM),
+             kernel, "K (R, H, Dh, Smax) and V (R, H, Smax, Dh) caches")
+    _require(isinstance(position, int) and 0 <= position < s_max, kernel, "a host int position inside the cache")
+    out = torch.empty((rows, d_model), dtype=x.dtype, device=x.device)
+    _launch_ln_qkv(x, ln_scale, ln_bias, w_qkv, b_qkv, out, k_cache, v_cache, position, eps)
+    return out
+
+
+def _launch_ln_qkv(x, ln_scale, ln_bias, w_qkv, b_qkv, out, k_cache, v_cache, position: int, eps: float) -> None:
     kernel = "ln_qkv_project"
     rows, d_model = x.shape
     n_out = w_qkv.shape[1]
     _check_cuda_bf16(kernel, x.device, x, ln_scale, ln_bias, w_qkv, b_qkv)
     kernel_build.refuse_grad(kernel, x, ln_scale, ln_bias, w_qkv, b_qkv)
     _require(ln_scale.numel() == d_model and ln_bias.numel() == d_model, kernel, "(1, d) LayerNorm affines")
-    _require(w_qkv.shape[0] == d_model and n_out % _TILE_COLS == 0, kernel, "w_qkv (d, N) with N % 32 == 0")
+    _require(w_qkv.shape[0] == d_model and n_out % _TILE_COLS == 0 and d_model % 16 == 0,
+             kernel, "w_qkv (d, N) with N % 32 == 0 and d % 16 == 0")
     _require(b_qkv.numel() == n_out, kernel, "b_qkv (1, N)")
-    out = torch.empty((rows, n_out), dtype=x.dtype, device=x.device)
+    cached = k_cache is not None
     code = kernel_build.load(kernel)(
         x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(), w_qkv.data_ptr(), b_qkv.data_ptr(),
-        out.data_ptr(), rows, d_model, n_out, float(eps), _stream(x.device),
+        out.data_ptr(), k_cache.data_ptr() if cached else None, v_cache.data_ptr() if cached else None,
+        rows, d_model, n_out, position, k_cache.shape[-1] if cached else 0, float(eps), _stream(x.device),
     )
     kernel_build.check(code, kernel)
     LN_QKV_COUNTER.launches += 1
-    return out
 
 
 def self_attend_and_out(q_heads, k_cache, v_cache, w_out_heads, b_out, x_residual, position: int):
@@ -386,9 +446,12 @@ __all__ = [
     "cross_attention_step_reference",
     "ln_qkv_project",
     "ln_qkv_project_reference",
+    "ln_qkv_project_to_cache",
+    "ln_qkv_project_to_cache_reference",
     "per_head_out_proj",
     "per_head_q_proj",
     "require_fused_decode_shapes",
     "self_attend_and_out",
     "self_attend_and_out_reference",
+    "write_cache_columns",
 ]

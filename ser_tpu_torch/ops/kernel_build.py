@@ -55,7 +55,7 @@ ENTRY_POINTS = {
         "flash_attention_f32": ("ser_flash_attention_f32", [_POINTER] * 5 + [_INT] * 5 + [_FLOAT, _POINTER]),
     },
     "decode_step": {
-        "ln_qkv_project": ("ser_ln_qkv_project", [_POINTER] * 6 + [_INT] * 3 + [_FLOAT, _POINTER]),
+        "ln_qkv_project": ("ser_ln_qkv_project", [_POINTER] * 8 + [_INT] * 5 + [_FLOAT, _POINTER]),
         "self_attend_and_out": (
             "ser_self_attend_and_out",
             [_POINTER, _INT] + [_POINTER] * 8 + [_INT] * 7 + [_FLOAT, _POINTER],

@@ -1,14 +1,18 @@
-"""Where a K4 or K5 launch spends its time, by stopping the kernel early (CUDA card only).
+"""Where a K3, K4 or K5 launch spends its time, by stopping the kernel early (CUDA card only).
 
 Without a profiler that sees inside a kernel (``ncu``), this builds copies of
 ``csrc/decode_step.cu`` that return at successive points of the cluster
 kernel (after its first statement, after the loads issued at its start have
 landed, after the query, after the softmax statistics, after the head output,
-after the out-projection) and times each at large-v3's decode shapes (R = 2
-rows), as ``chip_smoke.py`` times the kernels: CUDA events around 60 launches,
-the card held in a sleep while the host enqueues, operands cycled through
-160 MB. The difference between two neighbouring points is what that stretch
-of the kernel adds to a launch. Run from the root of a checkout:
+after the out-projection) or of K3's GEMV kernel (after its first statements,
+after its weight boxes have landed, after its LayerNorm with the boxes
+landed, after its products), and times each at large-v3's decode shapes (R = 2 rows), as
+``chip_smoke.py`` times the kernels: CUDA events around 60 launches, the card
+held in a sleep while the host enqueues, operands cycled through 160 MB. The
+difference between two neighbouring points is what that stretch of the kernel
+adds to a launch (the last stretch runs to "end", the unchanged source). Each
+build times all three kernels; a stop changes only its own. Run from the
+root of a checkout:
 
     python -m ser_tpu_torch.scripts.decode_step_timeline
 
@@ -47,6 +51,29 @@ STOPS = (
     ),
     ("head", "  cluster_arrive();\n", "  cluster.sync();\n  if (p.rows > 0) return;\n"),
     ("out_proj", "  cluster_wait();\n  __syncthreads();\n", "  cluster_wait();\n  if (p.rows > 0) return;\n  __syncthreads();\n"),
+    ("k3_start", "  const int n0 = blockIdx.x * kTileCols;\n", "  const int n0 = blockIdx.x * kTileCols;\n  if (p.rows > 0) return;\n"),
+    (
+        "k3_loads",
+        "      tma_load_2d(base + i * kBoxBytes, w_map, bar, n0, i * kBoxRows);\n    }\n  }\n",
+        "      tma_load_2d(base + i * kBoxBytes, w_map, bar, n0, i * kBoxRows);\n    }\n  }\n"
+        # The barriers are initialised by thread 0: wait for it before waiting on them.
+        "  if (p.rows > 0) {\n    __syncthreads();\n"
+        "    for (int i = 0; i < n_boxes; ++i) mbar_wait(smem_addr(&bars_s[i]), 0);\n    return;\n  }\n",
+    ),
+    (
+        "k3_ln",
+        "    layer_norm_rows(p, r0, ln_in, a_s, red_s);  // the first group's runs while the weights arrive\n"
+        "    __syncthreads();\n",
+        "    layer_norm_rows(p, r0, ln_in, a_s, red_s);  // the first group's runs while the weights arrive\n"
+        "    __syncthreads();\n"
+        "    if (p.rows > 0) {\n      for (int i = 0; i < n_boxes; ++i) mbar_wait(smem_addr(&bars_s[i]), 0);\n      return;\n    }\n",
+    ),
+    (
+        # A test that never holds keeps the products from being dead code.
+        "k3_products",
+        "    // Rows g < kRows of this warp's partial: columns 8j + 2 t4 and 8j + 2 t4 + 1.\n",
+        "    if (p.rows > 0) {\n      if (acc[0][0] == 1.2345f) p.out[0] = __float2bfloat16(acc[1][1]);\n      return;\n    }\n",
+    ),
 )
 ROWS, HEADS, HEAD_DIM, S_MAX, D_MODEL, S_LEN, EPS = 2, 20, 64, 448, 1280, 1500, 1e-5
 ROTATION_BYTES = 160e6
@@ -81,7 +108,9 @@ def _operands(generator):
           bf16(HEADS, d, HEAD_DIM, scale=d**-0.5), bf16(HEADS, 1, HEAD_DIM, scale=0.1),
           bf16(ROWS, HEADS, HEAD_DIM, S_LEN, scale=2.0), bf16(ROWS, HEADS, S_LEN, HEAD_DIM),
           bf16(HEADS, HEAD_DIM, d, scale=d**-0.5), bf16(1, d, scale=0.1))
-    return k4, k5
+    k3 = (bf16(ROWS, d, shift=0.5), bf16(1, d, scale=0.1, shift=1.0), bf16(1, d, scale=0.1),
+          bf16(d, 3 * d, scale=d**-0.5), bf16(1, 3 * d, scale=0.1))
+    return k4, k5, k3
 
 
 def main() -> int:
@@ -110,9 +139,9 @@ def main() -> int:
 
     generator = torch.Generator(device="cuda").manual_seed(4)
     first = _operands(generator)
-    per_set = sum(t.numel() * 2 for t in first[0] + first[1])
+    per_set = sum(t.numel() * 2 for t in first[0] + first[1] + first[2])
     sets = [first] + [_operands(generator) for _ in range(max(1, int(ROTATION_BYTES // per_set)))]
-    k4_sets, k5_sets = [s[0] for s in sets], [s[1] for s in sets]
+    k4_sets, k5_sets, k3_sets = [s[0] for s in sets], [s[1] for s in sets], [s[2] for s in sets]
     cycles = 10_000_000
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
@@ -134,8 +163,9 @@ def main() -> int:
                 kernel_build._ENTRIES[entry] = function
         k4 = _time_us(lambda *a: dsk.self_attend_and_out(*a, S_MAX - 1), k4_sets, cycles_per_ms)
         k5 = _time_us(lambda *a: dsk.cross_attention_step(*a, eps=EPS), k5_sets, cycles_per_ms)
-        times[name] = {"k4_us": round(k4, 3), "k5_us": round(k5, 3)}
-        print(f"[timeline] stop={name} k4_us={k4:.3f} k5_us={k5:.3f}", flush=True)
+        k3 = _time_us(lambda *a: dsk.ln_qkv_project(*a, eps=EPS), k3_sets, cycles_per_ms)
+        times[name] = {"k3_us": round(k3, 3), "k4_us": round(k4, 3), "k5_us": round(k5, 3)}
+        print(f"[timeline] stop={name} k3_us={k3:.3f} k4_us={k4:.3f} k5_us={k5:.3f}", flush=True)
     kernel_build._ENTRIES.update(full)
     print(json.dumps({"timeline_us": times, "card": torch.cuda.get_device_name(0)}))
     return 0
