@@ -9,8 +9,18 @@ It builds the port's CUDA kernels from ``ser_tpu_torch/csrc`` (one ``nvcc``
 per source, in parallel), then, one phase per line:
 
 1. environment: torch/CUDA versions, the card's name and power limit, build time;
-2. K1 (power → mel → log10) at the main path's shapes, against its plain
-   version on the same inputs, with its time, the plain version's and its bound;
+2. K1 at the main path's shapes: its spectrum form (power → mel → log10)
+   against its plain version on the same spectrum, with a planted fault its
+   limit must catch (the power's imaginary half dropped); its fused form
+   (waveform → raw log-mel, the framing and the 3×TF32 DFT inside the kernel)
+   on (8, 480000) noise and a 440 Hz tone: the normalized log-mel against the
+   plain version (TF32 off), the raw log-mel against float64 beside the plain
+   route's own error, a planted one-TF32-pass fault, the same bits on two
+   runs; then at shapes the main path does not give it (a (3, 16077) window
+   at 80 mels, a waveform off 16-byte alignment); with its time, the old
+   route's (matmul STFT + spectrum form), ``torch.stft`` + spectrum form's
+   and the plain version's, each read five times in turns (median, lowest,
+   highest), and its bound;
 3. K2 (flash attention) at the encoder's shapes, with and without a key mask,
    and at T = 1409 (one valid row in the last 128-row tile), against its plain
    version in float32, with SDPA's time as the yardstick; K2-f32 (its float32
@@ -34,8 +44,8 @@ per source, in parallel), then, one phase per line:
    against its plain version in float32, each with a planted fault its limit
    must catch, K4 and K5 the same bits on two runs, and with its time, the
    plain version's, the unfused PyTorch route's and its bound; then
-   ``grad-guard``: K1 and K3, which have no backward, refuse a CUDA input that
-   requires grad;
+   ``grad-guard``: K1 (both forms) and K3, which have no backward, refuse a
+   CUDA input that requires grad;
 5. the large-v3 encoder at full width (32 layers, seeded random weights, bf16)
    on 8 windows: audio-seconds per second, MFU, launches per encode, and a
    2-layer full-width card-vs-CPU check of the same weights;
@@ -68,8 +78,10 @@ per source, in parallel), then, one phase per line:
     encode a planted wrapper makes non-finite (the retry must run in float32
     through K2-f32).
 
-Phases 6-10 set the launch counts of the kernels they run to 0 just before
-their run and read them just after.
+Phases 5-10 set the launch counts of the kernels they run to 0 just before
+their run and read them just after; K1's two forms count apart, and the
+main path must launch the fused form once per encode and the spectrum form
+never.
 
 It prints a ``kernels`` JSON line, the card's name and power limit, and, as
 its last line, ``{"ok": true, "device": {...}}``. Any failure exits non-zero
@@ -84,6 +96,7 @@ import json
 import math
 import os
 import pickle
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -106,8 +119,15 @@ PEAK_TF32_FLOPS = 494.7e12
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 
-# K1, max abs error of the raw log10-mel: float32 sums in another order (the
-# JAX package's pin).
+# K1, max abs error against its plain version (the JAX package's pin). The
+# spectrum form: the raw log10-mel from the same spectrum, float32 sums in
+# another order. The fused form forms the DFT itself, three TF32 products a
+# product, against the plain version's float32 matmul: each sits 3-5e-5 from
+# float64 on noise in the raw domain, and far more on a tone's deep bins, which
+# Whisper's max-8 floor then clamps away (a CPU emulation, one 30 s window). So
+# the fused form is held on the normalized log-mel, what the encoder reads; its
+# raw error against a float64 computation may be at most twice the plain
+# float32 route's own. One TF32 pass misses the normalized limit 400-1000x.
 K1_TOLERANCE = 5e-5
 # K2, relative L2 error against the float32 plain version on the same bf16
 # q, k, v. With randn inputs over 1500 keys the outputs are small (rms 0.043,
@@ -269,6 +289,21 @@ def span_ms(fn, *, iters: int = 3, warmup: int = 1) -> float:
     return start.elapsed_time(end) / iters
 
 
+def interleaved_ms(routes: dict, *, runs: int = 5, iters: int = 20) -> dict[str, dict]:
+    """Each route of ``routes`` (name → call) timed ``runs`` times by :func:`cuda_ms`, the
+    routes taking turns: by route, the median reading and the lowest and highest."""
+    readings = {name: [] for name in routes}
+    for _ in range(runs):
+        for name, fn in routes.items():
+            readings[name].append(cuda_ms(fn, iters=iters))
+    return {name: {"ms": statistics.median(values), "min_ms": min(values), "max_ms": max(values)}
+            for name, values in readings.items()}
+
+
+def spread(reading: dict) -> str:
+    return f"{reading['ms']:.4f} [{reading['min_ms']:.4f}-{reading['max_ms']:.4f}]"
+
+
 def rotating_ms(fn, argument_sets, *, iters: int = 40, warmup: int = 3) -> float:
     """Mean device time of ``fn(*args)`` over ``iters`` calls, cycling through
     ``argument_sets`` so that each call reads operands that are not in L2."""
@@ -339,35 +374,38 @@ def host_us_per_op(n: int = 20000) -> float:
     return (time.perf_counter() - started) / n * 1e6
 
 
-def phase_k1() -> dict:
+def _k1_spectrum_form(wave, fb, out_frames: int) -> dict:
+    """K1's spectrum form (the TPU kernel's boundary) against its plain version on the same spectrum."""
     import torch
 
     from ser_tpu_torch.ops import log_mel
 
-    torch.manual_seed(0)
-    batch, samples, n_mels = 8, 30 * 16000, 128
-    wave = 0.1 * torch.randn(batch, samples, device="cuda")
-    log_mel.set_strict_float32()
+    batch, n_mels = wave.shape[0], fb.shape[1]
     spec = log_mel.stft(wave, 400, 160).contiguous()  # (8, 3001, 402)
-    fb = torch.from_numpy(log_mel._mel_fb_t(16000, 400, n_mels)).cuda()
-    out_frames = 3000
     kernel_out = log_mel.power_mel_log(spec, fb, out_frames)
     plain_out = log_mel.power_mel_log_reference(spec, fb, out_frames)
     torch.cuda.synchronize()
     err = (kernel_out - plain_out).abs().max().item()
+    # Planted fault: the power's imaginary half dropped.
+    n_bins = fb.shape[0]
+    real_only = spec.clone()
+    real_only[..., n_bins:] = 0.0
+    fault = (log_mel.power_mel_log_reference(real_only, fb, out_frames) - plain_out).abs().max().item()
+    del real_only
     ms = cuda_ms(lambda: log_mel.power_mel_log(spec, fb, out_frames))
     plain_ms = cuda_ms(lambda: log_mel.power_mel_log_reference(spec, fb, out_frames))
-    n_bins = fb.shape[0]
     bytes_moved = spec.numel() * 4 + fb.numel() * 4 + batch * out_frames * n_mels * 4
     # Power, the projection over the filterbank's non-zero weights, and the log.
     nonzero = int((fb != 0).sum().item())
     flops = batch * out_frames * (3 * n_bins + 2 * nonzero + n_mels)
     bound, bound_by = bound_ms(bytes_moved=bytes_moved, flops=flops, peak_flops=PEAK_F32_FLOPS)
-    say("K1", shape=f"spec{tuple(spec.shape)}->out{tuple(kernel_out.shape)}", max_abs_err=err,
-        tolerance=K1_TOLERANCE, ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bound:.4f}",
-        bound_by=bound_by, mbytes=f"{bytes_moved / 1e6:.1f}", gflop=f"{flops / 1e9:.3f}")
+    say("K1-spectrum", shape=f"spec{tuple(spec.shape)}->out{tuple(kernel_out.shape)}", max_abs_err=err,
+        tolerance=K1_TOLERANCE, no_imaginary_fault=fault, ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+        bound_ms=f"{bound:.4f}", bound_by=bound_by, mbytes=f"{bytes_moved / 1e6:.1f}", gflop=f"{flops / 1e9:.3f}")
     if not err <= K1_TOLERANCE:
-        raise AssertionError(f"K1 disagrees with its plain version: {err} > {K1_TOLERANCE}")
+        raise AssertionError(f"K1 (spectrum form) disagrees with its plain version: {err} > {K1_TOLERANCE}")
+    if not fault > K1_TOLERANCE:
+        raise AssertionError(f"K1's limit would pass a power without its imaginary half: {fault}")
     return {
         "name": "power_mel_log",
         "route": "cuda",
@@ -382,6 +420,134 @@ def phase_k1() -> dict:
         "bound_by": bound_by,
         "library_ms": None,
     }
+
+
+def _k1_fused_check(signal, fb, out_frames: int) -> dict:
+    """K1's fused form on one (B, S) signal: normalized against the plain version, raw against
+    float64 beside the plain route's own error, a planted one-TF32-pass fault, and the bits of two runs."""
+    import torch
+    import torch.nn.functional as F
+
+    from ser_tpu_torch.ops import log_mel
+
+    fused = log_mel.stft_power_mel_log(signal, fb, out_frames)
+    again = log_mel.stft_power_mel_log(signal, fb, out_frames)
+    plain = log_mel.stft_power_mel_log_reference(signal, fb, out_frames)
+    exact = log_mel.power_mel_log_reference(log_mel.stft(signal.double(), 400, 160), fb.double(), out_frames)
+    # Planted fault: the plain route with its frames and basis rounded to TF32 (one TF32 pass).
+    padded = F.pad(signal[:, None, :], (200, 200), mode="reflect")[:, 0]
+    frames = _tf32(padded.unfold(-1, 400, 160)[:, :out_frames])
+    basis = _tf32(torch.from_numpy(log_mel._dft_basis(400)).cuda())
+    one_pass = log_mel.power_mel_log_reference(frames @ basis, fb)
+    del padded, frames
+    torch.cuda.synchronize()
+    norm = log_mel.normalize_log_mel
+    return {
+        "normalized_err": (norm(fused) - norm(plain)).abs().max().item(),
+        "raw_err_vs_f64": (fused.double() - exact).abs().max().item(),
+        "plain_raw_err_vs_f64": (plain.double() - exact).abs().max().item(),
+        "one_tf32_pass_fault": (norm(one_pass) - norm(plain)).abs().max().item(),
+        "same_bits": torch.equal(fused, again),
+        "finite": bool(torch.isfinite(fused).all().item()),
+    }
+
+
+def phase_k1() -> dict:
+    import torch
+
+    from ser_tpu_torch.ops import filters, kernel_build, log_mel
+
+    torch.manual_seed(0)
+    batch, samples, n_mels, out_frames = 8, 30 * 16000, 128, 3000
+    wave = 0.1 * torch.randn(batch, samples, device="cuda")
+    log_mel.set_strict_float32()
+    fb = torch.from_numpy(log_mel._mel_fb_t(16000, 400, n_mels)).cuda()
+    spectrum = _k1_spectrum_form(wave, fb, out_frames)
+
+    # The fused form (the main path's), on noise and on a 440 Hz tone with noise 1e-4 below it.
+    t = torch.arange(samples, device="cuda", dtype=torch.float64) / 16000
+    tone = (torch.sin(2 * math.pi * 440.0 * t) + 1e-4 * torch.randn(batch, samples, device="cuda",
+                                                                     dtype=torch.float64)).float()
+    checks = {name: _k1_fused_check(signal, fb, out_frames) for name, signal in (("noise", wave), ("tone", tone))}
+    for name, check in checks.items():
+        say("K1-check", signal=name, tolerance=K1_TOLERANCE, **check)
+        if not check["normalized_err"] <= K1_TOLERANCE:
+            raise AssertionError(f"K1 disagrees with its plain version on {name}: {check['normalized_err']}")
+        if not check["raw_err_vs_f64"] <= 2.0 * check["plain_raw_err_vs_f64"]:
+            raise AssertionError(f"K1's raw error against float64 on {name} exceeds twice the plain route's: {check}")
+        if not check["one_tf32_pass_fault"] > K1_TOLERANCE:
+            raise AssertionError(f"K1's limit would pass one TF32 pass on {name}: {check['one_tf32_pass_fault']}")
+        if not (check["same_bits"] and check["finite"]):
+            raise AssertionError(f"K1 gave other bits on a second run, or non-finite values, on {name}")
+
+    # Shapes the main path does not give it: a window length that is neither a multiple of 4 nor
+    # of 160 (plain loads fill the span) at 80 mels, and a waveform 4 bytes off 16-byte alignment.
+    fb80 = torch.from_numpy(log_mel._mel_fb_t(16000, 400, 80)).cuda()
+    shifted = 0.1 * torch.randn(16001, device="cuda")
+    for name, signal, bank in (("odd_length_80_mels", 0.1 * torch.randn(3, 16077, device="cuda"), fb80),
+                               ("misaligned", shifted[1:].view(1, 16000), fb)):
+        check = _k1_fused_check(signal, bank, None)
+        say("K1-check", signal=name, shape=json.dumps(list(signal.shape)), n_mels=bank.shape[1],
+            tolerance=K1_TOLERANCE, **check)
+        if not (check["normalized_err"] <= K1_TOLERANCE
+                and check["raw_err_vs_f64"] <= 2.0 * check["plain_raw_err_vs_f64"]
+                and check["same_bits"] and check["finite"]):
+            raise AssertionError(f"K1 disagrees with its plain version on {name}: {check}")
+
+    window = torch.from_numpy(filters.hann_window(400)).cuda()
+
+    def torch_stft_route():
+        x = torch.stft(wave, 400, 160, window=window, center=True, pad_mode="reflect", return_complex=True)
+        return log_mel.power_mel_log(torch.cat([x.real, x.imag], dim=1).transpose(1, 2).contiguous(), fb, out_frames)
+
+    stft_err = (log_mel.normalize_log_mel(torch_stft_route())
+                - log_mel.normalize_log_mel(log_mel.stft_power_mel_log_reference(wave, fb, out_frames))).abs().max()
+    # Every route timed the same way (cuda_ms), the routes taking turns, five readings each.
+    times = interleaved_ms({
+        "fused": lambda: log_mel.stft_power_mel_log(wave, fb, out_frames),
+        "old_route": lambda: log_mel.power_mel_log(log_mel.stft(wave, 400, 160).contiguous(), fb, out_frames),
+        "torch_stft_k1": torch_stft_route,
+        "plain": lambda: log_mel.stft_power_mel_log_reference(wave, fb, out_frames),
+    })
+    ms = times["fused"]["ms"]
+    n_bins = fb.shape[0]
+    basis_bytes = log_mel.packed_fused_basis().nbytes
+    bytes_moved = wave.numel() * 4 + basis_bytes + fb.numel() * 4 + batch * out_frames * n_mels * 4
+    # The DFT the function needs (402 columns, 400 taps) as three TF32 products a product; the
+    # kernel issues its padded 448 columns and 416 taps, a waste that counts in its time only.
+    columns, taps = log_mel._N_TILE * log_mel._N_TILES, log_mel._K_CHUNK * log_mel._K_CHUNKS
+    useful = 3 * 2.0 * batch * out_frames * (2 * n_bins) * 400
+    issued = 3 * 2.0 * batch * out_frames * columns * taps
+    bound, bound_by = bound_ms(bytes_moved=bytes_moved, flops=useful, peak_flops=PEAK_TF32_FLOPS)
+    for line in kernel_build.ptxas_report("log_mel").splitlines():
+        say("K1-ptxas", info=json.dumps(line.strip()))
+    say("K1", shape=f"wave{tuple(wave.shape)}->out({batch}, {out_frames}, {n_mels})",
+        card=json.dumps(nvidia_smi_line()), ms=spread(times["fused"]), old_route_ms=spread(times["old_route"]),
+        torch_stft_k1_ms=spread(times["torch_stft_k1"]), torch_stft_normalized_err=stft_err.item(),
+        plain_ms=spread(times["plain"]), bound_ms=f"{bound:.4f}", bound_by=bound_by,
+        bound_share=f"{bound / ms:.3f}", tflops=f"{useful / ms / 1e9:.1f}", issued_tflops=f"{issued / ms / 1e9:.1f}",
+        mbytes=f"{bytes_moved / 1e6:.1f}", gflop=f"{useful / 1e9:.2f}", issued_gflop=f"{issued / 1e9:.2f}")
+    fused = {
+        "name": "stft_power_mel_log",
+        "route": "cuda",
+        "source": "ser_tpu_torch/csrc/log_mel.cu",
+        "replaces": "ser_tpu/ops/pallas_kernels.py:93",
+        "also_replaces": "ser_tpu/ops/pallas_kernels.py:57 (conv_stft)",
+        "max_abs_err": max(check["normalized_err"] for check in checks.values()),
+        "tolerance": K1_TOLERANCE,
+        "tolerance_on": "max_abs_err of the normalized log-mel, noise and tone",
+        "raw_err_vs_f64": {name: check["raw_err_vs_f64"] for name, check in checks.items()},
+        "plain_raw_err_vs_f64": {name: check["plain_raw_err_vs_f64"] for name, check in checks.items()},
+        "ms": ms,
+        "ms_range": [times["fused"]["min_ms"], times["fused"]["max_ms"]],
+        "plain_ms": times["plain"]["ms"],
+        "old_route_ms": times["old_route"]["ms"],
+        "torch_stft_k1_ms": times["torch_stft_k1"]["ms"],
+        "bound_ms": bound,
+        "bound_by": bound_by,
+        "library_ms": None,
+    }
+    return {"fused": fused, "spectrum": spectrum}
 
 
 # A sequence length with one valid key and query in the kernels' last 128-row tile.
@@ -768,19 +934,21 @@ def phase_k2_bwd() -> dict:
 
 
 def phase_grad_guard() -> dict:
-    """A kernel without an autograd Function refuses an input that requires grad (K1, K3)."""
+    """A kernel without an autograd Function refuses an input that requires grad (K1's two forms, K3)."""
     import torch
 
     from ser_tpu_torch.ops import decode_step_kernels as dsk
     from ser_tpu_torch.ops import log_mel
 
     spec = torch.zeros(1, 8, 402, device="cuda", requires_grad=True)
+    wave = torch.zeros(1, 16000, device="cuda", requires_grad=True)
     fb = torch.zeros(201, 128, device="cuda")
     d = 1280
     x = torch.zeros(2, d, device="cuda", dtype=torch.bfloat16, requires_grad=True)
     ln, w, b = (torch.zeros(shape, device="cuda", dtype=torch.bfloat16) for shape in ((1, d), (d, 3 * d), (1, 3 * d)))
     refused = {}
     for name, call in (("K1", lambda: log_mel.power_mel_log(spec, fb)),
+                       ("K1-fused", lambda: log_mel.stft_power_mel_log(wave, fb)),
                        ("K3", lambda: dsk.ln_qkv_project(x, ln, ln, w, b, eps=1e-5))):
         try:
             call()
@@ -790,6 +958,7 @@ def phase_grad_guard() -> dict:
             refused[name] = False
     with torch.no_grad():  # the same calls without grad mode launch
         log_mel.power_mel_log(spec, fb)
+        log_mel.stft_power_mel_log(wave, fb)
         dsk.ln_qkv_project(x, ln, ln, w, b, eps=1e-5)
     torch.cuda.synchronize()
     say("grad-guard", refused=json.dumps(refused))
@@ -1131,7 +1300,7 @@ _KERNEL_GROUPS = (
     ("K2 flash_attention", ("flash_attention_fwd_kernel",)),
     ("K2-f32 flash_attention_f32", ("flash_attention_f32_kernel",)),
     ("K2-bwd flash_attention_bwd", ("flash_attention_bwd",)),
-    ("K1 power_mel_log", ("power_mel_log_kernel",)),
+    ("K1 stft_power_mel_log", ("power_mel_log_kernel",)),  # both forms
     ("conv", ("cudnn", "conv", "fprop", "implicit_convolve")),
     ("gemm", ("nvjet", "gemm", "xmma", "cutlass")),
     ("reduce", ("reduce_kernel",)),
@@ -1233,25 +1402,37 @@ def phase_encoder() -> dict:
     if states.shape != (n_windows, 1500, config.d_model) or not torch.isfinite(states).all():
         raise AssertionError(f"encoder output {tuple(states.shape)} is not finite/of the right shape")
 
-    log_mel.COUNTER.launches = 0
-    attention.COUNTER.launches = 0
+    for counter in (log_mel.FUSED_COUNTER, log_mel.COUNTER, attention.COUNTER):
+        counter.launches = 0
     torch.cuda.reset_peak_memory_stats()
     started = time.perf_counter()
     for _ in range(repeats):
         states = wm.encode_mel_chunks(encoder, chunks)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - started
-    k1_per, k2_per = log_mel.COUNTER.launches / repeats, attention.COUNTER.launches / repeats
+    k1_per, k2_per = log_mel.FUSED_COUNTER.launches / repeats, attention.COUNTER.launches / repeats
+    spectrum_per = log_mel.COUNTER.launches / repeats
     audio_s_per_s = repeats * n_windows * 30.0 / elapsed
     mfu = _encoder_flops(config, n_windows) * repeats / elapsed / PEAK_BF16_FLOPS
     say("encoder", windows=n_windows, repeats=repeats, seconds=f"{elapsed:.4f}",
         ms_per_encode=f"{elapsed / repeats * 1e3:.2f}", audio_s_per_s=f"{audio_s_per_s:.1f}",
-        mfu=f"{mfu:.4f}", k1_per_encode=k1_per, k2_per_encode=k2_per,
+        mfu=f"{mfu:.4f}", k1_per_encode=k1_per, k1_spectrum_form_per_encode=spectrum_per, k2_per_encode=k2_per,
         peak_mem_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
-    if (k1_per, k2_per) != (1, config.encoder_layers):
-        raise AssertionError(f"launches per encode K1={k1_per} K2={k2_per}, expected 1 and 32")
+    if (k1_per, spectrum_per, k2_per) != (1, 0, config.encoder_layers):
+        raise AssertionError(f"launches per encode K1 fused={k1_per} K1 spectrum={spectrum_per} K2={k2_per}, "
+                             "expected 1, 0 and 32")
     breakdown = _profile(lambda: wm.encode_mel_chunks(encoder, chunks), "encoder")
     say("encoder-profile", detail=breakdown)
+    # The front end inside the encode (log-mel, floor and affine), and the same with the
+    # route it replaced: the matmul STFT and K1's spectrum form.
+    fb = torch.from_numpy(log_mel._mel_fb_t(wm.SAMPLE_RATE, wm.N_FFT, config.n_mels)).to(cuda)
+    frontend = interleaved_ms({
+        "fused": lambda: wm.log_mel_spectrogram(chunks, config.n_mels),
+        "old_route": lambda: log_mel.normalize_log_mel(log_mel.power_mel_log(
+            log_mel.stft(chunks, wm.N_FFT, wm.HOP_LENGTH).contiguous(), fb, wm.CHUNK_FRAMES)),
+    })
+    say("encoder-frontend", ms=spread(frontend["fused"]), old_route_ms=spread(frontend["old_route"]),
+        ms_per_encode=f"{elapsed / repeats * 1e3:.2f}")
     del encoder, states
     torch.cuda.empty_cache()
 
@@ -1268,7 +1449,7 @@ def phase_encoder() -> dict:
         bound=ENCODER_REL_L2_BOUND, max_abs=f"{(card_out - cpu_out).abs().max().item():.4f}")
     if not rel_l2 <= ENCODER_REL_L2_BOUND:
         raise AssertionError(f"card encoder disagrees with the CPU: rel L2 {rel_l2} > {ENCODER_REL_L2_BOUND}")
-    return {"k1_per_encode": k1_per, "k2_per_encode": k2_per}
+    return {"k1_per_encode": k1_per, "k1_spectrum_form_per_encode": spectrum_per, "k2_per_encode": k2_per}
 
 
 class SyntheticTokenizer:
@@ -1499,7 +1680,7 @@ def phase_transcribe() -> dict:
     say("transcribe-build", seconds=f"{time.perf_counter() - started:.2f}")
     seconds = 60.0
     audio = (0.2 * np.random.default_rng(0).standard_normal(int(seconds * 16000))).astype(np.float32)
-    counters = (log_mel.COUNTER, attention.COUNTER, *dsk.COUNTERS)
+    counters = (log_mel.FUSED_COUNTER, log_mel.COUNTER, attention.COUNTER, *dsk.COUNTERS)
     # Spans of one call: the encode, the decode (with the alignment reduction
     # on the card) and the host's DTW word timing, each ended by a synchronize.
     spans: dict[str, float] = {}
@@ -1548,8 +1729,9 @@ def phase_transcribe() -> dict:
         if starts != sorted(starts):
             raise AssertionError("transcript word starts are not in order")
         k3, k4, k5 = (launches[c.name] for c in dsk.COUNTERS)
-        if launches["power_mel_log"] != 1 or launches["flash_attention_fwd"] != 32:
-            raise AssertionError(f"transcribe launches {launches}: expected K1=1, K2=32 for one 2-window encode")
+        if (launches["stft_power_mel_log"], launches["power_mel_log"], launches["flash_attention_fwd"]) != (1, 0, 32):
+            raise AssertionError(f"transcribe launches {launches}: expected K1 fused=1, K1 spectrum=0, K2=32 "
+                                 "for one 2-window encode")
         if not (k3 == k4 == k5 and k3 > 0 and k3 % 32 == 0):
             raise AssertionError(f"transcribe launches {launches}: K3-K5 did not run 32 times per step")
     model.config = config
@@ -1668,10 +1850,11 @@ def phase_infer() -> dict:
             torch.cuda.synchronize()
             return execution, time.perf_counter() - started
 
-        log_mel.COUNTER.launches = 0
-        attention.COUNTER.launches = 0
+        counters = (log_mel.FUSED_COUNTER, log_mel.COUNTER, attention.COUNTER)
+        for counter in counters:
+            counter.launches = 0
         executions = [run(clip) for clip, _ in clips]
-        launches = {"power_mel_log": log_mel.COUNTER.launches, "flash_attention_fwd": attention.COUNTER.launches}
+        launches = {c.name: c.launches for c in counters}
         warm = [run(clip)[1] for clip, _ in clips]
 
     for (execution, cold_s), warm_s, (clip, seconds) in zip(executions, warm, clips):
@@ -1681,8 +1864,9 @@ def phase_infer() -> dict:
             warm_latency_s=f"{warm_s:.4f}", frames=len(execution.detailed_result.frames),
             segments=len(segments), labels=json.dumps(sorted({s.emotion for s in segments})))
     say("infer-launches", **launches)
-    if launches["power_mel_log"] != len(clips) or launches["flash_attention_fwd"] != 32 * len(clips):
-        raise AssertionError(f"main path launches {launches}, expected K1={len(clips)} K2={32 * len(clips)}")
+    expected = {"stft_power_mel_log": len(clips), "power_mel_log": 0, "flash_attention_fwd": 32 * len(clips)}
+    if launches != expected:
+        raise AssertionError(f"main path launches {launches}, expected {expected}")
     return launches
 
 
@@ -2098,7 +2282,7 @@ def phase_train() -> dict:
     before = {name: params[name].detach().clone() for name in watched}
     before["head.w2"] = head["w2"].detach().clone()
 
-    counters = (log_mel.COUNTER, attention.COUNTER, attention.BWD_COUNTER)
+    counters = (log_mel.FUSED_COUNTER, log_mel.COUNTER, attention.COUNTER, attention.BWD_COUNTER)
     for counter in counters:
         counter.launches = 0
     torch.cuda.reset_peak_memory_stats()
@@ -2132,7 +2316,7 @@ def phase_train() -> dict:
         raise AssertionError(f"train step gave non-finite losses or parameters: {losses.tolist()}")
     if not all(m > 0 for m in moved.values()):
         raise AssertionError(f"parameters did not move: {moved}")
-    expected = {"power_mel_log": 1, "flash_attention_fwd": 2 * config.encoder_layers,
+    expected = {"stft_power_mel_log": 1, "power_mel_log": 0, "flash_attention_fwd": 2 * config.encoder_layers,
                 "flash_attention_bwd": config.encoder_layers}
     if per_step != expected:
         raise AssertionError(f"launches per step {per_step}, expected {expected}")
@@ -2224,10 +2408,12 @@ def main() -> int:
         print(f"chip_smoke: FAILED in phase {phase}", file=sys.stderr)
         return 1
 
-    # K1 and K2: launches of the three api.infer requests; K3-K5: of the first
+    # K1 (both forms) and K2: launches of the three api.infer requests; K3-K5: of the first
     # (full-budget) transcribe_words call. Each path's counts are set to 0 just
     # before it and read just after.
-    k1.update(launches=launches["power_mel_log"], launches_per_encode=per_encode["k1_per_encode"])
+    k1["fused"].update(launches=launches["stft_power_mel_log"], launches_per_encode=per_encode["k1_per_encode"])
+    k1["spectrum"].update(launches=launches["power_mel_log"],
+                          launches_per_encode=per_encode["k1_spectrum_form_per_encode"])
     k2.update(launches=launches["flash_attention_fwd"], launches_per_encode=per_encode["k2_per_encode"],
               medium_launches=medium["bf16_requests"]["flash_attention_fwd"],
               medium_launches_per_encode=medium_encode["k2_per_encode"],
@@ -2245,7 +2431,7 @@ def main() -> int:
     # K2-bwd: launches of the timed train call (3 steps).
     k2_bwd.update(launches=train["launches"]["flash_attention_bwd"],
                   launches_per_step=train["launches_per_step"]["flash_attention_bwd"])
-    print(json.dumps({"kernels": [k1, k2, k2_f32, k2_bwd, k3, k4, k5]}))
+    print(json.dumps({"kernels": [k1["fused"], k1["spectrum"], k2, k2_f32, k2_bwd, k3, k4, k5]}))
     print(env["smi"])
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -115,45 +115,10 @@ struct WorkItem {
       : b(w / (tiles * heads)), h((w / tiles) % heads), row0((w % tiles) * kBlockQ) {}
 };
 
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  uint32_t y;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(y) : "f"(x));
-  return y;
-}
-
-// x = hi + lo, both TF32: hi is x rounded to nearest, lo the remainder rounded.
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  hi = to_tf32(x);
-  lo = to_tf32(x - __uint_as_float(hi));
-}
-
-// Descriptor of a K-major operand in rows of 128 bytes, 128-byte swizzled,
-// 1024-byte aligned at its swizzle atom (8 rows); the 8-row groups are 1024
-// bytes apart. k-step kk (8 TF32 values, 32 bytes) of a 64-deep tile lies in
-// span kk / 4 (a 64-row half tile, 8 KB on) at byte 32 (kk % 4) of each row.
+// k-step kk (8 TF32 values, 32 bytes) of a 64-deep tile lies in span kk / 4
+// (a 64-row half tile, 8 KB on) at byte 32 (kk % 4) of each row.
 __device__ __forceinline__ uint64_t tile_desc(uint32_t tile, int kk) {
-  constexpr uint64_t kOffset = 1024 >> 4;
-  const uint32_t addr = tile + (kk / 4) * kHalfBytes + (kk % 4) * 32;
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (kOffset << 16) | (kOffset << 32) | (1ull << 62);
-}
-
-// D (64 x 64, float32) (+)= A (64 x 8, TF32 fragments in registers) * B (8 x 64, K-major in shared memory).
-// Thread (warp w, lane 4g + t) gives rows 16w + g and 16w + g + 8 at k-slots t and t + 4:
-// a = {(g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4)}.
-__device__ __forceinline__ void wgmma_tf32(float (&d)[32], const uint32_t (&a)[4], uint64_t desc_b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, "
-      "%22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
-        "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]),
-        "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+  return sw128_desc(tile + (kk / 4) * kHalfBytes + (kk % 4) * 32);
 }
 
 // Every warp of a consumer warpgroup releases a stage once its reads are done.

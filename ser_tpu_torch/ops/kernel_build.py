@@ -46,7 +46,10 @@ _POINTER, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: and argument types; every entry point that launches takes the stream last, and
 #: every one returns a CUDA error code (int).
 ENTRY_POINTS = {
-    "log_mel": {"log_mel": ("ser_power_mel_log", [_POINTER] * 3 + [_INT] * 5 + [_POINTER])},
+    "log_mel": {
+        "log_mel": ("ser_power_mel_log", [_POINTER] * 3 + [_INT] * 5 + [_POINTER]),
+        "stft_power_mel_log": ("ser_stft_power_mel_log", [_POINTER] * 4 + [_INT] * 4 + [_POINTER]),
+    },
     "flash_attention": {
         "flash_attention": ("ser_flash_attention_fwd", [_POINTER] * 6 + [_INT] * 5 + [_FLOAT, _POINTER]),
         "flash_attention_bwd": ("ser_flash_attention_bwd", [_POINTER] * 10 + [_INT] * 5 + [_FLOAT, _POINTER]),

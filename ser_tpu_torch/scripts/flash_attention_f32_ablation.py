@@ -21,15 +21,14 @@ It prints one line per copy and, last, a JSON object of the times in ms.
 
 from __future__ import annotations
 
-import ctypes
 import json
 import math
-import subprocess
 
 import torch
 
 from ser_tpu_torch.models import attention
 from ser_tpu_torch.ops import kernel_build
+from ser_tpu_torch.scripts import ablation
 
 SHAPE = (8, 1499, 16, 64)
 MASK_STEP = 150  # row b keeps T - 150 b keys, as chip_smoke.py's K2-f32 phase
@@ -53,36 +52,10 @@ COPIES = (
 )
 
 
-def _build(source: str) -> dict[str, ctypes.CDLL]:
-    out_dir = kernel_build.BUILD_DIR / "ablation"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    nvcc = kernel_build._nvcc()
-    builds = {}
-    for name, edits in COPIES:
-        text = source
-        for anchor, replacement in edits:
-            if text.count(anchor) != 1:
-                raise SystemExit(f"flash_attention_f32_ablation: an anchor of {name!r} is not in the source once.")
-            text = text.replace(anchor, replacement)
-        variant = out_dir / f"flash_attention_f32_{name}.cu"
-        variant.write_text(text, encoding="utf-8")
-        library = out_dir / f"libflash_attention_f32_{name}.so"
-        command = [nvcc, *kernel_build.NVCC_FLAGS, "-I", str(kernel_build.CSRC_DIR), "-o", str(library), str(variant)]
-        builds[name] = (subprocess.Popen(command, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), library)
-    libraries = {}
-    for name, (proc, library) in builds.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise SystemExit(f"flash_attention_f32_ablation: nvcc failed for {name}:\n{log[-3000:]}")
-        libraries[name] = ctypes.CDLL(str(library))
-    return libraries
-
-
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("flash_attention_f32_ablation: no CUDA device.")
-    libraries = _build((kernel_build.CSRC_DIR / "flash_attention_f32.cu").read_text(encoding="utf-8"))
-    symbol, argtypes = kernel_build.ENTRY_POINTS["flash_attention_f32"]["flash_attention_f32"]
+    libraries = ablation.build_copies("flash_attention_f32", COPIES)
     torch.manual_seed(0)
     batch, seq, heads, dim = SHAPE
     q, k, v = (torch.randn(*SHAPE, device="cuda") for _ in range(3))
@@ -95,8 +68,7 @@ def main() -> int:
     stream = torch.cuda.current_stream().cuda_stream
     times = {}
     for name, library in libraries.items():
-        function = getattr(library, symbol)
-        function.argtypes, function.restype = argtypes, ctypes.c_int
+        function = ablation.entry_point(library, "flash_attention_f32", "flash_attention_f32")
 
         def call():
             kernel_build.check(
@@ -105,16 +77,7 @@ def main() -> int:
                 name,
             )
 
-        for _ in range(3):
-            call()
-        torch.cuda.synchronize()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(20):
-            call()
-        end.record()
-        torch.cuda.synchronize()
-        times[name] = round(start.elapsed_time(end) / 20, 4)
+        times[name] = ablation.launch_ms(call)
         line = f"[ablation] copy={name} ms={times[name]}"
         if name == "source":
             reference = attention.attention_reference(q, k, v, frame_mask=frame_mask)
