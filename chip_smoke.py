@@ -76,9 +76,26 @@ per source, in parallel), then, one phase per line:
     with ``SER_DEVICE_POOLING=1`` (its pooled features held to the host
     pooling's), one with ``SER_TORCH_DTYPE=float32`` and one whose first bf16
     encode a planted wrapper makes non-finite (the retry must run in float32
-    through K2-f32).
+    through K2-f32);
+11. ``research-encoder``: a full-width emotion2vec ``model.pt`` (FunASR layout,
+    bf16, seeded weights) staged under a ModelScope root and converted by the
+    port's converter, its inferred config checked against the staged layout,
+    8 chunks of 30 s encoded (audio-seconds per second, MFU with the
+    positional stack as its own part, 24 K2 launches per encode, device time
+    by kernel group), and a 2-layer card-vs-CPU check of the converted
+    weights in bf16 and in float32; then ``research-infer``:
+    ``api.infer(profile="accurate-research")`` on three clips cold and warm
+    behind the opened restricted-backend gate, one request with the gate
+    shut (refused), and one whose first bf16 encode is made non-finite (the
+    retry through K2-f32);
+12. ``fast-infer``: ``api.infer(profile="fast")`` on three clips cold and
+    warm, the handcrafted features computed on the card, its device time by
+    group, and the card's frame features of the 45 s clip held to the CPU
+    route's at the golden tolerances family by family, with a planted fault
+    (frame means over padded columns) they must catch, and the same features
+    with TF32 products for information.
 
-Phases 5-10 set the launch counts of the kernels they run to 0 just before
+Phases 5-12 set the launch counts of the kernels they run to 0 just before
 their run and read them just after; K1's two forms count apart, and the
 main path must launch the fused form once per encode and the spectrum form
 never.
@@ -91,6 +108,7 @@ without the port.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -186,6 +204,26 @@ MEDIUM_F32_MAX_ABS_BOUND = 1e-4
 # window relative to its largest feature.
 DEVICE_POOLING_REL_BOUND = 1e-5
 MEDIUM_MODEL_ID = "facebook/wav2vec2-xls-r-300m"
+# The accurate-research profile: emotion2vec_plus_large, data2vec 2.0 audio at
+# its published widths (d 1024, 16 heads, FFN 4096, 24 AltBlocks; fairseq's
+# conv_pos_width 95 over conv_pos_depth 5 (kernel 19), conv_pos_groups 16).
+# The prenet/trunk split (8 + 16) is assumed: the converter flattens both
+# into one stack, so only the total shows in the model.
+RESEARCH_MODEL_ID = "iic/emotion2vec_plus_large"
+RESEARCH_PRENET_BLOCKS = 8
+RESEARCH_BLOCKS = 24
+RESEARCH_POS_DEPTH, RESEARCH_POS_KERNEL, RESEARCH_POS_GROUPS = 5, 19, 16
+# The fast profile's features, card against the CPU route on the same clip:
+# the golden tolerances of tests/suites/unit/ops/test_dsp_golden_fixtures.py,
+# rtol 2e-3 and per family an atol times max(1, |CPU value|).
+FAST_RTOL = 2e-3
+FAST_FAMILIES = {
+    "mfcc": (slice(0, 40), 2e-3),
+    "chroma": (slice(40, 52), 5e-3),
+    "mel": (slice(52, 180), 2e-4),
+    "contrast": (slice(180, 187), 2e-3),
+    "tonnetz": (slice(187, 193), 5e-3),
+}
 # K3, K4, K5: relative L2 error of the kernel (bf16 in and out) against its
 # plain version in float32 on the same bf16 inputs. The kernels' own error is
 # bf16 rounding at the rounding points they share with the unfused decode (the
@@ -1301,6 +1339,10 @@ _KERNEL_GROUPS = (
     ("K2-f32 flash_attention_f32", ("flash_attention_f32_kernel",)),
     ("K2-bwd flash_attention_bwd", ("flash_attention_bwd",)),
     ("K1 stft_power_mel_log", ("power_mel_log_kernel",)),  # both forms
+    # The fast profile's DSP (no kernel of the port's own): cuFFT, sorts, medians.
+    ("fft", ("fft", "FFT", "spRadix")),
+    ("sort", ("sort", "Sort", "radix", "bitonic")),
+    ("median", ("median", "Median", "kthvalue")),
     ("conv", ("cudnn", "conv", "fprop", "implicit_convolve")),
     ("gemm", ("nvjet", "gemm", "xmma", "cutlass")),
     ("reduce", ("reduce_kernel",)),
@@ -1888,16 +1930,28 @@ def _wav2vec2_flops(config, samples: int) -> dict[str, float]:
             "layer_products": layer_products, "attention": attention_flops}
 
 
-def _medium_layers_check(chunk, length: int) -> dict:
-    """2-layer full-width XLS-R: card bf16 and card float32 against CPU float32, same weights."""
+def _medium_layers_check(chunk, length: int, config=None, state=None) -> dict:
+    """2-layer full-width wav2vec2-class encoder: card bf16 and card float32 against CPU float32, same weights.
+
+    Default: XLS-R 300M's widths with seeded weights; or the given config
+    (cut to 2 layers) and state (the layers past 2 dropped).
+    """
+    import dataclasses
+
     import numpy as np
     import torch
 
     from ser_tpu_torch.models import wav2vec2 as w2v
     from ser_tpu_torch.models.param_utils import cast_state_bf16
 
-    config = w2v.Wav2Vec2Config(num_hidden_layers=2)
-    state = w2v.random_wav2vec2_state(config, seed=1, device="cpu")
+    if config is None:
+        config = w2v.Wav2Vec2Config(num_hidden_layers=2)
+        state = w2v.random_wav2vec2_state(config, seed=1, device="cpu")
+    else:
+        config = dataclasses.replace(config, num_hidden_layers=2)
+        kept = {f"layers.{i}." for i in range(2)}
+        state = {name: tensor.float().cpu() for name, tensor in state.items()
+                 if not name.startswith("layers.") or name.startswith(tuple(kept))}
     frames = config.frames_for_samples(chunk.shape[1])
     mask = torch.from_numpy(np.arange(frames)[None, :] < config.frames_for_samples(length))
     on_cpu = w2v.build_wav2vec2_encoder(config, state, device="cpu")
@@ -2128,6 +2182,341 @@ def phase_medium_infer() -> dict:
     if backend.dtype != torch.float32:
         raise AssertionError("the backend did not stay float32 after its retry")
     return launches
+
+
+def _stage_emotion2vec(model_dir: Path) -> dict:
+    """Writes a full-width FunASR-layout ``model.pt`` in bf16 (seeded weights, std 1/√fan_in).
+
+    The fairseq data2vec 2.0 audio naming: a 7-conv layer-norm front end 512
+    wide (no conv bias), ``project_features.{1,2}`` (LayerNorm, 512 → 1024),
+    5 positional blocks of kernel 19 in 16 groups, 24 AltBlocks (prenet then
+    trunk) with layer scales, the final norm, and decoder and EMA tensors the
+    converter must skip.
+    """
+    import torch
+
+    generator = torch.Generator(device="cuda").manual_seed(11)
+
+    def normal(*shape, fan_in: int):
+        return (torch.randn(shape, generator=generator, device="cuda") / math.sqrt(fan_in)).to(torch.bfloat16)
+
+    def const(value: float, *shape):
+        return torch.full(shape, value, dtype=torch.bfloat16, device="cuda")
+
+    d, ffn, audio = 1024, 4096, "modality_encoders.AUDIO."
+    state = {}
+    channels = 1
+    for i, kernel in enumerate((10, 3, 3, 3, 3, 2, 2)):
+        base = f"{audio}local_encoder.conv_layers.{i}"
+        state[f"{base}.0.weight"] = normal(512, channels, kernel, fan_in=channels * kernel)
+        state[f"{base}.2.1.weight"], state[f"{base}.2.1.bias"] = const(1.0, 512), const(0.0, 512)
+        channels = 512
+    state[f"{audio}project_features.1.weight"], state[f"{audio}project_features.1.bias"] = const(1.0, 512), const(0.0, 512)
+    state[f"{audio}project_features.2.weight"] = normal(d, 512, fan_in=512)
+    state[f"{audio}project_features.2.bias"] = const(0.0, d)
+    width = d // RESEARCH_POS_GROUPS
+    for i in range(RESEARCH_POS_DEPTH):
+        base = f"{audio}relative_positional_encoder.{i}.0"
+        state[f"{base}.weight"] = normal(d, width, RESEARCH_POS_KERNEL, fan_in=width * RESEARCH_POS_KERNEL)
+        state[f"{base}.bias"] = const(0.0, d)
+    for block in range(RESEARCH_BLOCKS):
+        prenet = block < RESEARCH_PRENET_BLOCKS
+        base = f"{audio}context_encoder.blocks.{block}" if prenet else f"blocks.{block - RESEARCH_PRENET_BLOCKS}"
+        for norm in ("norm1", "norm2"):
+            state[f"{base}.{norm}.weight"], state[f"{base}.{norm}.bias"] = const(1.0, d), const(0.0, d)
+        state[f"{base}.attn.qkv.weight"], state[f"{base}.attn.qkv.bias"] = normal(3 * d, d, fan_in=d), const(0.0, 3 * d)
+        state[f"{base}.attn.proj.weight"], state[f"{base}.attn.proj.bias"] = normal(d, d, fan_in=d), const(0.0, d)
+        state[f"{base}.mlp.fc1.weight"], state[f"{base}.mlp.fc1.bias"] = normal(ffn, d, fan_in=d), const(0.0, ffn)
+        state[f"{base}.mlp.fc2.weight"], state[f"{base}.mlp.fc2.bias"] = normal(d, ffn, fan_in=ffn), const(0.0, d)
+        state[f"{base}.gamma_1"], state[f"{base}.gamma_2"] = const(0.5, d), const(0.5, d)
+    state["norm.weight"], state["norm.bias"] = const(1.0, d), const(0.0, d)
+    state["decoder.blocks.0.0.weight"] = normal(d, d, 5, fan_in=d * 5)
+    state["_ema.blocks.0.norm1.weight"] = const(1.0, d)
+    state = {name: tensor.cpu() for name, tensor in state.items()}
+    model_dir.mkdir(parents=True, exist_ok=True)
+    torch.save(state, model_dir / "model.pt")
+    return {"tensors": len(state), "gb": sum(t.numel() * t.element_size() for t in state.values()) / 1e9}
+
+
+def phase_research_encoder(cache_root: Path) -> dict:
+    """emotion2vec at full width from a staged bf16 FunASR ``model.pt``: convert, check the config,
+    encode 8 chunks of 30 s, and a 2-layer card-vs-CPU check of the converted weights."""
+    import numpy as np
+    import torch
+
+    from ser_tpu_torch._internal.repr.emotion2vec_backend import Emotion2VecBackend
+    from ser_tpu_torch.models import attention
+    from ser_tpu_torch.models import wav2vec2 as w2v
+    from ser_tpu_torch.models.emotion2vec_convert import load_funasr_emotion2vec_state
+
+    phase_started = time.perf_counter()
+    model_dir = cache_root / "model-cache" / "modelscope" / "hub" / RESEARCH_MODEL_ID
+    started = time.perf_counter()
+    staged = _stage_emotion2vec(model_dir)
+    stage_s = time.perf_counter() - started
+    started = time.perf_counter()
+    config, state = load_funasr_emotion2vec_state(model_dir)
+    convert_s = time.perf_counter() - started
+    expected = w2v.Wav2Vec2Config(
+        hidden_size=1024, num_hidden_layers=RESEARCH_BLOCKS, num_attention_heads=16, intermediate_size=4096,
+        num_conv_pos_embeddings=RESEARCH_POS_DEPTH * RESEARCH_POS_KERNEL,
+        num_conv_pos_embedding_groups=RESEARCH_POS_GROUPS, conv_pos_depth=RESEARCH_POS_DEPTH,
+    )
+    say("research-encoder-stage", tensors=staged["tensors"], model_pt_gb=f"{staged['gb']:.3f}",
+        stage_s=f"{stage_s:.2f}", convert_s=f"{convert_s:.2f}", config_as_staged=config == expected,
+        pos_kernel=max(3, config.num_conv_pos_embeddings // config.conv_pos_depth))
+    if config != expected:
+        raise AssertionError(f"inferred config {config} differs from the staged layout {expected}")
+
+    cuda = torch.device("cuda")
+    backend = Emotion2VecBackend(model_id=RESEARCH_MODEL_ID, cache_root=cache_root, device=cuda, dtype="bfloat16",
+                                 config=config, state=state)
+    n_chunks, samples, repeats = 8, 30 * 16000, 3
+    rng = np.random.default_rng(0)
+    batch = (0.1 * rng.standard_normal((n_chunks, samples))).astype(np.float32)
+    lengths = np.full(n_chunks, samples, dtype=np.int32)
+    frames = config.frames_for_samples(samples)
+    states = backend._encode_batch(batch, lengths)  # warm-up
+    torch.cuda.synchronize()
+    if states.shape != (n_chunks, frames, config.hidden_size) or not torch.isfinite(states).all():
+        raise AssertionError(f"research encoder output {tuple(states.shape)} is not finite/of the right shape")
+
+    attention.COUNTER.launches = 0
+    attention.F32_COUNTER.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    started = time.perf_counter()
+    for _ in range(repeats):
+        states = backend._encode_batch(batch, lengths)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - started
+    k2_per, f32_per = attention.COUNTER.launches / repeats, attention.F32_COUNTER.launches / repeats
+    # _wav2vec2_flops counts the positional part as one conv of num_conv_pos_embeddings
+    # taps: the stack's 5 convs of 19 taps each are the same 95.
+    flops = {part: value * n_chunks for part, value in _wav2vec2_flops(config, samples).items()}
+    total = sum(flops.values())
+    say("research-encoder", chunks=n_chunks, seconds_per_chunk=30, frames=frames, repeats=repeats,
+        ms_per_encode=f"{elapsed / repeats * 1e3:.2f}", audio_s_per_s=f"{repeats * n_chunks * 30.0 / elapsed:.1f}",
+        mfu=f"{total * repeats / elapsed / PEAK_BF16_FLOPS:.4f}", tflop_per_encode=f"{total / 1e12:.3f}",
+        flop_by_part=json.dumps({part: f"{value / 1e12:.3f}T" for part, value in flops.items()}),
+        k2_per_encode=k2_per, k2_f32_per_encode=f32_per,
+        peak_mem_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
+    if (k2_per, f32_per) != (RESEARCH_BLOCKS, 0):
+        raise AssertionError(f"launches per bf16 encode K2={k2_per} K2-f32={f32_per}, expected 24 and 0")
+    breakdown = _profile(lambda: backend._encode_batch(batch, lengths), "research-encoder")
+    say("research-encoder-profile", detail=breakdown)
+    chunk = torch.from_numpy(batch[:1]).to(cuda)
+    del backend, states
+    torch.cuda.empty_cache()
+
+    check = _medium_layers_check(chunk, 20 * 16000, config=config, state=state)
+    say("research-encoder-check", layers=2, d_model=config.hidden_size, pos_convs=config.conv_pos_depth,
+        valid_seconds=20, bf16_rel_l2=f"{check['bf16']['rel_l2']:.5f}", bf16_bound=MEDIUM_BF16_REL_L2_BOUND,
+        bf16_max_abs=f"{check['bf16']['max_abs']:.4f}", float32_max_abs=f"{check['float32']['max_abs']:.3g}",
+        float32_bound=MEDIUM_F32_MAX_ABS_BOUND, float32_rel_l2=f"{check['float32']['rel_l2']:.3g}")
+    if not check["bf16"]["rel_l2"] <= MEDIUM_BF16_REL_L2_BOUND:
+        raise AssertionError(f"card bf16 emotion2vec disagrees with the CPU: {check['bf16']}")
+    if not check["float32"]["max_abs"] <= MEDIUM_F32_MAX_ABS_BOUND:
+        raise AssertionError(f"card float32 emotion2vec disagrees with the CPU: {check['float32']}")
+    say("research-encoder-wall", seconds=f"{time.perf_counter() - phase_started:.1f}")
+    return {"k2_per_encode": k2_per, "audio_s_per_s": repeats * n_chunks * 30.0 / elapsed}
+
+
+def phase_research_infer(cache_root: Path) -> dict:
+    """``api.infer(profile="accurate-research")`` on the staged checkpoint: three clips cold and
+    warm behind the opened gate, one request with the gate shut, and a float32 retry."""
+    import torch
+
+    import ser_tpu_torch.api as api
+    from ser_tpu_torch._internal.config.artifact_naming import profile_artifact_file_name
+    from ser_tpu_torch._internal.config.bootstrap import build_settings
+    from ser_tpu_torch._internal.repr import encoders
+    from ser_tpu_torch._internal.runtime.errors import UnsupportedProfileError
+    from ser_tpu_torch.models import attention
+
+    phase_started = time.perf_counter()
+    root = cache_root.parent
+    artifact = root / "models" / profile_artifact_file_name(profile="accurate-research", model_id=RESEARCH_MODEL_ID)
+    _write_head_envelope(artifact, feature_size=2 * 1024, backend_id="emotion2vec", profile="accurate-research",
+                         model_id=RESEARCH_MODEL_ID)
+    clips = []
+    for index, seconds in enumerate((10.0, 45.0, 75.0)):
+        clip = root / f"research_clip_{int(seconds)}s.wav"
+        _write_clip(clip, seconds, 48000, seed=20 + index)
+        clips.append((clip, seconds))
+    # No consent recorded anywhere this run could read: only the env allowlist opens the gate.
+    os.environ["SER_RESTRICTED_BACKENDS_CONSENT_FILE"] = str(root / "no_consent.json")
+    env = {"SER_MODELS_FOLDER": str(root / "models"), "SER_CACHE_DIR": str(cache_root)}
+    gated = {**env, "SER_ENABLE_RESTRICTED_BACKENDS": "1", "SER_ALLOWED_RESTRICTED_BACKENDS": "emotion2vec"}
+    settings = build_settings(gated)
+
+    def run(clip: Path, run_settings=settings):
+        started = time.perf_counter()
+        execution = api.infer(clip, profile="accurate-research", include_transcript=False, settings=run_settings)
+        torch.cuda.synchronize()
+        return execution, time.perf_counter() - started
+
+    try:
+        attention.COUNTER.launches = 0
+        attention.F32_COUNTER.launches = 0
+        launches = {}
+        executions = [run(clip) for clip, _ in clips]
+        launches["bf16_requests"] = {"flash_attention_fwd": attention.COUNTER.launches,
+                                     "flash_attention_f32": attention.F32_COUNTER.launches}
+        warm = [run(clip)[1] for clip, _ in clips]
+        backend = encoders.build_encoder_backend("accurate-research", settings)
+        loaded_depth = backend._config.conv_pos_depth
+
+        refused = None
+        try:
+            run(clips[0][0], build_settings(env))
+        except UnsupportedProfileError as err:
+            refused = str(err)
+
+        calls = []
+        encode = backend._encode_batch
+
+        def planted(batch, lengths):
+            out = encode(batch, lengths)
+            calls.append(str(backend.dtype))
+            return out * float("nan") if len(calls) == 1 else out
+
+        backend._encode_batch = planted
+        before = attention.F32_COUNTER.launches
+        retry_execution, retry_s = run(clips[0][0])
+        launches["retry_request"] = attention.F32_COUNTER.launches - before
+        launches["per_float32_encode"] = launches["retry_request"] / max(1, calls.count("torch.float32"))
+    finally:
+        del os.environ["SER_RESTRICTED_BACKENDS_CONSENT_FILE"]
+
+    for (execution, cold_s), warm_s, (clip, seconds) in zip(executions, warm, clips):
+        _check_segments(execution, clip, seconds, "emotion2vec")
+        say("research-infer", clip=clip.name, seconds=seconds, cold_latency_s=f"{cold_s:.4f}",
+            warm_latency_s=f"{warm_s:.4f}", frames=len(execution.detailed_result.frames),
+            segments=len(execution.detailed_result.segments),
+            labels=json.dumps(sorted({s.emotion for s in execution.detailed_result.segments})))
+    _check_segments(retry_execution, clips[0][0], clips[0][1], "emotion2vec")
+    say("research-infer-gate", flag_off_refused=refused is not None, loaded_pos_convs=loaded_depth,
+        error=json.dumps((refused or "")[:100]))
+    say("research-infer-retry", clip=clips[0][0].name, latency_s=f"{retry_s:.4f}", encode_dtypes=json.dumps(calls),
+        k2_f32_launches=launches["retry_request"], backend_dtype_after=str(backend.dtype))
+    say("research-infer-launches", **{key: json.dumps(value) for key, value in launches.items()})
+    say("research-infer-wall", seconds=f"{time.perf_counter() - phase_started:.1f}")
+    if loaded_depth != RESEARCH_POS_DEPTH:
+        raise AssertionError(f"the backend did not load the staged checkpoint (positional depth {loaded_depth})")
+    if refused is None:
+        raise AssertionError("a request with the restricted-backend flag off was not refused")
+    if launches["bf16_requests"] != {"flash_attention_fwd": RESEARCH_BLOCKS * len(clips), "flash_attention_f32": 0}:
+        raise AssertionError(f"bf16 research requests launched {launches['bf16_requests']}, expected K2=72")
+    if calls != ["torch.bfloat16", "torch.float32"] or launches["per_float32_encode"] != RESEARCH_BLOCKS:
+        raise AssertionError(f"the float32 retry did not run through K2-f32: {calls}, {launches['retry_request']}")
+    return launches
+
+
+def _fast_families(card, cpu) -> dict[str, float]:
+    """Per family, the card's largest error over its golden tolerance (above 1: outside)."""
+    import numpy as np
+
+    ratios = {}
+    for family, (cols, atol) in FAST_FAMILIES.items():
+        reference = cpu[:, cols].astype(np.float64)
+        limit = FAST_RTOL * np.abs(reference) + atol * max(1.0, float(np.abs(reference).max()))
+        ratios[family] = float((np.abs(card[:, cols] - reference) / limit).max())
+    return ratios
+
+
+def _check_fast_execution(execution, clip: Path, seconds: float) -> None:
+    """Frames every second to the clip's end, merged segments in order, finite probabilities."""
+    frames, segments = execution.detailed_result.frames, execution.detailed_result.segments
+    if execution.backend_id != "handcrafted" or len(frames) != math.ceil(seconds):
+        raise AssertionError(f"fast request on {clip.name}: backend {execution.backend_id}, {len(frames)} frames")
+    if segments[0].start_seconds != 0.0 or abs(segments[-1].end_seconds - seconds) > 0.05:
+        raise AssertionError(f"segments of {clip.name} do not cover it")
+    if [s.emotion for s in segments] != [f.emotion for i, f in enumerate(frames) if i == 0 or frames[i - 1].emotion != f.emotion]:
+        raise AssertionError(f"segments of {clip.name} are not the merged runs of its frames")
+    if not all(math.isfinite(p) for frame in frames for p in frame.probabilities.values()):
+        raise AssertionError(f"non-finite probabilities for {clip.name}")
+
+
+def phase_fast_infer() -> dict:
+    """``api.infer(profile="fast")`` on three clips cold and warm (handcrafted features on the card),
+    the card's frame features held to the CPU route's, with a planted fault the limits must catch."""
+    import torch
+
+    import ser_tpu_torch.api as api
+    from ser_tpu_torch._internal.config.bootstrap import build_settings
+    from ser_tpu_torch._internal.utils.audio_io import read_audio_file
+    from ser_tpu_torch.ops import dsp, features
+
+    phase_started = time.perf_counter()
+    scratch_root = REPO / "build"
+    scratch_root.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch_root, prefix="chip_smoke_") as tmp:
+        root = Path(tmp)
+        _write_head_envelope(root / "models" / "ser_model.pkl", feature_size=193, backend_id="handcrafted",
+                             profile="fast", model_id=None)
+        clips = []
+        for index, seconds in enumerate((10.0, 45.0, 75.0)):
+            clip = root / f"clip_{int(seconds)}s.wav"
+            _write_clip(clip, seconds, 48000, seed=30 + index)
+            clips.append((clip, seconds))
+        settings = build_settings({"SER_MODELS_FOLDER": str(root / "models"), "SER_CACHE_DIR": str(root / "cache")})
+
+        def run(clip: Path):
+            started = time.perf_counter()
+            execution = api.infer(clip, profile="fast", include_transcript=False, settings=settings)
+            torch.cuda.synchronize()
+            return execution, time.perf_counter() - started
+
+        executions = [run(clip) for clip, _ in clips]
+        warm = [run(clip)[1] for clip, _ in clips]
+        breakdown = _profile(lambda: run(clips[1][0]), "fast-infer")
+        audio, sample_rate = read_audio_file(str(clips[1][0]))
+
+    def card_features():
+        out, _, _ = features.extract_frame_features(audio, sample_rate, device="cuda")
+        torch.cuda.synchronize()
+        return out
+
+    card = card_features()
+    started = time.perf_counter()
+    cpu, _, _ = features.extract_frame_features(audio, sample_rate, device="cpu")
+    cpu_s = time.perf_counter() - started
+    ratios = _fast_families(card, cpu)
+    # Planted fault: the frame means taken over every column, the padded ones of a
+    # truncated frame too (the column mask dropped).
+    masked_mean = dsp.masked_mean_cols
+    dsp.masked_mean_cols = lambda values, col_mask: values.mean(dim=-1)
+    try:
+        fault = _fast_families(card_features(), cpu)
+    finally:
+        dsp.masked_mean_cols = masked_mean
+    # Informational: the projections in TF32 (the port keeps them float32).
+    float32_products = dsp._float32_products
+    allow_tf32 = torch.backends.cuda.matmul.allow_tf32
+    dsp._float32_products = lambda device: contextlib.nullcontext()
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = _fast_families(card_features(), cpu)
+    finally:
+        dsp._float32_products = float32_products
+        torch.backends.cuda.matmul.allow_tf32 = allow_tf32
+
+    for (execution, cold_s), warm_s, (clip, seconds) in zip(executions, warm, clips):
+        _check_fast_execution(execution, clip, seconds)
+        say("fast-infer", clip=clip.name, seconds=seconds, cold_latency_s=f"{cold_s:.4f}",
+            warm_latency_s=f"{warm_s:.4f}", frames=len(execution.detailed_result.frames),
+            segments=len(execution.detailed_result.segments),
+            labels=json.dumps(sorted({s.emotion for s in execution.detailed_result.segments})))
+    say("fast-infer-profile", clip=clips[1][0].name, detail=breakdown)
+    shown = lambda reading: json.dumps({family: f"{value:.3g}" for family, value in reading.items()})  # noqa: E731
+    say("fast-infer-features", clip=clips[1][0].name, frames=card.shape[0], cpu_route_s=f"{cpu_s:.3f}",
+        error_over_limit=shown(ratios), planted_unmasked_mean=shown(fault), tf32_products=shown(tf32))
+    say("fast-infer-wall", seconds=f"{time.perf_counter() - phase_started:.1f}")
+    if card.shape != cpu.shape or max(ratios.values()) > 1.0:
+        raise AssertionError(f"the card's fast features disagree with the CPU route: {ratios}")
+    if max(fault.values()) <= 1.0:
+        raise AssertionError(f"the golden tolerances missed the planted fault: {fault}")
+    return {"warm_latency_s": warm, "error_over_limit": ratios}
 
 
 def _train_head(config, n_classes: int = 8) -> dict:
@@ -2403,6 +2792,14 @@ def main() -> int:
         medium_encode = phase_medium_encoder()
         phase = "medium-infer"
         medium = phase_medium_infer()
+        (REPO / "build").mkdir(exist_ok=True)
+        with tempfile.TemporaryDirectory(dir=REPO / "build", prefix="chip_smoke_research_") as staging:
+            phase = "research-encoder"
+            research_encode = phase_research_encoder(Path(staging) / "cache")
+            phase = "research-infer"
+            research = phase_research_infer(Path(staging) / "cache")
+        phase = "fast-infer"
+        phase_fast_infer()
     except Exception:
         traceback.print_exc()
         print(f"chip_smoke: FAILED in phase {phase}", file=sys.stderr)
@@ -2418,12 +2815,17 @@ def main() -> int:
               medium_launches=medium["bf16_requests"]["flash_attention_fwd"],
               medium_launches_per_encode=medium_encode["k2_per_encode"],
               medium_masked_ms=k2_medium["30s"]["masked_ms"], medium_unmasked_ms=k2_medium["30s"]["unmasked_ms"],
-              medium_15s_masked_ms=k2_medium["15s"]["masked_ms"], medium_rel_l2_err=k2_medium["30s"]["rel_l2_err"])
-    # K2-f32: launches of the medium-infer path (its float32 request and its retry).
+              medium_15s_masked_ms=k2_medium["15s"]["masked_ms"], medium_rel_l2_err=k2_medium["30s"]["rel_l2_err"],
+              research_launches=research["bf16_requests"]["flash_attention_fwd"],
+              research_launches_per_encode=research_encode["k2_per_encode"])
+    # K2-f32: launches of the medium-infer path (its float32 request and its retry);
+    # research_*: K2's of research-infer's three bf16 requests, K2-f32's of its retry.
     k2_f32.update(launches=medium["total"]["flash_attention_f32"],
                   launches_per_float32_encode=medium["per_float32_encode"],
                   launches_per_float32_request=medium["float32_request"],
-                  launches_per_retry_request=medium["retry_request"])
+                  launches_per_retry_request=medium["retry_request"],
+                  research_retry_launches=research["retry_request"],
+                  research_launches_per_float32_encode=research["per_float32_encode"])
     for kernel in (k3, k4, k5):
         kernel.update(launches=transcribe["launches"][kernel["name"]],
                       launches_per_decode=decode["launches_per_decode"][kernel["name"]],

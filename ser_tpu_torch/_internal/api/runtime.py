@@ -1,7 +1,7 @@
 """Internal runtime API: profile override and the inference workflow.
 
 Counterpart of ``ser_tpu/_internal/api/runtime.py`` (``apply_cli_profile_override``
-and ``infer``) for the ported profiles.
+and ``infer``), for the four profiles.
 """
 
 from __future__ import annotations
@@ -11,7 +11,7 @@ from pathlib import Path
 
 from ser_tpu_torch._internal.config.schema import AppConfig
 from ser_tpu_torch._internal.runtime.pipeline import create_runtime_pipeline
-from ser_tpu_torch.profiles import PORTED_PROFILES, PROFILE_NAMES, ProfileName, require_ported
+from ser_tpu_torch.profiles import PROFILE_NAMES, ProfileName, require_ported
 from ser_tpu_torch.runtime.contracts import InferenceExecution, InferenceRequest, SubtitleFormat
 
 def apply_cli_profile_override(settings: AppConfig, profile: ProfileName | None) -> AppConfig:
@@ -27,8 +27,6 @@ def apply_cli_profile_override(settings: AppConfig, profile: ProfileName | None)
         accurate_profile=profile == "accurate",
         accurate_research_profile=profile == "accurate-research",
     )
-    if profile not in PORTED_PROFILES:  # the pipeline refuses it
-        return dataclasses.replace(settings, runtime_flags=flags)
     tx_defaults = require_ported(profile).transcription_defaults
     transcription = dataclasses.replace(
         settings.transcription,

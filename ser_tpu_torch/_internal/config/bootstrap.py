@@ -1,21 +1,25 @@
 """Environment capture into the port's settings snapshot.
 
 Counterpart of ``ser_tpu/_internal/config/{settings_inputs,settings_builder,
-bootstrap}.py`` for the fields the medium and accurate inference paths read.
+bootstrap}.py`` for the fields the four profiles' inference paths read.
 The same ``SER_*`` variables are honoured with the same meaning, so one
 environment configures both packages: ``SER_ENABLE_MEDIUM_PROFILE``,
-``SER_ENABLE_ACCURATE_PROFILE``, ``SER_MODELS_FOLDER`` (alias
-``SER_MODELS_DIR``), ``SER_CACHE_DIR``, ``SER_DATA_DIR``,
+``SER_ENABLE_ACCURATE_PROFILE``, ``SER_ENABLE_ACCURATE_RESEARCH_PROFILE``,
+``SER_ENABLE_RESTRICTED_BACKENDS``, ``SER_ALLOWED_RESTRICTED_BACKENDS``
+(comma-separated), ``SER_MODELS_FOLDER`` (alias ``SER_MODELS_DIR``),
+``SER_MODEL_FILE_NAME``, ``SER_CACHE_DIR``, ``SER_DATA_DIR``,
 ``SER_MODEL_CACHE_DIR``, ``SER_MEDIUM_MODEL_ID``, ``SER_ACCURATE_MODEL_ID``,
-``SER_OUTPUT_SCHEMA_VERSION``, ``SER_TORCH_DEVICE``, ``SER_TORCH_DTYPE``,
-``SER_DEFAULT_LANGUAGE``, ``SER_TMP_FOLDER`` (alias ``SER_TMP_DIR``), the
-``SER_MEDIUM_<KNOB>`` and ``SER_ACCURATE_<KNOB>`` runtime overrides, and the
-transcript lane's
+``SER_ACCURATE_RESEARCH_MODEL_ID``, ``SER_OUTPUT_SCHEMA_VERSION``,
+``SER_TORCH_DEVICE``, ``SER_TORCH_DTYPE``, ``SER_DEFAULT_LANGUAGE``,
+``SER_TMP_FOLDER`` (alias ``SER_TMP_DIR``), the ``SER_<PROFILE>_<KNOB>``
+runtime overrides of the four profiles, and the transcript lane's
 ``WHISPER_BACKEND``, ``WHISPER_MODEL``, ``WHISPER_DEMUCS``, ``WHISPER_VAD``,
 ``WHISPER_DECODE_STRATEGY`` and ``SER_SEPARATION_MODEL_PATH``.
 ``SER_ALLOW_RANDOM_INIT`` / ``SER_RANDOM_INIT_SIZE`` are read where the
-weights are resolved, and ``SER_DEVICE_POOLING`` where the medium profile
-encodes, as in the JAX package.
+weights are resolved, ``SER_DEVICE_POOLING`` where the medium profile
+encodes, ``SER_FAST_DEVICE_FRAMING`` where the fast profile frames its clip,
+and ``SER_RESTRICTED_BACKENDS_CONSENT_FILE`` where consent is read, as in the
+JAX package.
 """
 
 from __future__ import annotations
@@ -106,6 +110,8 @@ def build_settings(env: Mapping[str, str] | None = None) -> AppConfig:
             model_cache_dir=model_cache_dir,
             medium_model_id=_str(env, "SER_MEDIUM_MODEL_ID"),
             accurate_model_id=_str(env, "SER_ACCURATE_MODEL_ID"),
+            accurate_research_model_id=_str(env, "SER_ACCURATE_RESEARCH_MODEL_ID"),
+            model_file_name=_str(env, "SER_MODEL_FILE_NAME"),
         ),
     )
 
@@ -115,6 +121,10 @@ def build_settings(env: Mapping[str, str] | None = None) -> AppConfig:
         medium_profile=bool(_bool(env, "SER_ENABLE_MEDIUM_PROFILE")),
         accurate_profile=bool(_bool(env, "SER_ENABLE_ACCURATE_PROFILE")),
         accurate_research_profile=bool(_bool(env, "SER_ENABLE_ACCURATE_RESEARCH_PROFILE")),
+        restricted_backends=bool(_bool(env, "SER_ENABLE_RESTRICTED_BACKENDS")),
+        allowed_restricted_backends=tuple(
+            item.strip() for item in (_str(env, "SER_ALLOWED_RESTRICTED_BACKENDS") or "").split(",") if item.strip()
+        ),
     )
 
     def runtime_for(prefix: str, runtime):
@@ -154,8 +164,10 @@ def build_settings(env: Mapping[str, str] | None = None) -> AppConfig:
         base,
         models=models,
         runtime_flags=flags,
+        fast_runtime=runtime_for("SER_FAST", base.fast_runtime),
         medium_runtime=runtime_for("SER_MEDIUM", base.medium_runtime),
         accurate_runtime=runtime_for("SER_ACCURATE", base.accurate_runtime),
+        accurate_research_runtime=runtime_for("SER_ACCURATE_RESEARCH", base.accurate_research_runtime),
         schema=schema,
         torch_runtime=torch_runtime,
         transcription=transcription,

@@ -2,9 +2,9 @@
 
 Counterpart of ``ser_tpu/_internal/config/schema.py``. Field names, defaults
 and the platform cache/data directories are the JAX package's, so one
-environment configures both packages alike. Only the sections the medium and
-accurate profiles' inference paths and their transcript lane read are here;
-the full settings builder is later work (``ROADMAP.md``).
+environment configures both packages alike. Only the sections the four
+profiles' inference paths, their transcript lane and the restricted-backend
+gate read are here; the full settings builder is later work (``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -18,6 +18,8 @@ from ser_tpu_torch.profiles import ProfileName, ProfileRuntimeDefaults, require_
 from ser_tpu_torch.runtime.schema import OUTPUT_SCHEMA_VERSION
 
 APP_NAME = "ser"
+#: The fast profile's head artifact (``artifact_naming.FAST_MODEL_FILE_NAME``).
+DEFAULT_FAST_MODEL_FILE_NAME = "ser_model.pkl"
 
 
 def _platform_cache_base_dir() -> Path:
@@ -44,9 +46,20 @@ def default_data_root() -> Path:
     return _platform_data_base_dir() / APP_NAME
 
 
-def default_profile_model_id(profile: ProfileName) -> str:
-    """The catalog's default model id for one ported profile."""
+def default_profile_model_id(profile: ProfileName) -> str | None:
+    """The catalog's default model id for one profile (None for the fast profile)."""
     return require_ported(profile).default_model_id
+
+
+@dataclass(frozen=True)
+class FeatureFlags:
+    """Handcrafted feature-group toggles (the fast profile's 193 features with all on)."""
+
+    mfcc: bool = True
+    chroma: bool = True
+    mel: bool = True
+    contrast: bool = True
+    tonnetz: bool = True
 
 
 @dataclass(frozen=True)
@@ -77,11 +90,25 @@ class ModelsConfig:
     model_cache_dir: Path = field(default_factory=lambda: default_cache_root() / "model-cache")
     medium_model_id: str = field(default_factory=lambda: default_profile_model_id("medium"))
     accurate_model_id: str = field(default_factory=lambda: default_profile_model_id("accurate"))
+    accurate_research_model_id: str = field(
+        default_factory=lambda: default_profile_model_id("accurate-research")
+    )
+    model_file_name: str = DEFAULT_FAST_MODEL_FILE_NAME
     whisper_model: WhisperModelConfig = field(default_factory=WhisperModelConfig)
+
+    @property
+    def model_file(self) -> Path:
+        """The fast profile's head artifact."""
+        return self.folder / self.model_file_name
 
     @property
     def huggingface_cache_root(self) -> Path:
         return self.model_cache_dir / "huggingface"
+
+    @property
+    def modelscope_cache_root(self) -> Path:
+        """ModelScope hub cache, where FunASR checkpoints (the emotion2vec family) are staged."""
+        return self.model_cache_dir / "modelscope" / "hub"
 
     @property
     def whisper_download_root(self) -> Path:
@@ -115,12 +142,15 @@ class TranscriptionConfig:
 
 @dataclass(frozen=True)
 class RuntimeFlags:
-    """Profile enable flags."""
+    """Profile enable flags and the restricted-backend gate."""
 
     profile_pipeline: bool = False
     medium_profile: bool = False
     accurate_profile: bool = False
     accurate_research_profile: bool = False
+    restricted_backends: bool = False
+    #: ``SER_ALLOWED_RESTRICTED_BACKENDS``: an env allowlist honoured in place of recorded consent.
+    allowed_restricted_backends: tuple[str, ...] = ()
 
 
 @dataclass(frozen=True)
@@ -149,9 +179,14 @@ class AppConfig:
     audio_read: AudioReadConfig = field(default_factory=AudioReadConfig)
     models: ModelsConfig = field(default_factory=ModelsConfig)
     runtime_flags: RuntimeFlags = field(default_factory=RuntimeFlags)
+    feature_flags: FeatureFlags = field(default_factory=FeatureFlags)
+    fast_runtime: ProfileRuntimeDefaults = field(default_factory=lambda: require_ported("fast").runtime_defaults)
     medium_runtime: ProfileRuntimeDefaults = field(default_factory=lambda: require_ported("medium").runtime_defaults)
     accurate_runtime: ProfileRuntimeDefaults = field(
         default_factory=lambda: require_ported("accurate").runtime_defaults
+    )
+    accurate_research_runtime: ProfileRuntimeDefaults = field(
+        default_factory=lambda: require_ported("accurate-research").runtime_defaults
     )
     schema: SchemaConfig = field(default_factory=SchemaConfig)
     torch_runtime: TorchRuntimeConfig = field(default_factory=TorchRuntimeConfig)
@@ -161,17 +196,29 @@ class AppConfig:
 
     def profile_runtime(self, profile: ProfileName) -> ProfileRuntimeDefaults:
         require_ported(profile)
-        return {"medium": self.medium_runtime, "accurate": self.accurate_runtime}[profile]
+        return {
+            "fast": self.fast_runtime,
+            "medium": self.medium_runtime,
+            "accurate": self.accurate_runtime,
+            "accurate-research": self.accurate_research_runtime,
+        }[profile]
 
-    def profile_model_id(self, profile: ProfileName) -> str:
-        """The model id the profile's backend loads (the settings override the catalog's)."""
+    def profile_model_id(self, profile: ProfileName) -> str | None:
+        """The model id the profile's backend loads (the settings override the catalog's; None for fast)."""
         require_ported(profile)
-        return {"medium": self.models.medium_model_id, "accurate": self.models.accurate_model_id}[profile]
+        return {
+            "fast": None,
+            "medium": self.models.medium_model_id,
+            "accurate": self.models.accurate_model_id,
+            "accurate-research": self.models.accurate_research_model_id,
+        }[profile]
 
 
 __all__ = [
     "AppConfig",
     "AudioReadConfig",
+    "DEFAULT_FAST_MODEL_FILE_NAME",
+    "FeatureFlags",
     "ModelsConfig",
     "RuntimeFlags",
     "SchemaConfig",

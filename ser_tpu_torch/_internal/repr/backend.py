@@ -18,6 +18,7 @@ from numpy.typing import NDArray
 type EmbeddingMatrix = NDArray[np.float32]
 type TimeVector = NDArray[np.float64]
 type FeatureMatrix = NDArray[np.float64]
+type FeatureVector = NDArray[np.float64]
 type WindowMask = NDArray[np.bool_]
 
 
@@ -148,6 +149,7 @@ __all__ = [
     "EncodedSequence",
     "FeatureBackend",
     "FeatureMatrix",
+    "FeatureVector",
     "PoolingWindow",
     "TimeVector",
     "WindowMask",

@@ -127,7 +127,7 @@ class XlsrBackend:
         non-finite result: the retry AND every later encode run in float32)."""
         if self._dtype == torch.float32:
             return
-        logger.warning("%s: resetting runtime to float32 after non-finite output.", BACKEND_ID)
+        logger.warning("%s: resetting runtime to float32 after non-finite output.", self.backend_id)
         state = {name: tensor.float() for name, tensor in self._model.state_dict().items()}
         self._dtype = torch.float32
         self._model = wav2vec2.build_wav2vec2_encoder(
@@ -159,7 +159,7 @@ class XlsrBackend:
             sample_rate,
             encode_batch=self._encode_batch,
             frames_for_length=self._frames_for_length,
-            backend_id=BACKEND_ID,
+            backend_id=self.backend_id,
             float32_encode_batch=self._float32_encode_batch,
         )
 
@@ -169,7 +169,7 @@ class XlsrBackend:
             clips,
             encode_batch=self._encode_batch,
             frames_for_length=self._frames_for_length,
-            backend_id=BACKEND_ID,
+            backend_id=self.backend_id,
             float32_encode_batch=self._float32_encode_batch,
         )
 

@@ -70,7 +70,9 @@ class RuntimePipeline:
                 if hook is None:
                     raise UnsupportedProfileError(
                         f"Profile {profile!r} backend {backend_id!r} has no hook: the profile "
-                        f"is not enabled (SER_ENABLE_{profile.upper().replace('-', '_')}_PROFILE=1).",
+                        f"is not enabled (SER_ENABLE_{profile.upper().replace('-', '_')}_PROFILE=1), "
+                        "or its restricted backend is gated (SER_ENABLE_RESTRICTED_BACKENDS=1 and "
+                        "recorded consent or SER_ALLOWED_RESTRICTED_BACKENDS).",
                         profile=profile,
                     )
             with phases.timed_phase(phases.PHASE_EMOTION_INFERENCE, timings):

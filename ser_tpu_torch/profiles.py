@@ -1,14 +1,14 @@
 """Runtime profile catalog of the PyTorch port, held as Python data.
 
 Counterpart of ``ser_tpu/profiles.py`` + ``ser_tpu/profile_defs.yaml``. The
-port reads no YAML: the ``medium`` and ``accurate`` entries are written out
-here with the same ``backend_id``, default model id, runtime and
-transcription defaults as the JAX catalog (``profile_defs.yaml``), so
-artifacts trained by either package load in the other. The other profiles are
-named (``ProfileName``) but not yet ported; asking for one raises
-``NotImplementedError`` (see ``ROADMAP.md``). The catalog's
-``feature_runtime_defaults`` are not read at run time, in either package: the
-runtime policy resolves the dtype (``_internal/repr/runtime_policy.py``).
+port reads no YAML: the four entries (``fast``, ``medium``, ``accurate``,
+``accurate-research``) are written out here with the same ``backend_id``,
+default model id, runtime and transcription defaults as the JAX catalog
+(``profile_defs.yaml``), so artifacts trained by either package load in the
+other. The catalog's ``feature_runtime_defaults`` are not read at run time,
+in either package: the runtime policy resolves the device and dtype
+(``_internal/repr/runtime_policy.py``), so the fast profile, whose entry says
+``device: cpu``, runs on the card like the others.
 """
 
 from __future__ import annotations
@@ -24,8 +24,6 @@ PROFILE_NAMES: tuple[ProfileName, ...] = ("fast", "medium", "accurate", "accurat
 #: > medium > fast (as ``ser_tpu.profiles.PROFILE_PRECEDENCE``).
 PROFILE_PRECEDENCE: tuple[ProfileName, ...] = ("accurate-research", "accurate", "medium", "fast")
 
-#: Profiles the port runs so far.
-PORTED_PROFILES: tuple[ProfileName, ...] = ("medium", "accurate")
 
 
 @dataclass(frozen=True)
@@ -65,12 +63,38 @@ class ProfileSpec:
 
     name: ProfileName
     backend_id: str
-    default_model_id: str
+    default_model_id: str | None
     runtime_defaults: ProfileRuntimeDefaults
     transcription_defaults: ProfileTranscriptionDefaults
 
 
+#: The postprocessing defaults every profile shares (``_shared_postproc``).
+_SHARED_POSTPROCESSING = {
+    "pool_window_size_seconds": 1.0,
+    "pool_window_stride_seconds": 1.0,
+    "post_smoothing_window_frames": 3,
+    "post_hysteresis_enter_confidence": 0.60,
+    "post_hysteresis_exit_confidence": 0.45,
+    "post_min_segment_duration_seconds": 0.40,
+}
+
 _CATALOG: dict[ProfileName, ProfileSpec] = {
+    "fast": ProfileSpec(
+        name="fast",
+        backend_id="handcrafted",
+        default_model_id=None,
+        runtime_defaults=ProfileRuntimeDefaults(
+            timeout_seconds=0.0,
+            max_timeout_retries=0,
+            max_transient_retries=0,
+            retry_backoff_seconds=0.0,
+            **_SHARED_POSTPROCESSING,
+            process_isolation=False,
+        ),
+        transcription_defaults=ProfileTranscriptionDefaults(
+            backend_id="jax_whisper", model_name="distil-large-v3", use_demucs=False, use_vad=True
+        ),
+    ),
     "medium": ProfileSpec(
         name="medium",
         backend_id="jax_xlsr",
@@ -80,12 +104,7 @@ _CATALOG: dict[ProfileName, ProfileSpec] = {
             max_timeout_retries=1,
             max_transient_retries=1,
             retry_backoff_seconds=0.25,
-            pool_window_size_seconds=1.0,
-            pool_window_stride_seconds=1.0,
-            post_smoothing_window_frames=3,
-            post_hysteresis_enter_confidence=0.60,
-            post_hysteresis_exit_confidence=0.45,
-            post_min_segment_duration_seconds=0.40,
+            **_SHARED_POSTPROCESSING,
             process_isolation=False,
         ),
         transcription_defaults=ProfileTranscriptionDefaults(
@@ -101,12 +120,23 @@ _CATALOG: dict[ProfileName, ProfileSpec] = {
             max_timeout_retries=0,
             max_transient_retries=1,
             retry_backoff_seconds=0.25,
-            pool_window_size_seconds=1.0,
-            pool_window_stride_seconds=1.0,
-            post_smoothing_window_frames=3,
-            post_hysteresis_enter_confidence=0.60,
-            post_hysteresis_exit_confidence=0.45,
-            post_min_segment_duration_seconds=0.40,
+            **_SHARED_POSTPROCESSING,
+            process_isolation=False,
+        ),
+        transcription_defaults=ProfileTranscriptionDefaults(
+            backend_id="jax_whisper", model_name="large", use_demucs=True, use_vad=True
+        ),
+    ),
+    "accurate-research": ProfileSpec(
+        name="accurate-research",
+        backend_id="emotion2vec",
+        default_model_id="iic/emotion2vec_plus_large",
+        runtime_defaults=ProfileRuntimeDefaults(
+            timeout_seconds=120.0,
+            max_timeout_retries=0,
+            max_transient_retries=1,
+            retry_backoff_seconds=0.25,
+            **_SHARED_POSTPROCESSING,
             process_isolation=False,
         ),
         transcription_defaults=ProfileTranscriptionDefaults(
@@ -117,14 +147,9 @@ _CATALOG: dict[ProfileName, ProfileSpec] = {
 
 
 def require_ported(profile: ProfileName) -> ProfileSpec:
-    """The catalog entry of one profile; raises for a profile not yet ported."""
-    if profile not in PROFILE_NAMES:
-        raise ValueError(f"Unknown profile {profile!r}. Expected one of {PROFILE_NAMES}.")
+    """The catalog entry of one profile; raises ``ValueError`` for an unknown name."""
     if profile not in _CATALOG:
-        raise NotImplementedError(
-            f"Profile {profile!r} is not ported to ser_tpu_torch yet; see ROADMAP.md "
-            "(Queue 1). Use ser_tpu for it."
-        )
+        raise ValueError(f"Unknown profile {profile!r}. Expected one of {PROFILE_NAMES}.")
     return _CATALOG[profile]
 
 
@@ -148,7 +173,6 @@ def resolve_profile_name(
 
 
 __all__ = [
-    "PORTED_PROFILES",
     "PROFILE_NAMES",
     "PROFILE_PRECEDENCE",
     "ProfileName",

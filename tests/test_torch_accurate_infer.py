@@ -179,11 +179,12 @@ def test_auto_device_raises_without_a_card(staged) -> None:
         {"subtitle_format": "srt"},
         {"save_transcript": True},
         {"subtitle_output_path": "out.srt"},
-        {"profile": "fast"},
-        {"profile": "accurate-research"},
+        {"profile": "fast", "subtitle_format": "vtt"},
+        {"profile": "accurate-research", "save_transcript": True},
     ],
 )
 def test_unported_options_raise(staged, options) -> None:
+    """CSV and subtitle export raise in every profile (the fast and accurate-research profiles run since they were ported)."""
     kwargs = {"profile": "accurate", **options}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         torch_api.infer(staged["clip"], settings=build_settings(staged["env"]), **kwargs)

@@ -127,6 +127,25 @@ def test_medium_lane_module_is_imported(fresh_import, module: str) -> None:
     assert module in fresh_import["imported"]
 
 
+#: The accurate-research and fast profiles' modules: imported in the fresh interpreter like every other.
+RESEARCH_AND_FAST_MODULES = (
+    "ser_tpu_torch._internal.runtime.restricted_backends",
+    "ser_tpu_torch.models.emotion2vec_convert",
+    "ser_tpu_torch._internal.repr.emotion2vec_backend",
+    "ser_tpu_torch.ops.dsp",
+    "ser_tpu_torch.ops.features",
+    "ser_tpu_torch._internal.features",
+    "ser_tpu_torch._internal.repr.handcrafted",
+    "ser_tpu_torch._internal.models.emotion_model",
+    "ser_tpu_torch._internal.runtime.fast_boundary",
+)
+
+
+@pytest.mark.parametrize("module", RESEARCH_AND_FAST_MODULES)
+def test_research_and_fast_module_is_imported(fresh_import, module: str) -> None:
+    assert module in fresh_import["imported"]
+
+
 def test_port_import_loads_no_tokenizer_library(fresh_import) -> None:
     """``transformers`` is imported only inside ``from_pretrained_dir``."""
     assert not [name for name in fresh_import["added"] if name.split(".")[0] == "transformers"]

@@ -364,7 +364,7 @@ def test_medium_without_a_card_or_a_cpu_request_raises(staged) -> None:
 def test_medium_catalog_entry_and_settings_match_ser_tpu() -> None:
     ours = profiles.require_ported("medium")
     reference = jax_profiles.get_profile_catalog()["medium"]
-    assert "medium" in profiles.PORTED_PROFILES
+    assert "medium" in profiles.PROFILE_NAMES
     assert ours.backend_id == reference.backend_id == "jax_xlsr"
     assert ours.default_model_id == reference.model.default_model_id == MODEL_ID
     assert vars(ours.runtime_defaults) == vars(reference.runtime_defaults)
