@@ -93,9 +93,29 @@ per source, in parallel), then, one phase per line:
     group, and the card's frame features of the 45 s clip held to the CPU
     route's at the golden tolerances family by family, with a planted fault
     (frame means over padded columns) they must catch, and the same features
-    with TF32 products for information.
+    with TF32 products for information;
+13. ``beam``: ``transcribe_words`` by beam search (5 beams, 10 rows) on the
+    60 s clip at the 96-token budget, cold and warm, with its spans (encode,
+    beam decode, the teacher-forced alignment pass, the alignment reduction,
+    DTW), ms per beam step and launches (K1 1, K2 32, K3-K5 0); beam-1
+    against the unfused greedy decode token for token; the teacher-forced
+    capture against the greedy loop's own; and the beamed step (2-layer
+    full-width decoder) on the card against float32 on the CPU, with a
+    planted fault (every row reading window 0's cross K/V) it must catch;
+14. ``int8-decode``: ``torch._int_mm`` on the card against the CPU's exact
+    int32 product at 2 and 10 rows for the QKV and the padded vocabulary
+    projections (and which operand layouts and shapes the card accepts), the
+    W8A8 step's logits against the bf16 step's over 8 positions (correlation
+    above 0.99; a planted dequant without the activation scale must fall
+    below), and ``transcribe_words`` on the int8 stream at the 96-token budget
+    (no K3-K5 launch);
+15. ``int8-encoder``: the W8A8 encoder on 8 windows (ms per encode,
+    audio-s/s, TOPS on its product operations), its states against the bf16
+    encoder's (cosine at least 0.995; the planted fault must fall below), and
+    ``api.infer(profile="accurate")`` with ``SER_TORCH_DTYPE=int8`` on three
+    clips (K1 1 and K2 32 per encode).
 
-Phases 5-12 set the launch counts of the kernels they run to 0 just before
+Phases 5-15 set the launch counts of the kernels they run to 0 just before
 their run and read them just after; K1's two forms count apart, and the
 main path must launch the fused form once per encode and the spectrum form
 never.
@@ -245,6 +265,20 @@ DECODE_LOGITS_REL_L2_BOUND = 5e-2
 # versions on the CPU, logits of the first 8 steps, same weights and inputs
 # (about 3x the 0.0063 measured).
 DECODE_CHECK_REL_L2_BOUND = 2e-2
+# The transcript lane's beam and int8 phases: the 96-token budget (bench.py:469-475).
+TRANSCRIPT_BUDGET = 96
+# alignment_forward's capture (teacher-forced, full causal attention) over the
+# greedy winners against the unfused greedy loop's own capture, bf16 at full
+# width, 2 windows, the 32 default alignment heads: rel L2 over the valid rows.
+# The two sum in another order in bf16: 0.00281 measured on an H100 (max abs
+# 2.4e-5), and the limit is about 3.5x that.
+ALIGN_CAPTURE_REL_L2_BOUND = 1e-2
+# The W8A8 decode step's logits against the bf16 unfused step's, per row and
+# position: the JAX package's pin (tests/suites/unit/models/test_decode_int8.py).
+INT8_LOGITS_CORRELATION_BOUND = 0.99
+# The int8 encoder's states against the bf16 encoder's, same weights: the JAX
+# package's pin (tests/suites/unit/models/test_quant_dense.py:101-119).
+INT8_ENCODER_COSINE_BOUND = 0.995
 # Bytes of weight copies cycled through when timing a decode-step kernel: the
 # decode reads 32 layers' weights per step, far more than the 50 MB L2, so
 # each call finds its weights in device memory, not in L2.
@@ -2630,6 +2664,529 @@ def _split_step(encoder, optimizer, head, opt_state, wave, label) -> dict:
     }
 
 
+# --------------------------------------------------------------------------- #
+# The rest of the transcript lane and the int8 lanes: beam, int8-decode, int8-encoder
+# --------------------------------------------------------------------------- #
+
+
+def _spans_around(spans: dict, patches: list[tuple[object, str]]) -> list[tuple[object, str, object]]:
+    """Replaces each ``module.name`` by a wrapper that adds its synchronized host time to ``spans[name]``;
+    returns what to restore."""
+    import torch
+
+    restore = []
+    for module, name in patches:
+        original = getattr(module, name)
+
+        def wrapper(*args, _fn=original, _name=name, **kwargs):
+            torch.cuda.synchronize()
+            started = time.perf_counter()
+            result = _fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            spans[_name] = spans.get(_name, 0.0) + time.perf_counter() - started
+            return result
+
+        setattr(module, name, wrapper)
+        restore.append((module, name, original))
+    return restore
+
+
+def _restore(restore) -> None:
+    for module, name, original in restore:
+        setattr(module, name, original)
+
+
+def _count_steps(counts: dict, module) -> object:
+    """Counts calls of ``module._decoder_token_step`` (no synchronize); returns the original."""
+    original = module._decoder_token_step
+
+    def counting(*args, **kwargs):
+        counts["steps"] = counts.get("steps", 0) + 1
+        return original(*args, **kwargs)
+
+    module._decoder_token_step = counting
+    return original
+
+
+def _transcription_model(**options):
+    """Full-width large-v3 with the transcribe phase's seeded weights, bf16, no retries, 96-token budget."""
+    import dataclasses
+
+    import torch
+
+    from ser_tpu_torch.models import whisper as wm
+
+    config = wm.WhisperConfig()
+    cuda = torch.device("cuda")
+    model = wm.WhisperForTranscription(
+        config,
+        wm.random_whisper_encoder_state(config, seed=0, device=cuda),
+        wm.random_whisper_decoder_state(config, seed=2, device=cuda),
+        SyntheticTokenizer(),
+        device=cuda,
+        compute_dtype="bfloat16",
+        **options,
+    )
+    # Random weights always look degenerate: retries would repeat the same work (bench.py:499-501).
+    model.RETRY_TEMPERATURES = ()
+    model.config = dataclasses.replace(config, max_target_positions=TRANSCRIPT_BUDGET)
+    return model
+
+
+def _clip_60s():
+    import numpy as np
+
+    return (0.2 * np.random.default_rng(0).standard_normal(int(60.0 * 16000))).astype(np.float32)
+
+
+def _check_words(words, seconds: float) -> None:
+    starts = [w.start_seconds for w in words]
+    if not words or any(not (0.0 <= w.start_seconds < w.end_seconds <= seconds + 1e-6) for w in words):
+        raise AssertionError(f"transcript words are missing or outside the clip: {words[:3]}")
+    if starts != sorted(starts):
+        raise AssertionError("transcript word starts are not in order")
+
+
+def _run_transcript(model, audio, counters, spans, decode_module, *, cold: bool = True) -> dict:
+    """A cold (unless ``cold`` is False) and a warm ``transcribe_words`` call: the launches of the
+    first, the spans and steps of the warm one."""
+    import torch
+
+    def run():
+        spans.clear()
+        steps: dict = {}
+        original = _count_steps(steps, decode_module)
+        try:
+            started = time.perf_counter()
+            words = model.transcribe_words(audio, language="en", use_vad=False)
+            torch.cuda.synchronize()
+            return words, time.perf_counter() - started, steps.get("steps", 0)
+        finally:
+            decode_module._decoder_token_step = original
+
+    for counter in counters:
+        counter.launches = 0
+    first = run()
+    launches = {c.name: c.launches for c in counters}
+    words, warm, steps = run() if cold else first
+    return {"words": words, "cold": first[1] if cold else None, "warm": warm, "steps": steps, "launches": launches,
+            "spans": dict(spans)}
+
+
+def _beam_step_check(states_cpu, planted) -> tuple[float, float]:
+    """2-layer full-width decoder, the beamed step (2 windows × 5 beams = 10 rows) in lockstep
+    over 8 positions: bf16 on the card against float32 on the CPU, rel L2 of the logits, and
+    the same with ``planted`` in place of the beamed cross-attention on the card. The CPU
+    route picks each row's next token (the row's rank among the CPU's top 5), so the rows'
+    histories differ."""
+    import torch
+
+    from ser_tpu_torch.models import whisper as wm
+    from ser_tpu_torch.models import whisper_decode as wd
+
+    beams, steps = 5, 8
+    config = wm.WhisperConfig(decoder_layers=2)
+    state = wm.random_whisper_decoder_state(config, seed=5, device="cpu")
+    state["pos_embed"] = torch.randn(state["pos_embed"].shape, generator=torch.Generator().manual_seed(6)) * 0.02
+    card = wm.build_whisper_decoder(config, state, device=torch.device("cuda"), dtype=torch.bfloat16)
+    routes = {
+        "cpu": (wm.build_whisper_decoder(config, state, device=torch.device("cpu"), dtype=torch.float32),
+                states_cpu, torch.float32, None),
+        "card": (card, states_cpu.cuda(), torch.bfloat16, None),
+        "planted": (card, states_cpu.cuda(), torch.bfloat16, planted),
+    }
+    rows = states_cpu.shape[0] * beams
+    tokens = torch.full((rows, steps), EOT, dtype=torch.long)
+    tokens[:, :3] = torch.tensor(PREFIX)
+    logits = {}
+    original = wd._attend_cross_step_beamed
+    with torch.inference_mode():
+        for name, (decoder, states, dtype, replacement) in routes.items():
+            if replacement is not None:
+                wd._attend_cross_step_beamed = replacement
+            try:
+                weights = wd.prepare_decode_weights(decoder, config, fused=False)
+                cross = wd._precompute_cross_kv(decoder, states, 2, config.n_heads, dtype)
+                head_dim, max_len = config.d_model // config.n_heads, config.max_target_positions
+                caches = (
+                    [torch.zeros((rows, config.n_heads, head_dim, max_len), dtype=dtype, device=states.device) for _ in range(2)],
+                    [torch.zeros((rows, config.n_heads, max_len, head_dim), dtype=dtype, device=states.device) for _ in range(2)],
+                )
+                out = []
+                for position in range(steps):
+                    step_logits, _ = wd._decoder_token_step(
+                        decoder, weights, *cross, *caches, tokens[:, position].to(states.device), position,
+                        config=config, compute_dtype=dtype, beams=beams,
+                    )
+                    out.append(step_logits.float().cpu())
+                    if name == "cpu" and position + 1 < steps and position + 1 >= 3:
+                        ranked = torch.topk(step_logits, beams, dim=-1).indices
+                        tokens[:, position + 1] = ranked[torch.arange(rows), torch.arange(rows) % beams]
+            finally:
+                wd._attend_cross_step_beamed = original
+            logits[name] = torch.stack(out)
+    return rel_l2(logits["card"], logits["cpu"]), rel_l2(logits["planted"], logits["cpu"])
+
+
+def phase_beam() -> dict:
+    """``transcribe_words(decode_strategy="beam", beam_size=5)`` on the 60 s clip at full width, and its checks."""
+    import dataclasses
+
+    import torch
+
+    from ser_tpu_torch.models import attention, word_timing
+    from ser_tpu_torch.models import whisper as wm
+    from ser_tpu_torch.models import whisper_decode as wd
+    from ser_tpu_torch.ops import decode_step_kernels as dsk
+    from ser_tpu_torch.ops import log_mel
+
+    phase_started = time.perf_counter()
+    model = _transcription_model(decode_strategy="beam", beam_size=5)
+    torch.cuda.synchronize()
+    say("beam-build", seconds=f"{time.perf_counter() - phase_started:.2f}")
+    audio = _clip_60s()
+    counters = (log_mel.FUSED_COUNTER, log_mel.COUNTER, attention.COUNTER, *dsk.COUNTERS)
+    spans: dict[str, float] = {}
+    restore = _spans_around(spans, [
+        (wm, "encode_mel_chunks"), (wd, "beam_decode_kv_cache"), (wd, "alignment_forward"),
+        (wd, "reduce_alignment_matrix"), (word_timing, "word_timings_from_matrix"),
+    ])
+    try:
+        run = _run_transcript(model, audio, counters, spans, wd)
+    finally:
+        _restore(restore)
+    launches, words = run["launches"], run["words"]
+    ms_per_step = run["spans"]["beam_decode_kv_cache"] / run["steps"] * 1e3
+    say("beam", clip_seconds=60.0, windows=2, beam_size=5, rows=10, token_budget=TRANSCRIPT_BUDGET,
+        cold_latency_s=f"{run['cold']:.4f}", warm_latency_s=f"{run['warm']:.4f}", words=len(words),
+        beam_steps=run["steps"], ms_per_beam_step=f"{ms_per_step:.4f}",
+        warm_spans_s=json.dumps({k: round(v, 4) for k, v in run["spans"].items()}), launches=json.dumps(launches))
+    _check_words(words, 60.0)
+    expected = {"stft_power_mel_log": 1, "power_mel_log": 0, "flash_attention_fwd": model.config.encoder_layers,
+                **{c.name: 0 for c in dsk.COUNTERS}}
+    if launches != expected:
+        raise AssertionError(f"beam transcript launches {launches}, expected {expected}")
+
+    # The same encoder states: beam-1 against the card's unfused greedy, and the
+    # teacher-forced capture against the greedy loop's own.
+    chunks = torch.from_numpy(audio.reshape(2, wm.CHUNK_SAMPLES)).cuda()
+    states = wm.encode_mel_chunks(model.encoder, chunks)
+    kwargs = dict(prefix_len=3, compute_dtype=torch.bfloat16, timestamp_begin=TIMESTAMP_BEGIN, weights=model.decode_weights())
+    beam_tokens, beam_lengths = wd.beam_decode_kv_cache(model.decoder, model.config, states, PREFIX, EOT, beam_size=1, **kwargs)
+    greedy_tokens, greedy_lengths, loop_align = wd.greedy_decode_kv_cache(
+        model.decoder, model.config, states, PREFIX, EOT, fused=False, align_spec=model.alignment_heads, **kwargs
+    )
+    differ = (beam_tokens != greedy_tokens).any(dim=0).nonzero()
+    say("beam-one", rows=2, lengths=beam_lengths.tolist(), greedy_lengths=greedy_lengths.tolist(),
+        equal=bool(torch.equal(beam_tokens, greedy_tokens) and torch.equal(beam_lengths, greedy_lengths)),
+        first_differing_position=int(differ[0].item()) if differ.numel() else None)
+    if not (torch.equal(beam_tokens, greedy_tokens) and torch.equal(beam_lengths, greedy_lengths)):
+        raise AssertionError("beam_size=1 differs from the unfused greedy decode")
+    short = dataclasses.replace(model.config, max_target_positions=16)
+    breakdown = _profile(lambda: wd.beam_decode_kv_cache(model.decoder, short, states, PREFIX, EOT, beam_size=5, **kwargs),
+                         "beam")
+    say("beam-profile", budget=16, detail=breakdown)
+    forced = wd.alignment_forward(model.decoder, model.config, states, greedy_tokens, align_spec=model.alignment_heads,
+                                  compute_dtype=torch.bfloat16)
+    valid = [min(3 + int(n), TRANSCRIPT_BUDGET - 1) for n in greedy_lengths.tolist()]
+    got = torch.cat([forced[b, :, : valid[b]].flatten() for b in range(2)])
+    want = torch.cat([loop_align[b, :, : valid[b]].flatten() for b in range(2)])
+    align_rel = rel_l2(got, want)
+    say("beam-alignment", heads=len(model.alignment_heads), rows=valid, rel_l2=f"{align_rel:.5f}",
+        max_abs=f"{(got - want).abs().max().item():.3g}", bound=ALIGN_CAPTURE_REL_L2_BOUND)
+    if not align_rel <= ALIGN_CAPTURE_REL_L2_BOUND:
+        raise AssertionError(f"alignment_forward's capture differs from the loop's: rel L2 {align_rel}")
+
+    beamed = wd._attend_cross_step_beamed
+
+    def planted(q, k_t, v_hs, *, beams, compute_dtype):  # every row attends window 0's states
+        return beamed(q, k_t[:1].expand_as(k_t), v_hs[:1].expand_as(v_hs), beams=beams, compute_dtype=compute_dtype)
+
+    # The second window's states negated: noise windows give rows nearly the same
+    # cross-attention output, and a row that read the other window's K/V would not show.
+    states_cpu = states.float().cpu() * torch.tensor([1.0, -1.0])[:, None, None]
+    del model, states, forced, loop_align
+    torch.cuda.empty_cache()
+    step_rel, planted_rel = _beam_step_check(states_cpu, planted)
+    say("beam-check", layers=2, rows=10, steps=8, logits_rel_l2=f"{step_rel:.5f}", bound=DECODE_CHECK_REL_L2_BOUND,
+        planted_window_zero_cross_kv_rel_l2=f"{planted_rel:.5f}")
+    if not step_rel <= DECODE_CHECK_REL_L2_BOUND:
+        raise AssertionError(f"the card's beamed step disagrees with the CPU: rel L2 {step_rel}")
+    if not planted_rel > DECODE_CHECK_REL_L2_BOUND:
+        raise AssertionError(f"the planted cross-attention fault went unnoticed: rel L2 {planted_rel}")
+    say("beam-phase", seconds=f"{time.perf_counter() - phase_started:.1f}")
+    return {"launches": launches, "ms_per_beam_step": ms_per_step, "warm_latency_s": run["warm"]}
+
+
+def _without_activation_scale(dense_int8):
+    """A planted int8 fault: the per-token activation scale left out of the dequant (acc × wscale + bias)."""
+    import torch
+
+    from ser_tpu_torch.models import quant
+
+    def planted(weight, x, dtype):
+        _, ascale = quant.quantize_rows(x)
+        bias = 0.0 if weight.bias is None else weight.bias.float()
+        return ((dense_int8(weight, x, torch.float32) - bias) / ascale + bias).to(dtype)
+
+    return planted
+
+
+def _int8_step_correlation(model, states, *, positions: int = 8) -> float:
+    """Lowest correlation, over rows and positions, of the W8A8 step's logits with the bf16
+    unfused step's, both fed the bf16 route's greedy tokens."""
+    import torch
+
+    from ser_tpu_torch.models import whisper_decode as wd
+
+    config, weights = model.config, model.decode_weights()
+    n_layers, heads = config.decoder_layers, config.n_heads
+    head_dim, rows = config.d_model // heads, states.shape[0]
+    tokens = torch.full((rows, positions + 1), EOT, dtype=torch.long, device=states.device)
+    tokens[:, :3] = torch.tensor(PREFIX, device=states.device)
+    worst = 1.0
+    with torch.inference_mode():
+        cross = wd._precompute_cross_kv(model.decoder, states, n_layers, heads, torch.bfloat16)
+        caches = {
+            quantized: (
+                [torch.zeros((rows, heads, head_dim, config.max_target_positions), dtype=torch.bfloat16,
+                             device=states.device) for _ in range(n_layers)],
+                [torch.zeros((rows, heads, config.max_target_positions, head_dim), dtype=torch.bfloat16,
+                             device=states.device) for _ in range(n_layers)],
+            )
+            for quantized in (False, True)
+        }
+        for position in range(positions):
+            logits = {}
+            for quantized, (self_k, self_v) in caches.items():
+                logits[quantized], _ = wd._decoder_token_step(
+                    model.decoder, weights, *cross, self_k, self_v, tokens[:, position], position,
+                    config=config, compute_dtype=torch.bfloat16, quant=weights.quant if quantized else None,
+                )
+            a = logits[False].double() - logits[False].double().mean(dim=-1, keepdim=True)
+            b = logits[True].double() - logits[True].double().mean(dim=-1, keepdim=True)
+            worst = min(worst, ((a * b).sum(-1) / (a.norm(dim=-1) * b.norm(dim=-1))).min().item())
+            if position + 1 >= 3:
+                tokens[:, position + 1] = torch.argmax(logits[False], dim=-1)
+    return worst
+
+
+def phase_int8_decode(decode: dict) -> dict:
+    """The int8 decode weight stream (``SER_DECODE_INT8=1``) at full width: ``torch._int_mm`` against the
+    CPU's exact product, the W8A8 step against the bf16 step, and ``transcribe_words`` on it."""
+    import dataclasses
+
+    import torch
+
+    from ser_tpu_torch.models import attention, quant, word_timing
+    from ser_tpu_torch.models import whisper as wm
+    from ser_tpu_torch.models import whisper_decode as wd
+    from ser_tpu_torch.ops import decode_step_kernels as dsk
+    from ser_tpu_torch.ops import log_mel
+
+    phase_started = time.perf_counter()
+    config = wm.WhisperConfig()
+    generator = torch.Generator().manual_seed(11)
+    # The QKV projection (1280 → 3840) and the vocabulary projection (1280 → 51866, stored as 51872).
+    for label, n in (("qkv", 3 * config.d_model), ("vocab", config.vocab_size)):
+        kernel = torch.randn((config.d_model, n), generator=generator) * 0.02
+        weight_cpu, weight_card = quant.Int8Weight(kernel, None), quant.Int8Weight(kernel.cuda(), None)
+        if not (torch.equal(weight_card.w8.cpu(), weight_cpu.w8) and torch.equal(weight_card.scale.cpu(), weight_cpu.scale)):
+            raise AssertionError(f"{label}: the card quantized the weights differently from the CPU")
+        for rows in (2, 10):
+            a8 = torch.randint(-127, 128, (rows, config.d_model), dtype=torch.int8, generator=generator)
+            card = quant.int8_product(a8.cuda(), weight_card).cpu()
+            exact = torch._int_mm(a8, weight_cpu.w8.contiguous())
+            equal = bool(torch.equal(card, exact))
+            say("int8-matmul", projection=label, rows=rows, k=config.d_model, n=n,
+                n_stored=weight_card.padded.shape[1], equal=equal)
+            if not equal:
+                raise AssertionError(f"torch._int_mm on the card differs from the exact product ({label}, {rows} rows)")
+    layouts = {}
+    a8 = torch.randint(-127, 128, (32, config.d_model), dtype=torch.int8, generator=generator).cuda()
+    for layout, b8 in (("column-major", weight_card.padded), ("row-major", weight_card.padded.contiguous())):
+        try:
+            layouts[layout] = bool(torch.equal(torch._int_mm(a8, b8), torch._int_mm(a8, weight_card.padded)))
+        except RuntimeError as err:
+            layouts[layout] = f"refused: {str(err).splitlines()[0][:80]}"
+    try:
+        torch._int_mm(a8[:2], weight_card.padded)
+        unpadded = "accepted"
+    except RuntimeError as err:
+        unpadded = f"refused: {str(err).splitlines()[0][:80]}"
+    say("int8-matmul-layouts", **{k.replace("-", "_"): v for k, v in layouts.items()}, unpadded_two_rows=json.dumps(unpadded))
+
+    model = _transcription_model(decode_int8=True)
+    weights = model.decode_weights()
+    if weights.quant is None or weights.fused is not None:
+        raise AssertionError("the int8 model did not prepare the int8 weight stream alone")
+    audio = _clip_60s()
+    states = wm.encode_mel_chunks(model.encoder, torch.from_numpy(audio.reshape(2, wm.CHUNK_SAMPLES)).cuda())
+    correlation = _int8_step_correlation(model, states)
+    wd.dense_int8 = _without_activation_scale(quant.dense_int8)
+    try:
+        planted = _int8_step_correlation(model, states)
+    finally:
+        wd.dense_int8 = quant.dense_int8
+    say("int8-decode-check", layers=config.decoder_layers, rows=2, positions=8,
+        min_logit_correlation=f"{correlation:.5f}", bound=INT8_LOGITS_CORRELATION_BOUND,
+        planted_no_activation_scale_correlation=f"{planted:.5f}")
+    if not correlation > INT8_LOGITS_CORRELATION_BOUND:
+        raise AssertionError(f"int8 step logits correlate {correlation} with bf16, not above {INT8_LOGITS_CORRELATION_BOUND}")
+    if not planted <= INT8_LOGITS_CORRELATION_BOUND:
+        raise AssertionError(f"the planted int8 fault went unnoticed: correlation {planted}")
+    short = dataclasses.replace(model.config, max_target_positions=16)
+    breakdown = _profile(lambda: wd.greedy_decode_kv_cache(
+        model.decoder, short, states, PREFIX, EOT, prefix_len=3, compute_dtype=torch.bfloat16,
+        timestamp_begin=TIMESTAMP_BEGIN, quant_int8=True, weights=weights), "int8-decode")
+    say("int8-decode-profile", budget=16, detail=breakdown)
+
+    counters = (log_mel.FUSED_COUNTER, log_mel.COUNTER, attention.COUNTER, *dsk.COUNTERS)
+    spans: dict[str, float] = {}
+    restore = _spans_around(spans, [(wm, "encode_mel_chunks"), (wd, "greedy_decode_kv_cache"),
+                                    (word_timing, "word_timings_from_matrix")])
+    try:
+        # The encode and the int8 decode have run above (the checks, the profile): one warm call.
+        run = _run_transcript(model, audio, counters, spans, wd, cold=False)
+    finally:
+        _restore(restore)
+    launches, words = run["launches"], run["words"]
+    ms_per_step = run["spans"]["greedy_decode_kv_cache"] / run["steps"] * 1e3
+    say("int8-decode", clip_seconds=60.0, windows=2, token_budget=TRANSCRIPT_BUDGET,
+        warm_latency_s=f"{run['warm']:.4f}", words=len(words),
+        steps=run["steps"], ms_per_step=f"{ms_per_step:.4f}",
+        bf16_unfused_ms_per_step=f"{decode['unfused_ms_per_step']:.4f}",
+        bf16_fused_ms_per_step=f"{decode['fused_ms_per_step']:.4f}",
+        warm_spans_s=json.dumps({k: round(v, 4) for k, v in run["spans"].items()}), launches=json.dumps(launches))
+    _check_words(words, 60.0)
+    expected = {"stft_power_mel_log": 1, "power_mel_log": 0, "flash_attention_fwd": config.encoder_layers,
+                **{c.name: 0 for c in dsk.COUNTERS}}
+    if launches != expected:
+        raise AssertionError(f"int8 transcript launches {launches}, expected {expected}")
+    del model, weights, states
+    torch.cuda.empty_cache()
+    say("int8-decode-phase", seconds=f"{time.perf_counter() - phase_started:.1f}")
+    return {"launches": launches, "ms_per_step": ms_per_step}
+
+
+def _projection_ops(config, n_windows: int) -> float:
+    """2·MACs of the encoder's W8A8 products (q, k, v, out and both MLP products) at 1500 states."""
+    t, d = 1500, config.d_model
+    return 2.0 * config.encoder_layers * (4 * t * d * d + 2 * t * d * 4 * d) * n_windows
+
+
+def phase_int8_encoder() -> dict:
+    """The int8 encoder (``SER_TORCH_DTYPE=int8``) at full width on 8 windows, its states against
+    bf16's, and ``api.infer(profile="accurate")`` on three clips with it."""
+    import numpy as np
+    import torch
+
+    import ser_tpu_torch.api as api
+    from ser_tpu_torch._internal.config.artifact_naming import profile_artifact_file_name
+    from ser_tpu_torch._internal.config.bootstrap import build_settings
+    from ser_tpu_torch.models import attention, quant
+    from ser_tpu_torch.models import whisper as wm
+    from ser_tpu_torch.ops import log_mel
+
+    phase_started = time.perf_counter()
+    config = wm.WhisperConfig()
+    cuda = torch.device("cuda")
+    state = wm.random_whisper_encoder_state(config, seed=0, device=cuda)
+    encoders = {
+        "int8": wm.build_whisper_encoder(config, state, device=cuda, dtype=torch.bfloat16, quant_int8=True),
+        "bf16": wm.build_whisper_encoder(config, state, device=cuda, dtype=torch.bfloat16),
+    }
+    del state
+    n_windows, repeats = 8, 3
+    rng = np.random.default_rng(0)
+    chunks = torch.from_numpy((0.1 * rng.standard_normal((n_windows, wm.CHUNK_SAMPLES))).astype(np.float32)).to(cuda)
+    readings, states = {}, {}
+    for label, encoder in encoders.items():
+        states[label] = wm.encode_mel_chunks(encoder, chunks)  # warm-up
+        for counter in (log_mel.FUSED_COUNTER, log_mel.COUNTER, attention.COUNTER):
+            counter.launches = 0
+        torch.cuda.synchronize()
+        started = time.perf_counter()
+        for _ in range(repeats):
+            wm.encode_mel_chunks(encoder, chunks)
+        torch.cuda.synchronize()
+        elapsed = (time.perf_counter() - started) / repeats
+        readings[label] = {"ms_per_encode": elapsed * 1e3, "audio_s_per_s": n_windows * 30.0 / elapsed,
+                           "k1_per_encode": log_mel.FUSED_COUNTER.launches / repeats,
+                           "k1_spectrum_per_encode": log_mel.COUNTER.launches / repeats,
+                           "k2_per_encode": attention.COUNTER.launches / repeats}
+    tops = _projection_ops(config, n_windows) / (readings["int8"]["ms_per_encode"] / 1e3) / 1e12
+    a, b = states["int8"].double().flatten(), states["bf16"].double().flatten()
+    cosine = (a @ b / (a.norm() * b.norm())).item()
+    dense_int8 = quant.dense_int8
+    quant.dense_int8 = _without_activation_scale(dense_int8)
+    try:
+        planted = wm.encode_mel_chunks(encoders["int8"], chunks).double().flatten()
+    finally:
+        quant.dense_int8 = dense_int8
+    planted_cosine = (planted @ b / (planted.norm() * b.norm())).item()
+    say("int8-encoder", windows=n_windows, repeats=repeats,
+        ms_per_encode=f"{readings['int8']['ms_per_encode']:.2f}", audio_s_per_s=f"{readings['int8']['audio_s_per_s']:.1f}",
+        product_tops=f"{tops:.1f}", bf16_ms_per_encode=f"{readings['bf16']['ms_per_encode']:.2f}",
+        cosine_to_bf16=f"{cosine:.6f}", bound=INT8_ENCODER_COSINE_BOUND,
+        planted_no_activation_scale_cosine=f"{planted_cosine:.5f}",
+        k1_per_encode=readings["int8"]["k1_per_encode"], k1_spectrum_form_per_encode=readings["int8"]["k1_spectrum_per_encode"],
+        k2_per_encode=readings["int8"]["k2_per_encode"])
+    if (readings["int8"]["k1_per_encode"], readings["int8"]["k1_spectrum_per_encode"], readings["int8"]["k2_per_encode"]) != (1, 0, config.encoder_layers):
+        raise AssertionError(f"int8 encode launches {readings['int8']}, expected K1 1, spectrum form 0, K2 one a layer")
+    if not cosine >= INT8_ENCODER_COSINE_BOUND:
+        raise AssertionError(f"int8 encoder states: cosine {cosine} to bf16, below {INT8_ENCODER_COSINE_BOUND}")
+    if not planted_cosine < INT8_ENCODER_COSINE_BOUND:
+        raise AssertionError(f"the planted int8 fault went unnoticed: cosine {planted_cosine}")
+    say("int8-encoder-profile", detail=_profile(lambda: wm.encode_mel_chunks(encoders["int8"], chunks), "int8-encoder"))
+    del encoders, states, planted
+    torch.cuda.empty_cache()
+
+    scratch_root = REPO / "build"
+    scratch_root.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch_root, prefix="chip_smoke_") as tmp:
+        root = Path(tmp)
+        artifact = root / "models" / profile_artifact_file_name(profile="accurate", model_id="openai/whisper-large-v3")
+        _write_head_envelope(artifact, feature_size=2 * config.d_model)
+        clips = []
+        for index, seconds in enumerate((10.0, 45.0, 75.0)):
+            clip = root / f"clip_{int(seconds)}s.wav"
+            _write_clip(clip, seconds, 48000, seed=index)
+            clips.append((clip, seconds))
+        os.environ["SER_ALLOW_RANDOM_INIT"] = "1"
+        os.environ["SER_RANDOM_INIT_SIZE"] = "full"
+        settings = build_settings({
+            "SER_ENABLE_ACCURATE_PROFILE": "1",
+            "SER_MODELS_FOLDER": str(root / "models"),
+            "SER_CACHE_DIR": str(root / "cache"),
+            "SER_TORCH_DTYPE": "int8",
+        })
+
+        def run(clip: Path):
+            started = time.perf_counter()
+            execution = api.infer(clip, profile="accurate", include_transcript=False, settings=settings)
+            torch.cuda.synchronize()
+            return execution, time.perf_counter() - started
+
+        counters = (log_mel.FUSED_COUNTER, log_mel.COUNTER, attention.COUNTER)
+        for counter in counters:
+            counter.launches = 0
+        executions = [run(clip) for clip, _ in clips]
+        launches = {c.name: c.launches for c in counters}
+        warm = [run(clip)[1] for clip, _ in clips]
+    for (execution, cold_s), warm_s, (clip, seconds) in zip(executions, warm, clips):
+        _check_segments(execution, clip, seconds, "jax_whisper_encoder")
+        say("int8-infer", clip=clip.name, seconds=seconds, cold_latency_s=f"{cold_s:.4f}", warm_latency_s=f"{warm_s:.4f}",
+            segments=len(execution.detailed_result.segments))
+    expected = {"stft_power_mel_log": len(clips), "power_mel_log": 0,
+                "flash_attention_fwd": config.encoder_layers * len(clips)}
+    say("int8-infer-launches", **launches)
+    if launches != expected:
+        raise AssertionError(f"int8 infer launches {launches}, expected {expected}")
+    say("int8-encoder-phase", seconds=f"{time.perf_counter() - phase_started:.1f}")
+    return {"encode": readings, "tops": tops, "cosine": cosine, "infer_launches": launches}
+
+
 def phase_train() -> dict:
     import numpy as np
     import torch
@@ -2800,6 +3357,12 @@ def main() -> int:
             research = phase_research_infer(Path(staging) / "cache")
         phase = "fast-infer"
         phase_fast_infer()
+        phase = "beam"
+        beam = phase_beam()
+        phase = "int8-decode"
+        int8_decode = phase_int8_decode(decode)
+        phase = "int8-encoder"
+        int8_encoder = phase_int8_encoder()
     except Exception:
         traceback.print_exc()
         print(f"chip_smoke: FAILED in phase {phase}", file=sys.stderr)
@@ -2833,6 +3396,12 @@ def main() -> int:
     # K2-bwd: launches of the timed train call (3 steps).
     k2_bwd.update(launches=train["launches"]["flash_attention_bwd"],
                   launches_per_step=train["launches_per_step"]["flash_attention_bwd"])
+    # The transcript lane's beam route and the int8 lanes: launches of the cold beam
+    # and int8 transcripts (one 2-window encode each) and of the three int8 api.infer requests.
+    for kernel in (k1["fused"], k1["spectrum"], k2, k3, k4, k5):
+        kernel.update(beam_launches=beam["launches"].get(kernel["name"], 0),
+                      int8_decode_launches=int8_decode["launches"].get(kernel["name"], 0),
+                      int8_infer_launches=int8_encoder["infer_launches"].get(kernel["name"], 0))
     print(json.dumps({"kernels": [k1["fused"], k1["spectrum"], k2, k2_f32, k2_bwd, k3, k4, k5]}))
     print(env["smi"])
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,9 +12,13 @@ environment configures both packages: ``SER_ENABLE_MEDIUM_PROFILE``,
 ``SER_ACCURATE_RESEARCH_MODEL_ID``, ``SER_OUTPUT_SCHEMA_VERSION``,
 ``SER_TORCH_DEVICE``, ``SER_TORCH_DTYPE``, ``SER_DEFAULT_LANGUAGE``,
 ``SER_TMP_FOLDER`` (alias ``SER_TMP_DIR``), the ``SER_<PROFILE>_<KNOB>``
-runtime overrides of the four profiles, and the transcript lane's
-``WHISPER_BACKEND``, ``WHISPER_MODEL``, ``WHISPER_DEMUCS``, ``WHISPER_VAD``,
-``WHISPER_DECODE_STRATEGY`` and ``SER_SEPARATION_MODEL_PATH``.
+runtime overrides of the four profiles (``SER_<PROFILE>_PROCESS_ISOLATION``
+among them), and the transcript lane's ``WHISPER_BACKEND``, ``WHISPER_MODEL``,
+``WHISPER_DEMUCS``, ``WHISPER_VAD``, ``WHISPER_DECODE_STRATEGY``,
+``WHISPER_BEAM_SIZE`` (1-16), ``WHISPER_LENGTH_PENALTY`` (finite, 0-5),
+``SER_TRANSCRIPTION_HBM_HARD_OOM_SHORTCUT`` (alias ``..._MPS_...``) and
+``SER_SEPARATION_MODEL_PATH``. ``SER_DECODE_INT8`` is read where the
+transcription model is built, as in the JAX package.
 ``SER_ALLOW_RANDOM_INIT`` / ``SER_RANDOM_INIT_SIZE`` are read where the
 weights are resolved, ``SER_DEVICE_POOLING`` where the medium profile
 encodes, ``SER_FAST_DEVICE_FRAMING`` where the fast profile frames its clip,
@@ -25,6 +29,7 @@ JAX package.
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
 from collections.abc import Callable, Mapping
 from pathlib import Path
@@ -83,6 +88,7 @@ _KNOB_READERS = {
     "post_hysteresis_enter_confidence": _number(float),
     "post_hysteresis_exit_confidence": _number(float),
     "post_min_segment_duration_seconds": _number(float),
+    "process_isolation": _bool,
 }
 
 
@@ -147,6 +153,16 @@ def build_settings(env: Mapping[str, str] | None = None) -> AppConfig:
     decode_strategy = _str(env, "WHISPER_DECODE_STRATEGY")
     if decode_strategy is not None and decode_strategy not in ("greedy", "beam"):
         raise SettingsInputError(f"WHISPER_DECODE_STRATEGY must be 'greedy' or 'beam', got {decode_strategy!r}.")
+    beam_size = _number(int)(env, "WHISPER_BEAM_SIZE")
+    if beam_size is not None and not 1 <= beam_size <= 16:
+        raise SettingsInputError("WHISPER_BEAM_SIZE must be in [1, 16].")
+    length_penalty = _number(float)(env, "WHISPER_LENGTH_PENALTY")
+    # A negative penalty makes the shortest hypothesis always win, and a non-finite one poisons every score.
+    if length_penalty is not None and not (math.isfinite(length_penalty) and 0.0 <= length_penalty <= 5.0):
+        raise SettingsInputError("WHISPER_LENGTH_PENALTY must be finite and in [0, 5].")
+    hard_oom_shortcut = _bool(env, "SER_TRANSCRIPTION_HBM_HARD_OOM_SHORTCUT")
+    if hard_oom_shortcut is None:
+        hard_oom_shortcut = _bool(env, "SER_TRANSCRIPTION_MPS_HARD_OOM_SHORTCUT")
     transcription = dataclasses.replace(
         base.transcription,
         **_changes(
@@ -154,6 +170,9 @@ def build_settings(env: Mapping[str, str] | None = None) -> AppConfig:
             use_demucs=_bool(env, "WHISPER_DEMUCS"),
             use_vad=_bool(env, "WHISPER_VAD"),
             decode_strategy=decode_strategy,
+            beam_size=beam_size,
+            length_penalty=length_penalty,
+            hbm_hard_oom_shortcut_enabled=hard_oom_shortcut,
             separation_model_path=_path(env, "SER_SEPARATION_MODEL_PATH"),
         ),
     )

@@ -129,7 +129,10 @@ class TranscriptionConfig:
     use_demucs: bool = False
     use_vad: bool = True
     decode_strategy: str = "greedy"
+    beam_size: int = 5
+    length_penalty: float = 1.0
     hbm_admission_control_enabled: bool = True
+    hbm_hard_oom_shortcut_enabled: bool = True
     hbm_admission_min_headroom_mb: float = 256.0
     hbm_admission_safety_margin_mb: float = 256.0
     calibration_overrides_enabled: bool = True
@@ -137,7 +140,9 @@ class TranscriptionConfig:
     calibration_report_max_age_hours: float = 168.0
     calibration_report_path: Path | None = None
     separation_model_path: Path | None = None
+    #: Honoured on the CPU only (``_internal/transcript/process_isolation.py``).
     process_isolation: bool = False
+    isolation_timeout_seconds: float = 600.0
 
 
 @dataclass(frozen=True)

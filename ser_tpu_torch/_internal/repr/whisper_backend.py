@@ -4,7 +4,10 @@ Counterpart of ``ser_tpu/_internal/repr/whisper_backend.py``, with the same
 ``backend_id`` (``jax_whisper_encoder``) so head artifacts load in both
 packages. All 30 s windows of a clip go through the encoder in one batched
 call; the frame and timestamp arithmetic stays on the host in float64 and is
-bit-identical to the JAX backend's.
+bit-identical to the JAX backend's. ``dtype="int8"`` is the opt-in W8A8
+lane: the projection products in int8 (``models/quant.py``, quantized once
+when the encoder is built), everything else in bf16 on the card (float32 on
+the CPU), as the JAX backend runs it.
 """
 
 from __future__ import annotations
@@ -45,16 +48,15 @@ class WhisperEncoderBackend:
         device: torch.device,
         dtype: str = "float32",
     ) -> None:
-        if dtype not in ("float32", "bfloat16"):
-            raise NotImplementedError(
-                f"dtype {dtype!r} is not ported to ser_tpu_torch yet; see ROADMAP.md."
-            )
+        if dtype not in ("float32", "bfloat16", "int8"):
+            raise ValueError(f"Unknown dtype {dtype!r} for the Whisper encoder backend.")
         self._model_id = model_id
         self._device = torch.device(device)
         self._config, state = self._resolve_weights(Path(cache_root), model_id)
-        compute = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+        on_card = self._device.type == "cuda"
+        compute = torch.bfloat16 if dtype == "bfloat16" or (dtype == "int8" and on_card) else torch.float32
         self._encoder = whisper_model.build_whisper_encoder(
-            self._config, state, device=self._device, dtype=compute
+            self._config, state, device=self._device, dtype=compute, quant_int8=dtype == "int8"
         )
 
     def _resolve_weights(self, cache_root, model_id):

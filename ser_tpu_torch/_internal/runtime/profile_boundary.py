@@ -3,7 +3,8 @@
 Counterpart of ``ser_tpu/_internal/runtime/profile_boundary.py`` without its
 retry ladder, soft timeout, spawned worker, single-flight lock and CPU
 fallback attempt: an error on the card raises to the caller. Those wait for a
-later slice (``ROADMAP.md``).
+later slice (``ROADMAP.md``); a profile whose runtime asks for the spawned
+worker (``SER_<PROFILE>_PROCESS_ISOLATION``) raises rather than run in-process.
 """
 
 from __future__ import annotations
@@ -64,6 +65,11 @@ def run_profile_inference(
 ) -> InferenceResult:
     """Runs one windowed-profile inference on the resolved device."""
     runtime = settings.profile_runtime(spec.profile)
+    if runtime.process_isolation:
+        raise NotImplementedError(
+            f"Process isolation of the {spec.profile!r} emotion pass is not ported to ser_tpu_torch yet; "
+            "see ROADMAP.md (the transcript lane's is)."
+        )
     backend = spec.backend_factory(settings)
     loaded = _load_model(spec, settings)
     audio, sample_rate = read_audio_file(request.file_path, audio_read_config=settings.audio_read)

@@ -9,23 +9,30 @@ model and transcribes, timing ``transcription_setup`` and
 ``transcription_model_load`` as the JAX package does. Unexpected backend
 failures surface as ``TranscriptionError``.
 
-Process isolation (``settings.transcription.process_isolation``) is not
-ported yet and raises ``NotImplementedError``.
+With ``settings.transcription.process_isolation`` on and the transcript on
+the CPU, the same steps run in a spawned worker (``process_isolation.py``):
+the parent's resolved profile crosses as plain fields, as in the JAX
+package, and so does its settings snapshot, where the JAX worker re-reads
+the environment: the worker then runs on the device the parent chose, with
+the settings the caller passed.
 """
 
 from __future__ import annotations
 
 import logging
-from dataclasses import dataclass
+from dataclasses import asdict, dataclass
+from functools import partial
 
 from ser_tpu_torch._internal.config.schema import AppConfig
 from ser_tpu_torch._internal.repr.runtime_policy import resolve_feature_runtime
 from ser_tpu_torch._internal.runtime import phases
 from ser_tpu_torch._internal.transcript.base import BackendRuntimeRequest
-from ser_tpu_torch._internal.transcript.hbm_admission import (
-    admit_transcription_model,
-    default_calibration_report_path,
+from ser_tpu_torch._internal.transcript.hbm_admission import admit_transcription_model
+from ser_tpu_torch._internal.transcript.process_isolation import (
+    run_isolated_transcription,
+    should_use_process_isolated_path,
 )
+from ser_tpu_torch._internal.transcript.profiling import default_calibration_report_path
 from ser_tpu_torch._internal.transcript.whisper_backend import BACKEND_ID, WhisperTranscriber
 from ser_tpu_torch.domain import TranscriptWord
 from ser_tpu_torch.profiles import ProfileName, require_ported
@@ -50,6 +57,8 @@ class TranscriptionProfile:
     use_demucs: bool
     use_vad: bool
     decode_strategy: str = "greedy"
+    beam_size: int = 5
+    length_penalty: float = 1.0
 
 
 def resolve_transcription_profile(profile: ProfileName, settings: AppConfig) -> TranscriptionProfile:
@@ -62,6 +71,8 @@ def resolve_transcription_profile(profile: ProfileName, settings: AppConfig) -> 
         use_demucs=tx.use_demucs,
         use_vad=tx.use_vad,
         decode_strategy=tx.decode_strategy,
+        beam_size=tx.beam_size,
+        length_penalty=tx.length_penalty,
     )
 
 
@@ -79,6 +90,8 @@ def _build_transcriber(resolved: TranscriptionProfile, settings: AppConfig) -> t
         use_vad=resolved.use_vad,
         use_demucs=resolved.use_demucs,
         decode_strategy=resolved.decode_strategy,
+        beam_size=resolved.beam_size,
+        length_penalty=resolved.length_penalty,
         separation_model_path=settings.transcription.separation_model_path,
     )
     return transcriber, runtime.dtype
@@ -105,6 +118,29 @@ def _run_setup_gates(transcriber, resolved: TranscriptionProfile, settings: AppC
     logger.debug("transcription admission: %s", decision.reason)
 
 
+def _runtime_request(resolved: TranscriptionProfile, transcriber: WhisperTranscriber, dtype: str) -> BackendRuntimeRequest:
+    return BackendRuntimeRequest(
+        model_name=resolved.model_name,
+        use_demucs=resolved.use_demucs,
+        use_vad=resolved.use_vad,
+        device=str(transcriber.device),
+        precision_candidates=(dtype,),
+    )
+
+
+def _isolated_setup(resolved_fields: dict, settings: AppConfig) -> WhisperTranscriber:
+    """The worker's setup: build, gates and model load, so the compute timeout covers transcription only."""
+    resolved = TranscriptionProfile(**resolved_fields)
+    transcriber, dtype = _build_transcriber(resolved, settings)
+    _run_setup_gates(transcriber, resolved, settings)
+    transcriber.load_model(_runtime_request(resolved, transcriber, dtype))
+    return transcriber
+
+
+def _isolated_transcribe(file_path: str, language: str, transcriber: WhisperTranscriber) -> list[TranscriptWord]:
+    return transcriber.transcribe(file_path, language=language)
+
+
 def extract_transcript(
     file_path: str,
     *,
@@ -121,12 +157,21 @@ def extract_transcript(
     if timings is None:
         timings = {}
     resolved = resolve_transcription_profile(profile, settings)
-    if settings.transcription.process_isolation:
-        raise NotImplementedError(
-            "Process-isolated transcription is not ported to ser_tpu_torch yet; see ROADMAP.md."
-        )
-    if resolved.decode_strategy != "greedy":
-        raise NotImplementedError("Beam decode is not ported to ser_tpu_torch yet; see ROADMAP.md.")
+    if should_use_process_isolated_path(resolved.backend_id, settings=settings):
+        # The worker's setup and load cannot be timed from here; the pipeline's
+        # transcription phase times the whole isolated run.
+        try:
+            return run_isolated_transcription(
+                setup=partial(_isolated_setup, asdict(resolved), settings),
+                transcribe=partial(_isolated_transcribe, file_path, language),
+                timeout_seconds=settings.transcription.isolation_timeout_seconds,
+                backend_id=resolved.backend_id,
+            )
+        except TranscriptionError:
+            raise
+        except Exception as err:
+            logger.error("Error processing speech extraction: %s", err, exc_info=True)
+            raise TranscriptionError("Failed to transcribe audio.") from err
 
     with phases.timed_phase(phases.PHASE_TRANSCRIPTION_SETUP, timings):
         transcriber, dtype = _build_transcriber(resolved, settings)
@@ -134,15 +179,7 @@ def extract_transcript(
 
     with phases.timed_phase(phases.PHASE_TRANSCRIPTION_MODEL_LOAD, timings):
         if transcriber.setup_required():
-            transcriber.load_model(
-                BackendRuntimeRequest(
-                    model_name=resolved.model_name,
-                    use_demucs=resolved.use_demucs,
-                    use_vad=resolved.use_vad,
-                    device=str(transcriber.device),
-                    precision_candidates=(dtype,),
-                )
-            )
+            transcriber.load_model(_runtime_request(resolved, transcriber, dtype))
 
     try:
         return transcriber.transcribe(file_path, language=language)

@@ -6,25 +6,18 @@ with free device memory plus headroom and safety margins, honouring a fresh
 calibration report that proves the model runs here. The device is the CUDA
 card (``torch.cuda.mem_get_info``); on the CPU there is no device memory to
 account and the check admits, as the JAX package does without memory stats.
-
-The calibration report's loader is a copy of the one reader this needs from
-``ser_tpu/_internal/transcript/profiling.py``; the calibration workflow that
-writes reports is not ported yet (``ROADMAP.md``).
+Reports are read through ``profiling.py``, which reads either package's.
 """
 
 from __future__ import annotations
 
-import json
-import logging
 import time
 from dataclasses import dataclass
-from pathlib import Path
 
 import torch
 
 from ser_tpu_torch._internal.config.schema import TranscriptionConfig
-
-logger = logging.getLogger(__name__)
+from ser_tpu_torch._internal.transcript.profiling import load_calibration_report
 
 #: Rough parameter counts (millions) per Whisper model name.
 _MODEL_PARAMS_M: dict[str, float] = {
@@ -48,41 +41,6 @@ class AdmissionDecision:
     reason: str
     estimated_footprint_mb: float
     free_memory_mb: float | None
-
-
-@dataclass(frozen=True)
-class CalibrationRecommendation:
-    """A persisted calibration recommendation (the report's ``recommendation``)."""
-
-    backend_id: str
-    model_name: str
-    confidence: str  # "high" | "medium" | "low"
-    mean_wer: float
-    p50_latency_seconds: float
-    generated_at_unix: float
-
-
-def load_calibration_report(path: str | Path) -> CalibrationRecommendation | None:
-    """Loads a persisted recommendation; None when missing or unreadable."""
-    target = Path(path)
-    if not target.exists():
-        return None
-    try:
-        raw = json.loads(target.read_text(encoding="utf-8"))["recommendation"]
-        report = CalibrationRecommendation(**raw)
-        if report.confidence not in ("high", "medium", "low"):
-            raise TypeError(f"invalid confidence {report.confidence!r}")
-        float(report.generated_at_unix)
-        float(report.mean_wer)
-        return report
-    except (OSError, KeyError, TypeError, ValueError) as err:
-        logger.warning("Unreadable calibration report %s: %s", path, err)
-        return None
-
-
-def default_calibration_report_path(tmp_folder) -> Path:
-    """The calibration writer's default report location (shared with admission)."""
-    return Path(tmp_folder) / "transcription_calibration.json"
 
 
 def estimate_model_footprint_mb(model_name: str) -> float:
@@ -165,11 +123,8 @@ def admit_transcription_model(
 
 __all__ = [
     "AdmissionDecision",
-    "CalibrationRecommendation",
     "admit_transcription_model",
     "calibration_admission_override",
-    "default_calibration_report_path",
     "device_free_memory_mb",
     "estimate_model_footprint_mb",
-    "load_calibration_report",
 ]

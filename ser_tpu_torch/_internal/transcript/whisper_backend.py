@@ -6,7 +6,8 @@ keeps that backend's id, so one configuration selects it in both packages
 the Whisper download root, loads ``WhisperForTranscription`` on the device it
 is given, and transcribes one file: read, resample to 16 kHz, with
 ``use_demucs`` REPET-SIM vocal separation then the spectral gate, then the
-model's VAD and greedy decode.
+model's VAD and its decode: greedy, or beam search with ``beam_size`` and
+``length_penalty`` (``decode_strategy="beam"``).
 
 Nothing is downloaded: without staged weights the backend reports a blocking
 compatibility issue and ``load_model`` raises ``TranscriptionUnavailableError``.
@@ -40,6 +41,8 @@ class WhisperTranscriber:
         use_vad: bool = True,
         use_demucs: bool = False,
         decode_strategy: str = "greedy",
+        beam_size: int = 5,
+        length_penalty: float = 1.0,
         separation_model_path: Path | None = None,
     ) -> None:
         self._model_name = model_name
@@ -48,6 +51,8 @@ class WhisperTranscriber:
         self._use_vad = use_vad
         self._use_demucs = use_demucs
         self._decode_strategy = decode_strategy
+        self._beam_size = beam_size
+        self._length_penalty = length_penalty
         self._separation_model_path = separation_model_path
         self._model = None
 
@@ -118,6 +123,8 @@ class WhisperTranscriber:
                 device=self._device,
                 compute_dtype=dtype if dtype in ("bfloat16", "float32") else "float32",
                 decode_strategy=self._decode_strategy,
+                beam_size=self._beam_size,
+                length_penalty=self._length_penalty,
             )
 
     def transcribe(self, file_path: str, *, language: str = "en") -> list[TranscriptWord]:

@@ -6,16 +6,21 @@ Counterpart of ``ser_tpu/models/whisper.py``:
   (power → mel → log10) and Whisper's normalization;
 - the pre-norm encoder (conv ×2 stride-2 stem with exact GELU, sinusoidal
   positions, ``EncoderBlock`` × n, final LayerNorm) as ``nn.Module``s whose
-  self-attention runs kernel K2 on the card;
+  self-attention runs kernel K2 on the card; with ``quant_int8`` (the opt-in
+  ``dtype: int8`` lane) the q/k/v/out and both MLP products are W8A8
+  (``models/quant.py``), the conv stem, LayerNorms, residual stream and
+  attention unchanged;
 - the teacher-forced decoder (``DecoderBlock``, ``WhisperDecoder``), whose
   parameters the KV-cache decode (``whisper_decode.py``) reads;
 - the HF checkpoint loaders (``load_hf_whisper_{encoder,decoder}_params``),
   which return the same parameter trees of numpy arrays as the JAX loaders
   and keep their consumed-key audit, the generation-config readers, and
   seeded ``torch.Generator`` random inits;
-- ``WhisperForTranscription``: greedy KV-cache transcription of all 30 s
-  windows as one batch, with temperature retries for degenerate windows,
-  energy VAD and DTW word timing over the alignment heads.
+- ``WhisperForTranscription``: KV-cache transcription of all 30 s windows as
+  one batch, greedy or by beam search (then a teacher-forced pass for the
+  alignment), optionally on the int8 decode weight stream, with temperature
+  retries for degenerate windows, energy VAD and DTW word timing over the
+  alignment heads.
 
 The dtype policy is the JAX package's: matmuls and convolutions in the
 compute dtype (bf16 on the card, float32 on the CPU), LayerNorms computed in
@@ -63,6 +68,7 @@ from ser_tpu_torch.models import whisper_decode
 from ser_tpu_torch.models.attention import multi_head_attention
 from ser_tpu_torch.models.checkpoint_audit import AuditedState, unconsumed_key_error
 from ser_tpu_torch.models.hf_checkpoint import read_hf_tensors
+from ser_tpu_torch.models.quant import QuantDense
 from ser_tpu_torch.ops.activations import gelu_erf
 from ser_tpu_torch.ops.decode_step_kernels import require_fused_decode_shapes
 from ser_tpu_torch.ops.log_mel import log_mel_raw, normalize_log_mel, set_strict_float32
@@ -168,8 +174,11 @@ def _dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tenso
     """flax ``nn.Dense(dtype=...)``: input, kernel and bias cast to ``dtype``.
 
     The casts are no-ops for weights stored in ``dtype`` (inference); for
-    float32 master weights the gradient reaches them through the cast.
+    float32 master weights the gradient reaches them through the cast. A
+    ``QuantDense`` quantizes ``x`` as it comes and returns ``dtype``.
     """
+    if isinstance(layer, QuantDense):
+        return layer(x, dtype)
     bias = None if layer.bias is None else layer.bias.to(dtype)
     return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
 
@@ -182,23 +191,28 @@ def _conv(layer: nn.Conv1d, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor
 class MultiHeadAttention(nn.Module):
     """Encoder self-attention: q/k/v projections, kernel K2, out projection.
 
-    ``compute_dtype`` None computes in the weights' dtype.
+    ``compute_dtype`` None computes in the weights' dtype. ``quant_int8``
+    makes the four projections W8A8 (``QuantDense``, the same state dict).
     """
 
-    def __init__(self, config: WhisperConfig, compute_dtype: torch.dtype | None = None) -> None:
+    def __init__(
+        self, config: WhisperConfig, compute_dtype: torch.dtype | None = None, quant_int8: bool = False
+    ) -> None:
         super().__init__()
         d = config.d_model
+        linear = QuantDense if quant_int8 else nn.Linear
         self.n_heads = config.n_heads
         self.compute_dtype = compute_dtype
-        self.q = nn.Linear(d, d)
-        self.k = nn.Linear(d, d, bias=False)
-        self.v = nn.Linear(d, d)
-        self.out = nn.Linear(d, d)
+        self.q = linear(d, d)
+        self.k = linear(d, d, bias=False)
+        self.v = linear(d, d)
+        self.out = linear(d, d)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         batch, seq, d = x.shape
         dtype = self.compute_dtype or self.q.weight.dtype
-        x = x.to(dtype)  # once for the three projections
+        if not isinstance(self.q, QuantDense):  # W8A8 quantizes the LayerNorm's output as it comes
+            x = x.to(dtype)  # once for the three projections
         heads = (batch, seq, self.n_heads, d // self.n_heads)
         q = _dense(self.q, x, dtype).view(heads)
         k = _dense(self.k, x, dtype).view(heads)
@@ -215,15 +229,17 @@ class EncoderBlock(nn.Module):
         config: WhisperConfig,
         ln_dtype: torch.dtype = torch.float32,
         compute_dtype: torch.dtype | None = None,
+        quant_int8: bool = False,
     ) -> None:
         super().__init__()
         d = config.d_model
+        linear = QuantDense if quant_int8 else nn.Linear
         self.compute_dtype = compute_dtype
         self.attn_ln = LayerNorm(d, config.layer_norm_eps, ln_dtype)
-        self.attn = MultiHeadAttention(config, compute_dtype)
+        self.attn = MultiHeadAttention(config, compute_dtype, quant_int8)
         self.mlp_ln = LayerNorm(d, config.layer_norm_eps, ln_dtype)
-        self.mlp_in = nn.Linear(d, 4 * d)
-        self.mlp_out = nn.Linear(4 * d, d)
+        self.mlp_in = linear(d, 4 * d)
+        self.mlp_out = linear(4 * d, d)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dtype = self.compute_dtype or self.mlp_in.weight.dtype
@@ -257,7 +273,8 @@ class WhisperEncoder(nn.Module):
     and weights to it, as flax's ``dtype=`` does. ``remat`` recomputes each
     block in the backward (``torch.utils.checkpoint``, non-reentrant), all of
     it (``"full"``) or all but the projection products (``"dots"``); it acts
-    only when grad mode is on.
+    only when grad mode is on. ``quant_int8`` (inference only) makes every
+    block's projection products W8A8.
     """
 
     def __init__(
@@ -268,6 +285,7 @@ class WhisperEncoder(nn.Module):
         compute_dtype: torch.dtype | None = None,
         remat: bool = False,
         remat_policy: str = "full",
+        quant_int8: bool = False,
     ) -> None:
         super().__init__()
         if remat_policy not in REMAT_POLICIES:
@@ -280,7 +298,7 @@ class WhisperEncoder(nn.Module):
         self.conv1 = nn.Conv1d(config.n_mels, d, kernel_size=3, padding=1)
         self.conv2 = nn.Conv1d(d, d, kernel_size=3, stride=2, padding=1)
         self.layers = nn.ModuleList(
-            EncoderBlock(config, ln_dtype, compute_dtype) for _ in range(config.encoder_layers)
+            EncoderBlock(config, ln_dtype, compute_dtype, quant_int8) for _ in range(config.encoder_layers)
         )
         self.final_ln = LayerNorm(d, config.layer_norm_eps)
         self._positions: dict[tuple, torch.Tensor] = {}
@@ -316,16 +334,21 @@ def build_whisper_encoder(
     *,
     device: torch.device,
     dtype: torch.dtype,
+    quant_int8: bool = False,
 ) -> WhisperEncoder:
     """An eval-mode encoder holding ``state_dict`` on ``device``, stored in ``dtype``.
 
     Built on the meta device and filled by assignment, so the full-size model
-    never runs PyTorch's default init or holds a second copy.
+    never runs PyTorch's default init or holds a second copy. With
+    ``quant_int8`` its projections are quantized here, once.
     """
     with torch.device("meta"):
-        encoder = WhisperEncoder(config)
+        encoder = WhisperEncoder(config, quant_int8=quant_int8)
     placed = {name: tensor.to(device=device, dtype=dtype) for name, tensor in state_dict.items()}
     encoder.load_state_dict(placed, strict=True, assign=True)
+    for module in encoder.modules():
+        if isinstance(module, QuantDense):
+            module.quantized()
     return encoder.eval()
 
 
@@ -678,16 +701,21 @@ def load_hf_whisper_decoder_params(model_dir, config: WhisperConfig) -> dict:
 
 
 class WhisperForTranscription:
-    """Greedy KV-cache transcription with DTW-aligned word timestamps.
+    """KV-cache transcription (greedy or beam search) with DTW-aligned word timestamps.
 
-    Counterpart of ``ser_tpu.models.whisper.WhisperForTranscription`` for the
-    greedy strategy. ``encoder_state``/``decoder_state`` are the port's state
-    dicts (``convert.py`` carries JAX trees across); the models are built on
-    ``device`` in ``compute_dtype``. Greedy decodes run through the step
+    Counterpart of ``ser_tpu.models.whisper.WhisperForTranscription``.
+    ``encoder_state``/``decoder_state`` are the port's state dicts
+    (``convert.py`` carries JAX trees across); the models are built on
+    ``device`` in ``compute_dtype``. bf16 greedy decodes run through the step
     kernels K3-K5 (``fused=True``), where the JAX package keeps XLA's route
     (``ROADMAP.md``, Queue 3); on CPU tensors the kernels' plain versions run.
-    ``decode_strategy="beam"`` and the int8 decode stream are not ported yet
-    and raise ``NotImplementedError``. On a CUDA device the model is checked
+    ``decode_strategy="beam"`` decodes at temperature 0 by beam search
+    (``beam_size``, GNMT ``length_penalty``) through separate PyTorch ops,
+    then times words from a teacher-forced pass over the winners; its
+    temperature retries sample through the greedy route. ``decode_int8``
+    (default: ``SER_DECODE_INT8=1``) runs every decode on the int8 weight
+    stream, quantized once per model, through separate ops (the JAX package
+    refuses ``fused`` with int8). On a CUDA device the model is checked
     before any weight is built: float32 raises the runtime policy's
     ``NotImplementedError`` (K3-K5 take bf16 only), and a shape that K3-K5
     refuse raises ``ValueError`` naming the rule.
@@ -712,16 +740,15 @@ class WhisperForTranscription:
         suppress_tokens: tuple[int, ...] = (),
         apply_timestamp_rules: bool = True,
         decode_strategy: str = "greedy",
+        beam_size: int = 5,
+        length_penalty: float = 1.0,
         decode_int8: bool | None = None,
     ) -> None:
         if decode_strategy not in ("greedy", "beam"):
             raise ValueError(f"Unknown decode strategy {decode_strategy!r}")
-        if decode_strategy == "beam":
-            raise NotImplementedError("Beam decode is not ported to ser_tpu_torch yet; see ROADMAP.md.")
         if decode_int8 is None:
             decode_int8 = os.environ.get("SER_DECODE_INT8", "") == "1"
-        if decode_int8:
-            raise NotImplementedError("The int8 decode weight stream is not ported to ser_tpu_torch yet; see ROADMAP.md.")
+        self.decode_int8 = bool(decode_int8)
         if compute_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"Unknown compute dtype {compute_dtype!r}")
         self.device = torch.device(device)
@@ -758,12 +785,17 @@ class WhisperForTranscription:
         self.suppress_tokens = tuple(int(t) for t in suppress_tokens)
         self.apply_timestamp_rules = apply_timestamp_rules
         self.decode_strategy = decode_strategy
+        self.beam_size = int(beam_size)
+        self.length_penalty = float(length_penalty)
         self._decode_weights: whisper_decode.DecodeWeights | None = None
 
     def decode_weights(self) -> whisper_decode.DecodeWeights:
-        """The decoder's fused QKV kernels and per-head layouts, computed once per model."""
+        """The decoder's fused QKV kernels with K3-K5's per-head layouts, or its int8
+        weight stream, computed once per model."""
         if self._decode_weights is None:
-            self._decode_weights = whisper_decode.prepare_decode_weights(self.decoder, self.config, fused=True)
+            self._decode_weights = whisper_decode.prepare_decode_weights(
+                self.decoder, self.config, fused=not self.decode_int8, quant_int8=self.decode_int8
+            )
         return self._decode_weights
 
     @classmethod
@@ -774,6 +806,8 @@ class WhisperForTranscription:
         device: torch.device | str = "cpu",
         compute_dtype: str = "float32",
         decode_strategy: str = "greedy",
+        beam_size: int = 5,
+        length_penalty: float = 1.0,
     ):
         """Loads config, weights and tokenizer from a local HF checkpoint directory."""
         from transformers import WhisperTokenizer
@@ -791,6 +825,8 @@ class WhisperForTranscription:
             alignment_heads=alignment_heads_from_hf_dir(model_dir),
             suppress_tokens=suppress_tokens_from_hf_dir(model_dir),
             decode_strategy=decode_strategy,
+            beam_size=beam_size,
+            length_penalty=length_penalty,
         )
 
     def _special(self, token: str) -> int:
@@ -812,11 +848,14 @@ class WhisperForTranscription:
         temperature: float = 0.0,
         rng_seed: int = 0,
     ) -> tuple[list[list[int]], np.ndarray | None]:
-        """Greedy KV-cache decode of a batch of 30 s windows.
+        """KV-cache decode (greedy or beam) of a batch of 30 s windows.
 
         Returns each window's emitted ids and, with alignment capture on, the
         per-window DTW matrix ``(B, max_len, S)``, reduced on the device so
-        only that matrix reaches the host.
+        only that matrix reaches the host. Beam mode decodes at temperature 0
+        only and takes its alignment from :func:`whisper_decode.
+        alignment_forward` over the winners; a retry above temperature 0
+        samples through the greedy route.
         """
         prefix = [
             self._special("<|startoftranscript|>"),
@@ -826,22 +865,31 @@ class WhisperForTranscription:
         eot = self._special("<|endoftext|>")
         align_spec = self.alignment_heads if self.word_timestamps == "align" else ()
         timestamp_begin = self._special("<|0.00|>") if self.apply_timestamp_rules else None
-        tokens, lengths, align = whisper_decode.greedy_decode_kv_cache(
-            self.decoder,
-            self.config,
-            encoder_states,
-            prefix,
-            eot,
+        common = dict(
             prefix_len=self.PREFIX_LEN,
-            align_spec=align_spec,
             compute_dtype=self.compute_dtype,
-            temperature=temperature,
-            rng_seed=rng_seed,
             suppress_tokens=self.suppress_tokens,
             timestamp_begin=timestamp_begin,
-            fused=True,
+            quant_int8=self.decode_int8,
             weights=self.decode_weights(),
         )
+        if self.decode_strategy == "beam" and temperature == 0.0:
+            tokens, lengths = whisper_decode.beam_decode_kv_cache(
+                self.decoder, self.config, encoder_states, prefix, eot,
+                beam_size=self.beam_size, length_penalty=self.length_penalty, **common,
+            )
+            align = None
+            if align_spec:
+                align = whisper_decode.alignment_forward(
+                    self.decoder, self.config, encoder_states, tokens,
+                    align_spec=align_spec, compute_dtype=self.compute_dtype,
+                )
+        else:
+            tokens, lengths, align = whisper_decode.greedy_decode_kv_cache(
+                self.decoder, self.config, encoder_states, prefix, eot,
+                align_spec=align_spec, temperature=temperature, rng_seed=rng_seed,
+                fused=not self.decode_int8, **common,
+            )
         matrix = None
         if align_spec:
             matrix = (

@@ -1,29 +1,46 @@
-"""KV-cached greedy Whisper decode with cross-attention alignment capture.
+"""KV-cached Whisper decode: greedy and beam search, alignment capture, int8 weights.
 
-Counterpart of ``ser_tpu/models/whisper_decode.py`` for the greedy route, on
-the parameters of ``ser_tpu_torch.models.whisper.WhisperDecoder``:
-cross-attention K/V are computed once per call in decode-friendly layouts,
-and each step runs the decoder for one token over the self-attention cache.
+Counterpart of ``ser_tpu/models/whisper_decode.py``, on the parameters of
+``ser_tpu_torch.models.whisper.WhisperDecoder``: cross-attention K/V are
+computed once per call in decode-friendly layouts, and each step runs the
+decoder for one token over the self-attention cache. Greedy and beam search
+share the step (``_decoder_token_step``), so both carry the same numerics;
+beam search flattens its beams into rows and keeps the cross-attention K/V at
+one row per window (``_attend_cross_step_beamed``). Beam word timing runs a
+teacher-forced second pass over the winners (``alignment_forward``). The int8
+weight stream (``quantize_decode_weights``, ``SER_DECODE_INT8=1``) quantizes
+the step's matmul weights once and runs each product W8A8 (``models/quant.py``).
 
 Differences of form from the JAX package, none of numerics:
 
-- The loop is a Python loop, one step per position, in place of
-  ``lax.while_loop``. It stops at the same step: when ``position`` reaches
-  ``max_len - 1`` or every row has emitted EOT (read back from the card once
-  per step).
+- The loops are Python loops, one step per position, in place of
+  ``lax.while_loop``. The greedy loop stops at the same step: when
+  ``position`` reaches ``max_len - 1`` or every row has emitted EOT (read
+  back from the card once per step). The beam loop reads its stop condition
+  (every window holds ``beam_size`` finished hypotheses) once every
+  ``BEAM_STOP_CHECK_STEPS`` steps: once every window is full no window accepts
+  another hypothesis, so the steps it runs past the JAX loop's stop change
+  nothing it returns.
 - The K/V caches are preallocated once per call, ``(rows, H, Dh, Smax)`` for K
   and ``(rows, H, Smax, Dh)`` for V per layer, and each step writes its new
-  column in place (the JAX loop carries them as values that XLA aliases).
+  column in place (the JAX loop carries them as values that XLA aliases). The
+  beam loop reorders them by gathering rows after each generating step, and
+  skips the identity reorder of the prefix steps.
 - ``position`` is a host int.
+- The beam update takes the top ``K`` of the flat ``(B, K·V)`` scores with a
+  stable descending sort, so among equal scores the lowest flat index wins, as
+  in ``jax.lax.top_k``; ``torch.topk`` promises no order among ties.
 - The route through the step kernels (``fused=True``: K3, K4 and K5 of
   ``ops/decode_step_kernels``, three calls per layer) keeps the JAX flag and
   its default (False); ``WhisperForTranscription`` passes ``fused=True`` for
-  its greedy decodes (``ROADMAP.md``, Queue 3).
+  its bf16 greedy decodes (``ROADMAP.md``, Queue 3). Beam search and the int8
+  stream refuse it, as in the JAX package.
+- The int8 weights are quantized once per model (``DecodeWeights.quant``),
+  where the JAX loops quantize once per dispatch; the bits are the same.
 - Temperature sampling draws Gumbel noise from a ``torch.Generator`` seeded
   with ``rng_seed``: deterministic per seed, but not ``jax.random``'s bits.
-
-Beam decode, ``alignment_forward`` and the int8 weight stream are not ported
-yet: ``beams > 1`` and ``quant_int8`` raise ``NotImplementedError``.
+- The JAX step's stacked-cache form (one ``(L, rows, ...)`` cache), which only
+  a beam ablation harness uses, is left out (``ROADMAP.md``, Queue 3).
 
 The port updates caches in place where the JAX package returns new arrays;
 the step returns the logits and the alignment rows.
@@ -31,15 +48,18 @@ the step returns the logits and the alignment rows.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import torch
 import torch.nn.functional as F
 
+from ser_tpu_torch.models.quant import Int8Weight, dense_int8
 from ser_tpu_torch.ops import decode_step_kernels as dsk
 from ser_tpu_torch.ops.activations import gelu_erf
 
 _NEG_INF = -1e30
+#: The beam loop reads its stop condition from the card once every so many steps.
+BEAM_STOP_CHECK_STEPS = 8
 
 
 def _dense(linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -52,6 +72,13 @@ def _dense(linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     if linear.bias is not None:
         y = y + linear.bias.to(dtype)
     return y
+
+
+def _project(quant_layer: dict | None, name: str, linear, dtype: torch.dtype, x: torch.Tensor) -> torch.Tensor:
+    """``linear``'s product, or its int8 entry ``name``'s W8A8 product when the layer is quantized."""
+    if quant_layer is not None:
+        return dense_int8(quant_layer[name], x, dtype)
+    return _dense(linear, x, dtype)
 
 
 def _dense_kernel(p: dict, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -145,6 +172,38 @@ def _fuse_qkv_params(params, n_layers: int, d_model: int) -> list[dict]:
     return fused
 
 
+def _quant_entry(linear) -> Int8Weight:
+    """An ``nn.Linear``'s (in, out) kernel and bias, quantized (``ser_tpu``'s ``_quant_entry``)."""
+    return Int8Weight(linear.weight.t(), linear.bias)
+
+
+@torch.inference_mode()
+def quantize_decode_weights(params, qkv_fused: list[dict], n_layers: int) -> dict:
+    """The decode step's matmul weights in int8 with per-output-channel scales.
+
+    The JAX package's set: the fused QKV, the self-attention and
+    cross-attention out projections, cross Q, both MLP products, and the
+    vocabulary projection (``tok_embed`` transposed). LayerNorms, the
+    embedding lookups and the attention cores stay in the compute dtype.
+    Each entry is a ``quant.Int8Weight`` with the JAX entry's fields
+    (``w8`` (K, N) int8, ``scale`` (N,) float32, ``bias``).
+    """
+    quant: dict = {"layers": []}
+    for i, layer in enumerate(params.layers[:n_layers]):
+        quant["layers"].append(
+            {
+                "qkv": Int8Weight(qkv_fused[i]["kernel"], qkv_fused[i]["bias"]),
+                "attn_out": _quant_entry(layer.attn.out),
+                "cross_q": _quant_entry(layer.cross.q),
+                "cross_out": _quant_entry(layer.cross.out),
+                "mlp_in": _quant_entry(layer.mlp_in),
+                "mlp_out": _quant_entry(layer.mlp_out),
+            }
+        )
+    quant["vocab"] = Int8Weight(params.tok_embed.to(torch.float32).t(), None)
+    return quant
+
+
 def _zero_bias(linear) -> torch.Tensor:
     if linear.bias is not None:
         return linear.bias
@@ -174,25 +233,40 @@ def _fused_layer_weights(params, n_layers: int, n_heads: int) -> list[dict]:
 @dataclass
 class DecodeWeights:
     """What one model's decodes reuse, computed once: the fused QKV kernels,
-    the float32 vocabulary projection, and (for ``fused=True``) the kernels'
-    per-head weight layouts."""
+    the float32 vocabulary projection, (for ``fused=True``) the kernels'
+    per-head weight layouts, and (for ``quant_int8``) the int8 weight stream."""
 
     qkv: list[dict]
     vocab: torch.Tensor
     fused: list[dict] | None = None
+    quant: dict | None = None
 
 
 @torch.inference_mode()
-def prepare_decode_weights(params, config, *, fused: bool) -> DecodeWeights:
+def prepare_decode_weights(params, config, *, fused: bool, quant_int8: bool = False) -> DecodeWeights:
     """The :class:`DecodeWeights` of ``params`` (a ``WhisperDecoder``)."""
     n_layers = config.decoder_layers
+    qkv = _fuse_qkv_params(params, n_layers, config.d_model)
     return DecodeWeights(
-        qkv=_fuse_qkv_params(params, n_layers, config.d_model),
+        qkv=qkv,
         # The logits contract the float32 final LayerNorm with tok_embed in
         # float32, as JAX's promotion does.
         vocab=params.tok_embed.to(torch.float32),
         fused=_fused_layer_weights(params, n_layers, config.n_heads) if fused else None,
+        quant=quantize_decode_weights(params, qkv, n_layers) if quant_int8 else None,
     )
+
+
+def _complete_weights(params, config, weights: DecodeWeights | None, *, fused: bool, quant_int8: bool) -> DecodeWeights:
+    """``weights`` with the parts this decode needs added (or prepared when None)."""
+    if weights is None:
+        return prepare_decode_weights(params, config, fused=fused, quant_int8=quant_int8)
+    n_layers = config.decoder_layers
+    if fused and weights.fused is None:
+        weights = replace(weights, fused=_fused_layer_weights(params, n_layers, config.n_heads))
+    if quant_int8 and weights.quant is None:
+        weights = replace(weights, quant=quantize_decode_weights(params, weights.qkv, n_layers))
+    return weights
 
 
 def _attend_self_step(q, k_t, v_hs, *, bias_row, compute_dtype):
@@ -210,6 +284,36 @@ def _attend_cross_step(q, k_t, v_hs, *, compute_dtype):
     scores = torch.einsum("bhd,bhds->bhs", qh, k_t) / dsk.root_d(q.shape[-1], compute_dtype)
     weights = torch.softmax(scores.to(torch.float32), dim=-1)
     return torch.einsum("bhs,bhsd->bhd", weights.to(compute_dtype), v_hs), weights
+
+
+def _attend_cross_step_beamed(q, k_t, v_hs, *, beams: int, compute_dtype):
+    """Cross-attention where each window's K/V serve its ``beams`` query rows.
+
+    ``q``: (B·beams, 1, H, Dh); ``k_t``: (B, H, Dh, S); ``v_hs``: (B, H, S, Dh).
+    No per-beam copy of K/V is made (at large-v3 it would multiply the
+    decode's largest buffer by ``beams``). Returns out (B·beams, H, Dh) and
+    float32 weights (B·beams, H, S).
+    """
+    b = k_t.shape[0]
+    qh = q[:, 0].reshape(b, beams, *q.shape[2:])  # (B, K, H, Dh)
+    scores = torch.einsum("bkhd,bhds->bkhs", qh, k_t) / dsk.root_d(q.shape[-1], compute_dtype)
+    weights = torch.softmax(scores.to(torch.float32), dim=-1)
+    out = torch.einsum("bkhs,bhsd->bkhd", weights.to(compute_dtype), v_hs)
+    rows = b * beams
+    return out.reshape(rows, *out.shape[2:]), weights.reshape(rows, *weights.shape[2:])
+
+
+def _attend(q, k, v, *, bias, compute_dtype):
+    """Attention over full sequences, as ``whisper.MultiHeadAttention``'s einsum route.
+
+    ``q`` (B, Tq, H, Dh), ``k``/``v`` (B, Tk, H, Dh); ``bias`` additive or
+    None. Returns out (B, Tq, H, Dh) and float32 weights (B, H, Tq, Tk).
+    """
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k) / dsk.root_d(q.shape[-1], compute_dtype)
+    if bias is not None:
+        scores = scores + bias.to(scores.dtype)
+    weights = torch.softmax(scores.to(torch.float32), dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", weights.to(compute_dtype), v), weights
 
 
 def _check_align_spec(align_spec, config) -> None:
@@ -245,11 +349,14 @@ def _decoder_token_step(
     per ``align_spec`` pair. ``fused=True`` runs each layer's attention groups
     through K3, K4 and K5 (same op order and rounding points as the route
     through separate PyTorch ops); K3 then writes the K/V columns itself.
+    ``beams > 1`` groups the rows by window for cross-attention (the K/V keep
+    one row per window); ``quant`` (:func:`quantize_decode_weights`) runs
+    every product W8A8. Both take the route through separate ops only.
     """
-    if beams != 1:
-        raise NotImplementedError("Beam decode is not ported to ser_tpu_torch yet; see ROADMAP.md.")
-    if quant is not None:
-        raise NotImplementedError("The int8 decode weight stream is not ported to ser_tpu_torch yet; see ROADMAP.md.")
+    if fused and beams != 1:
+        raise ValueError("fused decode kernels support greedy (beams == 1) only.")
+    if fused and quant is not None:
+        raise ValueError("int8 decode weights are XLA-path only (fused=False).")
     cfg = config
     cdt = compute_dtype
     n_heads = cfg.n_heads
@@ -288,27 +395,33 @@ def _decoder_token_step(
     key_visible = torch.arange(cfg.max_target_positions, device=x.device) <= position
     self_bias_row = torch.where(key_visible, 0.0, _NEG_INF)
     for i, layer in enumerate(layers):
+        ql = quant["layers"][i] if quant is not None else None
         h = _layer_norm(layer.attn_ln, x, eps)
-        qkv = _dense_kernel(weights.qkv[i], h, cdt)
+        qkv = dense_int8(ql["qkv"], h, cdt) if ql is not None else _dense_kernel(weights.qkv[i], h, cdt)
         q = _split_heads(qkv[..., :d_model], n_heads)
         self_k[i][:, :, :, position] = _split_heads(qkv[:, 0, d_model : 2 * d_model], n_heads)
         self_v[i][:, :, position, :] = _split_heads(qkv[:, 0, 2 * d_model :], n_heads)
         out = _attend_self_step(q, self_k[i], self_v[i], bias_row=self_bias_row, compute_dtype=cdt)
-        x = x + _dense(layer.attn.out, out.reshape(rows, 1, -1), cdt)
+        x = x + _project(ql, "attn_out", layer.attn.out, cdt, out.reshape(rows, 1, -1))
 
         h = _layer_norm(layer.cross_ln, x, eps)
-        q = _split_heads(_dense(layer.cross.q, h, cdt), n_heads)
-        out, attn_weights = _attend_cross_step(q, cross_k[i], cross_v[i], compute_dtype=cdt)
+        q = _split_heads(_project(ql, "cross_q", layer.cross.q, cdt, h), n_heads)
+        if beams > 1:
+            out, attn_weights = _attend_cross_step_beamed(q, cross_k[i], cross_v[i], beams=beams, compute_dtype=cdt)
+        else:
+            out, attn_weights = _attend_cross_step(q, cross_k[i], cross_v[i], compute_dtype=cdt)
         for slot, (layer_index, head_index) in enumerate(align_spec):
             if layer_index == i:
                 align_rows[slot] = attn_weights[:, head_index][:, None, :]
-        x = x + _dense(layer.cross.out, out.reshape(rows, 1, -1), cdt)
+        x = x + _project(ql, "cross_out", layer.cross.out, cdt, out.reshape(rows, 1, -1))
 
         h = _layer_norm(layer.mlp_ln, x, eps)
-        h = gelu_erf(_dense(layer.mlp_in, h, cdt))
-        x = x + _dense(layer.mlp_out, h, cdt)
+        h = gelu_erf(_project(ql, "mlp_in", layer.mlp_in, cdt, h))
+        x = x + _project(ql, "mlp_out", layer.mlp_out, cdt, h)
 
     x = _layer_norm(params.final_ln, x, eps)
+    if quant is not None:
+        return dense_int8(quant["vocab"], x, torch.float32)[:, 0], align_rows
     return torch.matmul(x[:, 0], weights.vocab.t()), align_rows
 
 
@@ -349,6 +462,8 @@ def greedy_decode_kv_cache(
       timestamp_begin: first timestamp id; when given, the timestamp rules
         apply (:func:`apply_timestamp_rules`).
       fused: run the attention groups through kernels K3, K4 and K5.
+      quant_int8: run every product of the step W8A8 on int8 weights
+        (:func:`quantize_decode_weights`); refuses ``fused``.
       weights: :func:`prepare_decode_weights` of ``params``, reused across calls.
 
     Returns:
@@ -358,8 +473,6 @@ def greedy_decode_kv_cache(
       past a row's own length hold the attention of repeated EOT inputs while
       the batch drains; ``reduce_alignment_matrix`` masks them.
     """
-    if quant_int8:
-        raise NotImplementedError("The int8 decode weight stream is not ported to ser_tpu_torch yet; see ROADMAP.md.")
     cfg = config
     device = encoder_states.device
     batch, enc_len = encoder_states.shape[:2]
@@ -369,8 +482,8 @@ def greedy_decode_kv_cache(
     cdt = compute_dtype
     n_layers = cfg.decoder_layers
     _check_align_spec(align_spec, cfg)
-    if weights is None or (fused and weights.fused is None):
-        weights = prepare_decode_weights(params, cfg, fused=fused)
+    weights = _complete_weights(params, cfg, weights, fused=fused, quant_int8=quant_int8)
+    quant = weights.quant if quant_int8 else None
 
     cross_k, cross_v = _precompute_cross_kv(params, encoder_states, n_layers, n_heads, cdt)
     tokens = torch.full((batch, max_len), int(eot), dtype=torch.long, device=device)
@@ -388,7 +501,7 @@ def greedy_decode_kv_cache(
         token_ids = tokens[:, position]
         logits, align_rows = _decoder_token_step(
             params, weights, cross_k, cross_v, self_k, self_v, token_ids, position,
-            config=cfg, compute_dtype=cdt, align_spec=align_spec, fused=fused,
+            config=cfg, compute_dtype=cdt, align_spec=align_spec, fused=fused, quant=quant,
         )
         for slot, row in enumerate(align_rows):
             align[:, slot, position] = row[:, 0]
@@ -422,6 +535,203 @@ def greedy_decode_kv_cache(
     is_eot = generated == eot
     lengths = torch.where(is_eot.any(dim=1), torch.argmax(is_eot.to(torch.int32), dim=1), generated.shape[1])
     return tokens, lengths, align
+
+
+def _reorder_caches(self_k: list[torch.Tensor], self_v: list[torch.Tensor], parent_rows: torch.Tensor) -> None:
+    """Each layer's K/V cache rows gathered to follow the surviving parents (lists updated in place)."""
+    for i in range(len(self_k)):
+        self_k[i] = self_k[i][parent_rows]
+        self_v[i] = self_v[i][parent_rows]
+
+
+@torch.inference_mode()
+def beam_decode_kv_cache(
+    params,
+    config,
+    encoder_states: torch.Tensor,
+    prefix,
+    eot: int,
+    *,
+    prefix_len: int,
+    beam_size: int = 5,
+    length_penalty: float = 1.0,
+    compute_dtype: torch.dtype = torch.float32,
+    suppress_tokens: tuple[int, ...] = (),
+    timestamp_begin: int | None = None,
+    quant_int8: bool = False,
+    weights: DecodeWeights | None = None,
+):
+    """Batched beam search over cached attention state (``ser_tpu``'s beam contract).
+
+    Beams flatten into rows (``rows = B·beam_size``) and share the greedy
+    step through separate ops; the cross-attention K/V keep one row per
+    window. Only beam 0 starts live, the rest at -1e30 (the first-expansion
+    trick). An EOT candidate, scored with its EOT log-prob, enters the
+    window's finished-hypothesis pool when it would have made the live top-k;
+    it never takes a live slot, so the live beam always holds ``beam_size``
+    unfinished rows. A window accepts hypotheses until it holds
+    ``beam_size`` of them; the loop stops when every window is full or the
+    token budget ends. The winner is the pool's best by
+    ``score / max(length, 1) ** length_penalty`` (GNMT), or the best live beam
+    for a window that never finished. Among equal scores the lowest flat
+    index wins, as in ``jax.lax.top_k``.
+
+    Returns tokens ``(B, max_len)`` (prefix, the winner's ids, EOT-padded) and
+    lengths ``(B,)``; no alignment capture (see :func:`alignment_forward`).
+    """
+    cfg = config
+    device = encoder_states.device
+    batch = encoder_states.shape[0]
+    k_beams = int(beam_size)
+    rows = batch * k_beams
+    max_len = cfg.max_target_positions
+    n_heads = cfg.n_heads
+    head_dim = cfg.d_model // n_heads
+    cdt = compute_dtype
+    n_layers = cfg.decoder_layers
+    vocab = cfg.vocab_size
+    eot = int(eot)
+    weights = _complete_weights(params, cfg, weights, fused=False, quant_int8=quant_int8)
+    quant = weights.quant if quant_int8 else None
+
+    cross_k, cross_v = _precompute_cross_kv(params, encoder_states, n_layers, n_heads, cdt)
+    prefix_ids = torch.as_tensor(prefix, dtype=torch.long, device=device)[:prefix_len]
+    tokens = torch.full((rows, max_len), eot, dtype=torch.long, device=device)
+    tokens[:, :prefix_len] = prefix_ids
+    self_k = [torch.zeros((rows, n_heads, head_dim, max_len), dtype=cdt, device=device) for _ in range(n_layers)]
+    self_v = [torch.zeros((rows, n_heads, max_len, head_dim), dtype=cdt, device=device) for _ in range(n_layers)]
+    scores = torch.tensor([0.0] + [_NEG_INF] * (k_beams - 1), dtype=torch.float32, device=device).repeat(batch)
+    lengths = torch.zeros((rows,), dtype=torch.long, device=device)  # emitted tokens per live beam
+    max_ts = torch.full((rows,), timestamp_begin if timestamp_begin is not None else 0, dtype=torch.long, device=device)
+    best_tokens = torch.full((batch, max_len), eot, dtype=torch.long, device=device)
+    best_score = torch.full((batch,), _NEG_INF, dtype=torch.float32, device=device)  # length-normalized
+    best_length = torch.zeros((batch,), dtype=torch.long, device=device)
+    n_finished = torch.zeros((batch,), dtype=torch.long, device=device)
+    suppress = torch.as_tensor(suppress_tokens, dtype=torch.long, device=device) if suppress_tokens else None
+    window_rows = torch.arange(batch, device=device) * k_beams
+
+    def length_norm(length: torch.Tensor) -> torch.Tensor:
+        return torch.clamp(length.to(torch.float32), min=1.0) ** length_penalty
+
+    position = 0
+    while position < max_len - 1:
+        if position % BEAM_STOP_CHECK_STEPS == 0 and bool((n_finished >= k_beams).all()):
+            break
+        token_ids = tokens[:, position]
+        logits, _ = _decoder_token_step(
+            params, weights, cross_k, cross_v, self_k, self_v, token_ids, position,
+            config=cfg, compute_dtype=cdt, beams=k_beams, quant=quant,
+        )
+        if suppress is not None:
+            logits[:, suppress] = _NEG_INF
+        if timestamp_begin is not None:
+            logits = apply_timestamp_rules(
+                logits,
+                last_token=token_ids,
+                penultimate_token=tokens[:, max(position - 1, 0)],
+                max_timestamp=max_ts,
+                generated_count=torch.full((rows,), max(position + 1 - prefix_len, 0), device=device),
+                eot=eot,
+                timestamp_begin=timestamp_begin,
+            )
+        generating = position + 1 >= prefix_len
+        if generating:
+            logprobs = torch.log_softmax(logits, dim=-1)
+            scores3 = scores.view(batch, k_beams)
+            lp3 = logprobs.view(batch, k_beams, vocab)
+            eot_scores = scores3 + lp3[:, :, eot]  # finished candidates, scored with the EOT log-prob
+            live = scores3[:, :, None] + lp3
+            live[:, :, eot] = _NEG_INF
+            ranked, order = torch.sort(live.view(batch, k_beams * vocab), dim=-1, descending=True, stable=True)
+            top_scores, top_idx = ranked[:, :k_beams], order[:, :k_beams]
+            # An EOT candidate is a finished hypothesis iff it would have made the live top-k.
+            would_select = eot_scores > top_scores[:, k_beams - 1 :]
+            lengths3 = lengths.view(batch, k_beams)
+            cand_norm = torch.where(would_select, eot_scores / length_norm(lengths3), _NEG_INF)
+            best_cand = torch.argmax(cand_norm, dim=1, keepdim=True)
+            best_cand_score = cand_norm.gather(1, best_cand)[:, 0]
+            # A window stops accepting once it holds beam_size hypotheses, so its
+            # transcript does not depend on how long the other windows run.
+            accepting = n_finished < k_beams
+            improved = (best_cand_score > best_score) & accepting
+            cand_tokens = tokens[window_rows + best_cand[:, 0]]
+            cand_tokens[:, position + 1] = eot
+            best_tokens = torch.where(improved[:, None], cand_tokens, best_tokens)
+            best_score = torch.where(improved, best_cand_score, best_score)
+            best_length = torch.where(improved, lengths3.gather(1, best_cand)[:, 0], best_length)
+            n_finished = n_finished + torch.where(accepting, would_select.sum(dim=1), 0)
+
+            parent_rows = (top_idx // vocab + window_rows[:, None]).reshape(rows)
+            next_token = (top_idx % vocab).reshape(rows)
+            scores = top_scores.reshape(rows)
+            # Every per-beam carry follows its surviving parent.
+            tokens = tokens[parent_rows]
+            lengths = lengths[parent_rows] + 1  # live beams never carry EOT: every write lengthens
+            max_ts = max_ts[parent_rows]
+            _reorder_caches(self_k, self_v, parent_rows)
+            tokens[:, position + 1] = next_token
+            if timestamp_begin is not None:
+                max_ts = torch.where(next_token >= timestamp_begin, torch.maximum(max_ts, next_token), max_ts)
+        else:
+            tokens[:, position + 1] = prefix_ids[min(position + 1, prefix_len - 1)]
+        position += 1
+
+    live_best = torch.argmax((scores / length_norm(lengths)).view(batch, k_beams), dim=1)
+    live_rows = window_rows + live_best
+    has_finished = n_finished > 0
+    out_tokens = torch.where(has_finished[:, None], best_tokens, tokens[live_rows])
+    out_lengths = torch.where(has_finished, best_length, lengths[live_rows])
+    return out_tokens, out_lengths
+
+
+@torch.inference_mode()
+def alignment_forward(
+    params,
+    config,
+    encoder_states: torch.Tensor,
+    tokens: torch.Tensor,
+    *,
+    align_spec: tuple[tuple[int, int], ...],
+    compute_dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """Teacher-forced cross-attention capture over decoded tokens, in one pass.
+
+    Beam word timing re-runs the decoder once over the winning rows with
+    full causal attention and records the alignment heads' cross-attention
+    (the beam loop keeps no per-beam capture). Returns ``(B, n_align, L, S)``
+    float32 probabilities over the whole padded token axis; rows past a
+    sequence's length attend over padding and ``reduce_alignment_matrix``
+    masks them.
+    """
+    cfg = config
+    cdt = compute_dtype
+    n_heads = cfg.n_heads
+    eps = cfg.layer_norm_eps
+    batch, seq_len = tokens.shape
+    _check_align_spec(align_spec, cfg)
+    x = params.tok_embed[tokens] + params.pos_embed[None, :seq_len]
+    causal = torch.ones((seq_len, seq_len), dtype=torch.bool, device=tokens.device).tril()
+    self_bias = torch.where(causal, 0.0, _NEG_INF)[None, None]
+    captured: list[torch.Tensor | None] = [None] * len(align_spec)
+    for i, layer in enumerate(params.layers[: cfg.decoder_layers]):
+        h = _layer_norm(layer.attn_ln, x, eps)
+        q, k, v = (_split_heads(_dense(lin, h, cdt), n_heads) for lin in (layer.attn.q, layer.attn.k, layer.attn.v))
+        out, _ = _attend(q, k, v, bias=self_bias, compute_dtype=cdt)
+        x = x + _dense(layer.attn.out, out.reshape(batch, seq_len, -1), cdt)
+
+        h = _layer_norm(layer.cross_ln, x, eps)
+        q = _split_heads(_dense(layer.cross.q, h, cdt), n_heads)
+        ck = _split_heads(_dense(layer.cross.k, encoder_states, cdt), n_heads)
+        cv = _split_heads(_dense(layer.cross.v, encoder_states, cdt), n_heads)
+        out, attn_weights = _attend(q, ck, cv, bias=None, compute_dtype=cdt)
+        for slot, (layer_index, head_index) in enumerate(align_spec):
+            if layer_index == i:
+                captured[slot] = attn_weights[:, head_index]
+        x = x + _dense(layer.cross.out, out.reshape(batch, seq_len, -1), cdt)
+
+        h = _layer_norm(layer.mlp_ln, x, eps)
+        x = x + _dense(layer.mlp_out, gelu_erf(_dense(layer.mlp_in, h, cdt)), cdt)
+    return torch.stack(captured, dim=1)
 
 
 @torch.inference_mode()
@@ -477,10 +787,14 @@ def default_alignment_spec(decoder_layers: int, n_heads: int, *, max_pairs: int 
 
 
 __all__ = [
+    "BEAM_STOP_CHECK_STEPS",
     "DecodeWeights",
+    "alignment_forward",
     "apply_timestamp_rules",
+    "beam_decode_kv_cache",
     "default_alignment_spec",
     "greedy_decode_kv_cache",
     "prepare_decode_weights",
+    "quantize_decode_weights",
     "reduce_alignment_matrix",
 ]

@@ -34,6 +34,8 @@ torch = pytest.importorskip("torch")
 MODEL_ID = "openai/whisper-large-v3"
 D_MODEL = 64
 LABELS = ["angry", "happy", "neutral", "sad"]
+#: Frame probabilities of the int8 encode against the float32 one: 5.6e-4 at most on the CPU.
+INT8_PROBABILITY_TOLERANCE = 5e-3
 
 
 def _write_hf_checkpoint(model_dir) -> None:
@@ -190,10 +192,27 @@ def test_unported_options_raise(staged, options) -> None:
         torch_api.infer(staged["clip"], settings=build_settings(staged["env"]), **kwargs)
 
 
-def test_int8_dtype_is_not_ported(staged) -> None:
+def test_int8_dtype_is_not_ported(staged, executions) -> None:
+    """``SER_TORCH_DTYPE=int8`` now runs: the encoder's projections W8A8 (float32
+    around them on the CPU), the same frames as the float32 run, each frame's
+    probabilities within int8's noise of it."""
+    from ser_tpu_torch._internal.repr import encoders
+    from ser_tpu_torch.models.quant import QuantDense
+
     env = {**staged["env"], "SER_TORCH_DTYPE": "int8"}
-    with pytest.raises(NotImplementedError, match="int8"):
-        torch_api.infer(staged["clip"], profile="accurate", settings=build_settings(env))
+    settings = build_settings(env)
+    quantized = torch_api.infer(staged["clip"], profile="accurate", include_transcript=False, settings=settings)
+    backend = encoders.build_encoder_backend("accurate", settings)
+    assert any(isinstance(module, QuantDense) for module in backend._encoder.modules())
+    _, full = executions
+    assert quantized.backend_id == full.backend_id == "jax_whisper_encoder"
+    assert len(quantized.detailed_result.frames) == len(full.detailed_result.frames) == 45
+    worst = max(
+        abs(ours.probabilities[label] - ref.probabilities[label])
+        for ours, ref in zip(quantized.detailed_result.frames, full.detailed_result.frames)
+        for label in ref.probabilities
+    )
+    assert 0.0 < worst <= INT8_PROBABILITY_TOLERANCE
 
 
 def test_accurate_catalog_entry_matches_ser_tpu() -> None:

@@ -146,6 +146,22 @@ def test_research_and_fast_module_is_imported(fresh_import, module: str) -> None
     assert module in fresh_import["imported"]
 
 
+#: The rest of the transcript lane and the int8 lanes: imported in the fresh interpreter like every other.
+TRANSCRIPT_REST_AND_INT8_MODULES = (
+    "ser_tpu_torch.models.quant",
+    "ser_tpu_torch._internal.runtime.oom",
+    "ser_tpu_torch._internal.runtime.worker_lifecycle",
+    "ser_tpu_torch._internal.transcript.process_isolation",
+    "ser_tpu_torch._internal.transcript.profiling",
+    "ser_tpu_torch._internal.transcript.calibration",
+)
+
+
+@pytest.mark.parametrize("module", TRANSCRIPT_REST_AND_INT8_MODULES)
+def test_transcript_rest_and_int8_module_is_imported(fresh_import, module: str) -> None:
+    assert module in fresh_import["imported"]
+
+
 def test_port_import_loads_no_tokenizer_library(fresh_import) -> None:
     """``transformers`` is imported only inside ``from_pretrained_dir``."""
     assert not [name for name in fresh_import["added"] if name.split(".")[0] == "transformers"]

@@ -61,9 +61,12 @@ def test_dtype_policy(monkeypatch, device, dtype, expected) -> None:
 
 @pytest.mark.parametrize(("device", "dtype"), [("cuda", "w8a8"), ("cpu", "int8"), ("cuda", "int8")])
 def test_unported_dtypes_raise(monkeypatch, device, dtype) -> None:
+    """int8 (alias w8a8), once refused, is the Whisper encoder's W8A8 row: int8 on
+    the card and on the CPU, computing in bf16 on the card and float32 on the CPU."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        resolve_feature_runtime("jax_whisper_encoder", torch_runtime=TorchRuntimeConfig(device=device, dtype=dtype))
+    resolved = resolve_feature_runtime("jax_whisper_encoder", torch_runtime=TorchRuntimeConfig(device=device, dtype=dtype))
+    assert resolved.dtype == "int8"
+    assert resolved.torch_dtype == (torch.bfloat16 if device == "cuda" else torch.float32)
 
 
 @pytest.mark.parametrize("backend_id", ["jax_xlsr", "jax_whisper_encoder", "emotion2vec", "handcrafted"])
@@ -99,3 +102,13 @@ def test_no_request_falls_back_to_the_cpu(monkeypatch, dtype) -> None:
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeDependencyError, match="SER_TORCH_DEVICE=cpu"):
         resolve_feature_runtime("jax_xlsr", torch_runtime=TorchRuntimeConfig(device="auto", dtype=dtype))
+
+
+@pytest.mark.parametrize(("device", "dtype", "expected"), [("auto", "auto", "bfloat16"), ("cuda", "int8", "bfloat16"),
+                                                           ("cpu", "auto", "float32"), ("cpu", "int8", "float32")])
+def test_transcript_lane_auto_is_bf16_on_the_card(monkeypatch, device, dtype, expected) -> None:
+    """The transcript lane (``jax_whisper``) resolved ``auto`` to float32, which the decode
+    refuses on the card; it is bf16 there, the JAX transcript's first precision."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    resolved = resolve_feature_runtime("jax_whisper", torch_runtime=TorchRuntimeConfig(device=device, dtype=dtype))
+    assert resolved.dtype == expected

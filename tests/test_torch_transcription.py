@@ -10,8 +10,11 @@
 - REPET-SIM separation and the spectral gate agree at 1e-6;
 - ``api.infer(include_transcript=True)`` with ``SER_TORCH_DEVICE=cpu`` on a
   staged tiny HF checkpoint gives the same transcript and timeline as
-  ``ser_tpu.api.infer``. The JAX transcriber is asked for float32, the port's
-  CPU dtype (the JAX lane's default request is bfloat16).
+  ``ser_tpu.api.infer``, greedy and with ``WHISPER_DECODE_STRATEGY=beam``;
+  the process-isolated route gives the in-process words. The JAX transcriber
+  is asked for float32, the port's CPU dtype (the JAX lane's default request
+  is bfloat16);
+- the beam and isolation settings read and refuse like the JAX package's.
 """
 
 from __future__ import annotations
@@ -43,7 +46,7 @@ from ser_tpu.models.mlp_head import JaxMLPClassifier
 import ser_tpu.profiles as jax_profiles
 from ser_tpu_torch import profiles
 from ser_tpu_torch._internal.config.bootstrap import build_settings
-from ser_tpu_torch._internal.transcript import extractor, hbm_admission
+from ser_tpu_torch._internal.transcript import extractor, hbm_admission, profiling
 from ser_tpu_torch._internal.utils import denoise, source_separation
 from ser_tpu_torch.models import convert
 from ser_tpu_torch.models import whisper as torch_whisper
@@ -227,12 +230,19 @@ def test_retry_loop_matches_jax_on_a_scripted_decode(tiny_models) -> None:
 
 
 def test_unported_decode_options_raise() -> None:
+    """Beam search and the int8 decode stream, once refused, build as the JAX
+    package's options do; an unknown strategy is still refused."""
     state = torch_whisper.random_whisper_encoder_state(TINY, seed=0)
     dec = torch_whisper.random_whisper_decoder_state(TINY, seed=0)
-    with pytest.raises(NotImplementedError, match="Beam"):
-        torch_whisper.WhisperForTranscription(TINY, state, dec, TinyTokenizer(), decode_strategy="beam")
-    with pytest.raises(NotImplementedError, match="int8"):
-        torch_whisper.WhisperForTranscription(TINY, state, dec, TinyTokenizer(), decode_int8=True)
+    beam = torch_whisper.WhisperForTranscription(
+        TINY, state, dec, TinyTokenizer(), decode_strategy="beam", beam_size=4, length_penalty=0.5
+    )
+    assert (beam.decode_strategy, beam.beam_size, beam.length_penalty, beam.decode_int8) == ("beam", 4, 0.5, False)
+    assert beam.decode_weights().fused is not None and beam.decode_weights().quant is None
+    quantized = torch_whisper.WhisperForTranscription(TINY, state, dec, TinyTokenizer(), decode_int8=True)
+    assert quantized.decode_int8 and quantized.decode_weights().quant is not None
+    with pytest.raises(ValueError, match="decode strategy"):
+        torch_whisper.WhisperForTranscription(TINY, state, dec, TinyTokenizer(), decode_strategy="mcts")
 
 
 # --------------------------------------------------------------------------- #
@@ -308,6 +318,41 @@ def test_whisper_variables_read_like_jax(tmp_path) -> None:
         assert getattr(ours.transcription, name) == getattr(ref.transcription, name), name
 
 
+@pytest.mark.parametrize(
+    "env",
+    [
+        {},
+        {"WHISPER_DECODE_STRATEGY": "beam", "WHISPER_BEAM_SIZE": "3", "WHISPER_LENGTH_PENALTY": "0.6"},
+        {"WHISPER_BEAM_SIZE": "16", "WHISPER_LENGTH_PENALTY": "0", "SER_TRANSCRIPTION_HBM_HARD_OOM_SHORTCUT": "0"},
+        {"SER_TRANSCRIPTION_MPS_HARD_OOM_SHORTCUT": "false", "SER_ACCURATE_PROCESS_ISOLATION": "1"},
+    ],
+)
+def test_beam_and_isolation_variables_read_like_jax(env) -> None:
+    ours = build_settings(env)
+    ref = build_settings_from_inputs(capture_settings_inputs(env))
+    for name in ("decode_strategy", "beam_size", "length_penalty", "hbm_hard_oom_shortcut_enabled",
+                 "process_isolation", "isolation_timeout_seconds"):
+        assert getattr(ours.transcription, name) == getattr(ref.transcription, name), name
+    assert ours.accurate_runtime.process_isolation == ref.accurate_runtime.process_isolation
+
+
+@pytest.mark.parametrize(
+    ("env", "match"),
+    [
+        ({"WHISPER_BEAM_SIZE": "0"}, r"WHISPER_BEAM_SIZE must be in \[1, 16\]"),
+        ({"WHISPER_BEAM_SIZE": "17"}, r"WHISPER_BEAM_SIZE must be in \[1, 16\]"),
+        ({"WHISPER_LENGTH_PENALTY": "-0.5"}, r"WHISPER_LENGTH_PENALTY must be finite and in \[0, 5\]"),
+        ({"WHISPER_LENGTH_PENALTY": "nan"}, r"WHISPER_LENGTH_PENALTY must be finite and in \[0, 5\]"),
+        ({"WHISPER_LENGTH_PENALTY": "5.5"}, r"WHISPER_LENGTH_PENALTY must be finite and in \[0, 5\]"),
+    ],
+)
+def test_beam_variables_are_refused_like_jax(env, match) -> None:
+    with pytest.raises(ValueError, match=match):
+        build_settings(env)
+    with pytest.raises(ValueError, match=match):
+        build_settings_from_inputs(capture_settings_inputs(env))
+
+
 @pytest.mark.parametrize("name", ["tiny", "openai/whisper-small.en", "large-v3", "mystery"])
 def test_footprint_estimate_matches_jax(name) -> None:
     assert hbm_admission.estimate_model_footprint_mb(name) == jax_admission.estimate_model_footprint_mb(name)
@@ -327,7 +372,7 @@ def test_calibration_override_matches_jax(tmp_path) -> None:
         "large", build_settings_from_inputs(capture_settings_inputs({})).transcription, default_report_path=report
     )
     assert ours == ref and ours is not None
-    assert hbm_admission.default_calibration_report_path(tmp_path) == jax_profiling.default_calibration_report_path(tmp_path)
+    assert profiling.default_calibration_report_path(tmp_path) == jax_profiling.default_calibration_report_path(tmp_path)
     decision = hbm_admission.admit_transcription_model("large", config=build_settings({}).transcription)
     assert decision.admitted and decision.free_memory_mb is None  # no card here
     report.write_text(json.dumps({"recommendation": {"confidence": "certain"}}))
@@ -491,6 +536,9 @@ def test_transcript_phases_are_recorded(transcript_runs) -> None:
 
 
 def test_missing_assets_and_isolation_raise(staged, tmp_path) -> None:
+    """Missing assets and an unknown backend raise; process isolation, once
+    refused, transcribes in a spawned worker on the CPU, word for word as the
+    in-process run, and a worker's failure comes back as ``TranscriptionError``."""
     env = {**staged["env"], "WHISPER_MODEL": "medium"}
     with pytest.raises(extractor.TranscriptionUnavailableError, match="medium"):
         torch_api.infer(staged["clip"], profile="accurate", settings=build_settings(env))
@@ -498,11 +546,50 @@ def test_missing_assets_and_isolation_raise(staged, tmp_path) -> None:
     isolated = dataclasses.replace(
         settings, transcription=dataclasses.replace(settings.transcription, process_isolation=True)
     )
-    with pytest.raises(NotImplementedError, match="Process-isolated"):
-        extractor.extract_transcript(str(staged["clip"]), language="en", profile="accurate", settings=isolated)
+    words = extractor.extract_transcript(str(staged["clip"]), language="en", profile="accurate", settings=isolated)
+    in_process = extractor.extract_transcript(str(staged["clip"]), language="en", profile="accurate", settings=settings)
+    assert len(words) > 5
+    _assert_same_words(words, in_process)
+    missing = dataclasses.replace(isolated, models=dataclasses.replace(
+        isolated.models, whisper_model=dataclasses.replace(isolated.models.whisper_model, name="medium")))
+    with pytest.raises(extractor.TranscriptionError, match="Failed to transcribe"):
+        extractor.extract_transcript(str(staged["clip"]), language="en", profile="accurate", settings=missing)
     with pytest.raises(extractor.TranscriptionUnavailableError, match="backend"):
         extractor.extract_transcript(
             str(staged["clip"]), language="en", profile="accurate",
             settings=dataclasses.replace(settings, transcription=dataclasses.replace(
                 settings.transcription, backend_id="faster_whisper")),
         )
+
+
+def test_infer_with_beam_transcript_matches_jax(staged) -> None:
+    """Both packages' ``api.infer(include_transcript=True)`` with
+    ``WHISPER_DECODE_STRATEGY=beam`` (beam 3) give the same words and times.
+
+    The random checkpoint's beam transcript of this clip repeats itself, so
+    both packages would retry it by temperature sampling, whose draws differ
+    between the packages (``ROADMAP.md``, Queue 3): retries are off on both.
+    """
+    env = {**staged["env"], "WHISPER_DECODE_STRATEGY": "beam", "WHISPER_BEAM_SIZE": "3"}
+    with pytest.MonkeyPatch.context() as patch:
+        patch.setattr(jax_whisper.WhisperForTranscription, "RETRY_TEMPERATURES", ())
+        patch.setattr(torch_whisper.WhisperForTranscription, "RETRY_TEMPERATURES", ())
+        patch.setattr(
+            jax_extractor,
+            "_runtime_request",
+            lambda resolved, settings: jax_base.BackendRuntimeRequest(
+                model_name=resolved.model_name, use_demucs=resolved.use_demucs, use_vad=resolved.use_vad,
+                precision_candidates=("float32",),
+            ),
+        )
+        reference = jax_api.infer(
+            staged["clip"], profile="accurate", include_transcript=True,
+            settings=build_settings_from_inputs(capture_settings_inputs(env)),
+        )
+        ported = torch_api.infer(
+            staged["clip"], profile="accurate", include_transcript=True, settings=build_settings(env)
+        )
+    assert len(ported.transcript) > 5
+    _assert_same_words(ported.transcript, reference.transcript)
+    assert [tuple(e) for e in ported.timeline] == [tuple(e) for e in reference.timeline]
+

@@ -236,10 +236,22 @@ def test_default_alignment_spec_matches_jax(shape) -> None:
 
 
 def test_unported_decode_options_raise(setup) -> None:
-    _, decoder, states = setup
-    with pytest.raises(NotImplementedError, match="int8"):
+    """The int8 stream, once refused, runs through separate ops (its first step's
+    logits those of JAX's int8 loop; ``tests/test_torch_decode_int8.py`` holds
+    the rest), and the fused kernels refuse it with JAX's words."""
+    params, decoder, states = setup
+    tokens, lengths, _ = torch_decode.greedy_decode_kv_cache(
+        decoder, TORCH_CONFIG, torch.from_numpy(states), [1, 2, 3], 5, prefix_len=3, quant_int8=True
+    )
+    ref_tokens, _, _ = jax_decode.greedy_decode_kv_cache(
+        params, CONFIG, jnp.asarray(states), jnp.asarray([1, 2, 3], jnp.int32), jnp.asarray(5, jnp.int32),
+        prefix_len=3, quant_int8=True,
+    )
+    assert tuple(tokens.shape) == (BATCH, CONFIG.max_target_positions)
+    np.testing.assert_array_equal(tokens.numpy()[:, :4], np.asarray(ref_tokens)[:, :4])
+    with pytest.raises(ValueError, match="int8 decode weights"):
         torch_decode.greedy_decode_kv_cache(
-            decoder, TORCH_CONFIG, torch.from_numpy(states), [1, 2, 3], 5, prefix_len=3, quant_int8=True
+            decoder, TORCH_CONFIG, torch.from_numpy(states), [1, 2, 3], 5, prefix_len=3, quant_int8=True, fused=True
         )
 
 
