@@ -12,8 +12,19 @@ environment configures both packages: ``SER_ENABLE_MEDIUM_PROFILE``,
 ``SER_ACCURATE_RESEARCH_MODEL_ID``, ``SER_OUTPUT_SCHEMA_VERSION``,
 ``SER_TORCH_DEVICE``, ``SER_TORCH_DTYPE``, ``SER_DEFAULT_LANGUAGE``,
 ``SER_TMP_FOLDER`` (alias ``SER_TMP_DIR``), the ``SER_<PROFILE>_<KNOB>``
-runtime overrides of the four profiles (``SER_<PROFILE>_PROCESS_ISOLATION``
-among them), and the transcript lane's ``WHISPER_BACKEND``, ``WHISPER_MODEL``,
+runtime overrides of the four profiles (``SER_<PROFILE>_TIMEOUT_SECONDS``,
+``..._MAX_TIMEOUT_RETRIES``, ``..._MAX_TRANSIENT_RETRIES``,
+``..._RETRY_BACKOFF_SECONDS`` and ``..._PROCESS_ISOLATION`` among them), the
+data layer's ``SER_DATASET_FOLDER`` (alias ``DATASET_FOLDER``),
+``SER_DATASET_MANIFESTS`` (comma-separated, or path-separated when no comma
+is present), ``SER_DATASET_RECIPE`` (which turns the strict audit on unless
+``SER_DATASET_STRICT_AUDIT`` (alias ``SER_STRICT_DATASET_AUDIT``) says
+otherwise), ``SER_DATASET_REGISTRY_ROOT``, ``SER_DATA_LOADER_MAX_WORKERS``
+(alias ``SER_MAX_WORKERS``), ``SER_DATA_LOADER_MAX_FAILED_FILE_RATIO`` (alias
+``SER_MAX_FAILED_FILE_RATIO``), ``SER_TEST_SIZE``, ``SER_RANDOM_STATE``, the label
+ontology's ``SER_LABEL_ONTOLOGY_ID``, ``SER_ALLOWED_LABELS``,
+``SER_UNKNOWN_LABEL_POLICY`` (an unknown value reads as ``drop``) and
+``SER_OTHER_LABEL``, and the transcript lane's ``WHISPER_BACKEND``, ``WHISPER_MODEL``,
 ``WHISPER_DEMUCS``, ``WHISPER_VAD``, ``WHISPER_DECODE_STRATEGY``,
 ``WHISPER_BEAM_SIZE`` (1-16), ``WHISPER_LENGTH_PENALTY`` (finite, 0-5),
 ``SER_TRANSCRIPTION_HBM_HARD_OOM_SHORTCUT`` (alias ``..._MPS_...``) and
@@ -82,6 +93,10 @@ def _path(env: Mapping[str, str], name: str) -> Path | None:
 
 #: The profile runtime knobs these paths read, each from ``SER_<PROFILE>_<KNOB>``.
 _KNOB_READERS = {
+    "timeout_seconds": _number(float),
+    "max_timeout_retries": _number(int),
+    "max_transient_retries": _number(int),
+    "retry_backoff_seconds": _number(float),
     "pool_window_size_seconds": _number(float),
     "pool_window_stride_seconds": _number(float),
     "post_smoothing_window_frames": _number(int),
@@ -94,6 +109,71 @@ _KNOB_READERS = {
 
 def _changes(**values: object) -> dict[str, object]:
     return {name: value for name, value in values.items() if value is not None}
+
+
+def _first(read, env: Mapping[str, str], *names: str):
+    """The first of ``names`` that is set, read by ``read``."""
+    for name in names:
+        value = read(env, name)
+        if value is not None:
+            return value
+    return None
+
+
+def _manifest_paths(env: Mapping[str, str]) -> tuple[Path, ...] | None:
+    raw = _str(env, "SER_DATASET_MANIFESTS")
+    if raw is None:
+        return None
+    separator = "," if "," in raw else os.pathsep
+    return tuple(Path(item.strip()).expanduser() for item in raw.split(separator) if item.strip()) or None
+
+
+def _data_sections(env: Mapping[str, str], base: AppConfig) -> dict[str, object]:
+    """The dataset, loader, training and ontology sections (the JAX package's variables and rules)."""
+    recipe = _str(env, "SER_DATASET_RECIPE")
+    strict_audit = _first(_bool, env, "SER_DATASET_STRICT_AUDIT", "SER_STRICT_DATASET_AUDIT")
+    if strict_audit is None and recipe is not None:
+        strict_audit = True  # a pinned recipe implies the strict audit unless relaxed
+    dataset = dataclasses.replace(
+        base.dataset,
+        **_changes(
+            folder=_first(_path, env, "SER_DATASET_FOLDER", "DATASET_FOLDER"),
+            manifest_paths=_manifest_paths(env),
+            recipe=recipe,
+            strict_audit=strict_audit,
+            registry_root=_path(env, "SER_DATASET_REGISTRY_ROOT"),
+        ),
+    )
+    data_loader = dataclasses.replace(
+        base.data_loader,
+        **_changes(
+            max_workers=_first(_number(int), env, "SER_DATA_LOADER_MAX_WORKERS", "SER_MAX_WORKERS"),
+            max_failed_file_ratio=_first(
+                _number(float), env, "SER_DATA_LOADER_MAX_FAILED_FILE_RATIO", "SER_MAX_FAILED_FILE_RATIO"
+            ),
+        ),
+    )
+    training = dataclasses.replace(
+        base.training,
+        **_changes(
+            test_size=_number(float)(env, "SER_TEST_SIZE"),
+            random_state=_number(int)(env, "SER_RANDOM_STATE"),
+        ),
+    )
+    policy = _str(env, "SER_UNKNOWN_LABEL_POLICY")
+    if policy is not None:
+        policy = policy.lower() if policy.lower() in ("drop", "error", "map_to_other") else "drop"
+    allowed = tuple(item.strip() for item in (_str(env, "SER_ALLOWED_LABELS") or "").split(",") if item.strip())
+    ontology = dataclasses.replace(
+        base.ontology,
+        **_changes(
+            ontology_id=_str(env, "SER_LABEL_ONTOLOGY_ID"),
+            allowed_labels=allowed or None,
+            unknown_label_policy=policy,
+            other_label=_str(env, "SER_OTHER_LABEL"),
+        ),
+    )
+    return {"dataset": dataset, "data_loader": data_loader, "training": training, "ontology": ontology}
 
 
 def build_settings(env: Mapping[str, str] | None = None) -> AppConfig:
@@ -192,6 +272,7 @@ def build_settings(env: Mapping[str, str] | None = None) -> AppConfig:
         transcription=transcription,
         tmp_folder=tmp_folder if tmp_folder is not None else base.tmp_folder,
         default_language=_str(env, "SER_DEFAULT_LANGUAGE") or base.default_language,
+        **_data_sections(env, base),
     )
 
 

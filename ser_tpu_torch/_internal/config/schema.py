@@ -3,17 +3,21 @@
 Counterpart of ``ser_tpu/_internal/config/schema.py``. Field names, defaults
 and the platform cache/data directories are the JAX package's, so one
 environment configures both packages alike. Only the sections the four
-profiles' inference paths, their transcript lane and the restricted-backend
-gate read are here; the full settings builder is later work (``ROADMAP.md``).
+profiles' inference paths, their transcript lane, the restricted-backend
+gate, the data layer and the fast head's trainer read are here; the full
+settings builder is later work (``ROADMAP.md``).
 """
 
 from __future__ import annotations
 
 import os
 import sys
+from collections.abc import Mapping
 from dataclasses import dataclass, field
 from pathlib import Path
+from typing import Literal
 
+from ser_tpu_torch._internal.data.ravdess import RAVDESS_EMOTIONS
 from ser_tpu_torch.profiles import ProfileName, ProfileRuntimeDefaults, require_ported
 from ser_tpu_torch.runtime.schema import OUTPUT_SCHEMA_VERSION
 
@@ -60,6 +64,64 @@ class FeatureFlags:
     mel: bool = True
     contrast: bool = True
     tonnetz: bool = True
+
+
+@dataclass(frozen=True)
+class NeuralNetConfig:
+    """The MLP head's hyperparameters (``TorchMLPClassifier.from_config``)."""
+
+    alpha: float = 0.01
+    batch_size: int | Literal["auto"] = 256
+    epsilon: float = 1e-08
+    hidden_layer_sizes: tuple[int, ...] = (300,)
+    max_iter: int = 500
+    random_state: int = 42
+
+
+@dataclass(frozen=True)
+class DatasetConfig:
+    """Where the training corpus lives, and the manifests, recipe and registry that describe it."""
+
+    folder: Path = field(default_factory=lambda: default_data_root() / "dataset" / "ravdess")
+    subfolder_prefix: str = "Actor_*"
+    extension: str = "*.wav"
+    manifest_paths: tuple[Path, ...] = ()
+    recipe: str | None = None
+    strict_audit: bool = False
+    #: Where the dataset registry lives instead of beside the models folder (None: there).
+    registry_root: Path | None = None
+
+    @property
+    def glob_pattern(self) -> str:
+        """The glob of the corpus's audio files."""
+        return str(self.folder / self.subfolder_prefix / self.extension)
+
+
+@dataclass(frozen=True)
+class DataLoaderConfig:
+    """Decode parallelism and the failure budget of dataset loading."""
+
+    max_workers: int = 8
+    max_failed_file_ratio: float = 0.01
+
+
+@dataclass(frozen=True)
+class TrainingConfig:
+    """The train/test split of model training."""
+
+    test_size: float = 0.25
+    random_state: int = 42
+    stratify_split: bool = True
+
+
+@dataclass(frozen=True)
+class OntologyConfig:
+    """The label ontology: empty ``allowed_labels`` means the emotion map's values."""
+
+    ontology_id: str = "default_v1"
+    allowed_labels: tuple[str, ...] = ()
+    unknown_label_policy: str = "drop"
+    other_label: str = "other"
 
 
 @dataclass(frozen=True)
@@ -181,6 +243,12 @@ class TorchRuntimeConfig:
 class AppConfig:
     """The port's settings snapshot."""
 
+    emotions: Mapping[str, str] = field(default_factory=lambda: dict(RAVDESS_EMOTIONS))
+    nn: NeuralNetConfig = field(default_factory=NeuralNetConfig)
+    dataset: DatasetConfig = field(default_factory=DatasetConfig)
+    data_loader: DataLoaderConfig = field(default_factory=DataLoaderConfig)
+    training: TrainingConfig = field(default_factory=TrainingConfig)
+    ontology: OntologyConfig = field(default_factory=OntologyConfig)
     audio_read: AudioReadConfig = field(default_factory=AudioReadConfig)
     models: ModelsConfig = field(default_factory=ModelsConfig)
     runtime_flags: RuntimeFlags = field(default_factory=RuntimeFlags)
@@ -223,11 +291,16 @@ __all__ = [
     "AppConfig",
     "AudioReadConfig",
     "DEFAULT_FAST_MODEL_FILE_NAME",
+    "DataLoaderConfig",
+    "DatasetConfig",
     "FeatureFlags",
     "ModelsConfig",
+    "NeuralNetConfig",
+    "OntologyConfig",
     "RuntimeFlags",
     "SchemaConfig",
     "TorchRuntimeConfig",
+    "TrainingConfig",
     "TranscriptionConfig",
     "WhisperModelConfig",
     "default_cache_root",

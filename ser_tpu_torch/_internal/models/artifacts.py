@@ -1,11 +1,16 @@
-"""Model-artifact envelope, load side.
+"""Model-artifact envelope: build, save, load, compatibility checks.
 
-Counterpart of the load half of ``ser_tpu/_internal/models/artifacts.py``: the
-same v3 envelope (supported versions {2, 3}, envelope and metadata versions
-equal) and the same backend / profile / model-id compatibility filters, so an
-artifact written by ``ser_tpu`` loads here unchanged. The payload must be the
-``ser_tpu_mlp`` state dict; it becomes a ``TorchMLPClassifier`` on the given
-device.
+Counterpart of ``ser_tpu/_internal/models/artifacts.py``: the same v3
+envelope (supported versions {2, 3}, the version in the envelope and in the
+metadata, equal), the metadata ``build_artifact_metadata`` normalizes
+(backend, profile, model id, device, dtype, provenance, the optional
+sha256 recipe and split-ledger digests), the atomic save (a temporary file
+in the target's folder, the umask's permissions, then ``replace``) with its
+``<name>.meta.json`` sidecar, and the backend / profile / model-id filters
+at load. An artifact written here loads in the JAX package's
+``load_model_artifact``, and one written there loads here. The payload is the
+``ser_tpu_mlp`` state dict; at load it becomes a ``TorchMLPClassifier`` on
+the given device.
 
 Unpickling goes through a restricted ``Unpickler`` that resolves numpy's own
 array and dtype reconstructors and nothing else, so no ``ser_tpu`` (or any
@@ -15,16 +20,25 @@ other) class is imported or run. Legacy sklearn pickles wait for a later slice.
 from __future__ import annotations
 
 import io
+import json
+import os
 import pickle
 import re
+import tempfile
+from datetime import UTC, datetime
 from pathlib import Path
 from typing import Any, NamedTuple
 
 import torch
 
+from ser_tpu_torch._internal.utils.logger import get_logger
 from ser_tpu_torch.models.mlp_head import TorchMLPClassifier
+from ser_tpu_torch.runtime.schema import ARTIFACT_SCHEMA_VERSION
 
-SUPPORTED_MODEL_ARTIFACT_VERSIONS = frozenset({2, 3})
+logger = get_logger(__name__)
+
+MODEL_ARTIFACT_VERSION = 3
+SUPPORTED_MODEL_ARTIFACT_VERSIONS = frozenset({2, MODEL_ARTIFACT_VERSION})
 DEFAULT_BACKEND_ID = "handcrafted"
 DEFAULT_PROFILE_ID = "fast"
 _SHA256_HEX = re.compile(r"[0-9a-f]{64}")
@@ -40,6 +54,98 @@ class LoadedModel(NamedTuple):
     model: Any
     expected_feature_size: int | None
     artifact_metadata: dict[str, Any] | None = None
+
+
+def build_artifact_metadata(
+    *,
+    feature_vector_size: int,
+    training_samples: int,
+    labels: list[str],
+    backend_id: str = DEFAULT_BACKEND_ID,
+    profile: str = DEFAULT_PROFILE_ID,
+    feature_dim: int | None = None,
+    frame_size_seconds: float = 3.0,
+    frame_stride_seconds: float = 1.0,
+    pooling_strategy: str = "mean",
+    backend_model_id: str | None = None,
+    model_revision: str | None = None,
+    device: str | None = None,
+    dtype: str | None = None,
+    provenance: dict[str, Any] | None = None,
+    seed: int | None = None,
+    evaluation_summary: dict[str, Any] | None = None,
+    recipe_digest: str | None = None,
+    split_ledger_digest: str | None = None,
+) -> dict[str, Any]:
+    """The v3 metadata; the recipe and split-ledger digests are included only when set (sha256 hex)."""
+    if feature_vector_size <= 0:
+        raise ArtifactError("feature_vector_size must be positive.")
+    if training_samples <= 0:
+        raise ArtifactError("training_samples must be positive.")
+    if not labels:
+        raise ArtifactError("labels must be non-empty.")
+    digests = {"recipe_digest": recipe_digest, "split_ledger_digest": split_ledger_digest}
+    for name, digest in digests.items():
+        if digest is not None and _SHA256_HEX.fullmatch(digest) is None:
+            raise ArtifactError(f"Artifact metadata {name!r} must be sha256 hex.")
+    return {
+        **{name: digest for name, digest in digests.items() if digest is not None},
+        "artifact_version": MODEL_ARTIFACT_VERSION,
+        "artifact_schema_version": ARTIFACT_SCHEMA_VERSION,
+        "created_at_utc": datetime.now(tz=UTC).isoformat(),
+        "feature_vector_size": int(feature_vector_size),
+        "training_samples": int(training_samples),
+        "labels": [str(label) for label in labels],
+        "backend_id": backend_id,
+        "profile": profile,
+        # An unset feature_dim is the vector size; the load requires them equal.
+        "feature_dim": int(feature_dim) if feature_dim is not None else int(feature_vector_size),
+        "frame_size_seconds": float(frame_size_seconds),
+        "frame_stride_seconds": float(frame_stride_seconds),
+        "pooling_strategy": pooling_strategy,
+        "backend_model_id": backend_model_id,
+        "model_revision": model_revision,
+        "device": device,
+        "dtype": dtype,
+        "provenance": provenance or {},
+        "task_heads": ["primary_emotion"],
+        "seed": seed,
+        # Objects, never None: a null here fails the load-time normalization.
+        "sampling_policy": {},
+        "evaluation_summary": evaluation_summary or {},
+    }
+
+
+def build_model_artifact(model: Any, metadata: dict[str, Any]) -> dict[str, Any]:
+    """The envelope of a head and its metadata; the version rides at its top level and in the metadata."""
+    payload = model.get_state() if isinstance(model, TorchMLPClassifier) else model
+    version = dict(metadata).get("artifact_version", MODEL_ARTIFACT_VERSION)
+    return {"artifact_version": version, "model": payload, "metadata": dict(metadata)}
+
+
+def save_model_artifact(envelope: dict[str, Any], path: str | Path) -> str:
+    """Saves one envelope atomically, and its metadata beside it as ``<name>.meta.json``."""
+    target = Path(path)
+    target.parent.mkdir(parents=True, exist_ok=True)
+    fd, tmp_name = tempfile.mkstemp(dir=target.parent, prefix=f".{target.name}.")
+    try:
+        with os.fdopen(fd, "wb") as handle:
+            pickle.dump(envelope, handle, protocol=pickle.HIGHEST_PROTOCOL)
+        # mkstemp creates 0600; a published artifact takes the umask's permissions, as the sidecar does.
+        umask = os.umask(0)
+        os.umask(umask)
+        os.chmod(tmp_name, 0o666 & ~umask)
+        os.replace(tmp_name, target)
+    except BaseException:
+        if os.path.exists(tmp_name):
+            os.unlink(tmp_name)
+        raise
+    meta_path = target.with_suffix(target.suffix + ".meta.json")
+    try:
+        meta_path.write_text(json.dumps(envelope.get("metadata", {}), indent=2, default=str), encoding="utf-8")
+    except OSError:
+        logger.warning("Could not write metadata sidecar %s", meta_path)
+    return str(target)
 
 
 #: numpy's array, dtype and scalar reconstructors, the only globals a pickled
@@ -140,7 +246,13 @@ def load_model_artifact(
 
 __all__ = [
     "ArtifactError",
+    "DEFAULT_BACKEND_ID",
+    "DEFAULT_PROFILE_ID",
     "LoadedModel",
+    "MODEL_ARTIFACT_VERSION",
     "SUPPORTED_MODEL_ARTIFACT_VERSIONS",
+    "build_artifact_metadata",
+    "build_model_artifact",
     "load_model_artifact",
+    "save_model_artifact",
 ]

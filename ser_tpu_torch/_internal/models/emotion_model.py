@@ -9,16 +9,16 @@ the settings' torch device (the card unless ``SER_TORCH_DEVICE=cpu``).
 
 from __future__ import annotations
 
-import logging
 
 from ser_tpu_torch._internal.config.bootstrap import reload_settings
 from ser_tpu_torch._internal.config.schema import AppConfig
 from ser_tpu_torch._internal.features import extract_feature_frames
 from ser_tpu_torch._internal.models import artifacts, fast_path
 from ser_tpu_torch._internal.repr.runtime_policy import resolve_device
+from ser_tpu_torch._internal.utils.logger import get_logger
 from ser_tpu_torch.runtime.schema import InferenceResult
 
-logger = logging.getLogger(__name__)
+logger = get_logger(__name__)
 
 #: The fast profile's encode framing.
 FAST_FRAME_SIZE_SECONDS = 3.0

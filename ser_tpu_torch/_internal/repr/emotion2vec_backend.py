@@ -23,7 +23,6 @@ first, other ids in the HF root first.
 
 from __future__ import annotations
 
-import logging
 import os
 from pathlib import Path
 
@@ -32,10 +31,11 @@ import torch
 from ser_tpu_torch._internal.repr.encoder_backend import random_init_seed, resolve_local_model_dir
 from ser_tpu_torch._internal.repr.wav2vec2_backend import XlsrBackend
 from ser_tpu_torch._internal.runtime.errors import RuntimeDependencyError
+from ser_tpu_torch._internal.utils.logger import get_logger
 from ser_tpu_torch.models import wav2vec2
 from ser_tpu_torch.models.emotion2vec_convert import load_funasr_emotion2vec_state
 
-logger = logging.getLogger(__name__)
+logger = get_logger(__name__)
 
 BACKEND_ID = "emotion2vec"
 

@@ -20,7 +20,6 @@ on tensors (the JAX package builds a new ``jax.jit`` on every call).
 from __future__ import annotations
 
 import hashlib
-import logging
 from collections.abc import Callable
 from pathlib import Path
 
@@ -30,8 +29,9 @@ import torch
 from ser_tpu_torch._internal.pool.device_pool import device_pooling_enabled
 from ser_tpu_torch._internal.repr.backend import EncodedSequence
 from ser_tpu_torch._internal.utils.audio_io import resample_audio
+from ser_tpu_torch._internal.utils.logger import get_logger
 
-logger = logging.getLogger(__name__)
+logger = get_logger(__name__)
 
 ENCODER_SAMPLE_RATE = 16000
 MAX_CHUNK_SECONDS = 30.0

@@ -17,7 +17,6 @@ the card.
 
 from __future__ import annotations
 
-import logging
 import os
 from collections.abc import Sequence
 from pathlib import Path
@@ -38,10 +37,11 @@ from ser_tpu_torch._internal.repr.encoder_backend import (
     resolve_local_model_dir,
 )
 from ser_tpu_torch._internal.runtime.errors import RuntimeDependencyError
+from ser_tpu_torch._internal.utils.logger import get_logger
 from ser_tpu_torch.models import wav2vec2
 from ser_tpu_torch.models.param_utils import cast_state_bf16
 
-logger = logging.getLogger(__name__)
+logger = get_logger(__name__)
 
 BACKEND_ID = "jax_xlsr"
 

@@ -12,7 +12,6 @@ the CPU), as the JAX backend runs it.
 
 from __future__ import annotations
 
-import logging
 import os
 from collections.abc import Sequence
 from pathlib import Path
@@ -29,10 +28,11 @@ from ser_tpu_torch._internal.repr.backend import (
 from ser_tpu_torch._internal.repr.encoder_backend import random_init_seed, resolve_local_model_dir
 from ser_tpu_torch._internal.runtime.errors import RuntimeDependencyError
 from ser_tpu_torch._internal.utils.audio_io import resample_audio
+from ser_tpu_torch._internal.utils.logger import get_logger
 from ser_tpu_torch.models import whisper as whisper_model
 from ser_tpu_torch.models.convert import whisper_encoder_state_dict
 
-logger = logging.getLogger(__name__)
+logger = get_logger(__name__)
 
 BACKEND_ID = "jax_whisper_encoder"
 

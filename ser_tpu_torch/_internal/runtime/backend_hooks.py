@@ -12,7 +12,6 @@ boundary with mean+std pooling.
 from __future__ import annotations
 
 import functools
-import logging
 from collections.abc import Callable
 
 from ser_tpu_torch._internal.config.artifact_naming import profile_artifact_file_name
@@ -24,11 +23,12 @@ from ser_tpu_torch._internal.runtime.profile_boundary import (
     ProfileBoundarySpec,
     run_profile_inference,
 )
+from ser_tpu_torch._internal.utils.logger import get_logger
 from ser_tpu_torch.profiles import PROFILE_NAMES, ProfileName, require_ported
 from ser_tpu_torch.runtime.contracts import InferenceRequest
 from ser_tpu_torch.runtime.schema import InferenceResult
 
-logger = logging.getLogger(__name__)
+logger = get_logger(__name__)
 
 type BackendHook = Callable[[InferenceRequest], InferenceResult]
 

@@ -2,9 +2,9 @@
 
 Counterpart of ``ser_tpu/_internal/runtime/errors.py``: the six error kinds
 and their wire names, by which a spawned worker's error crosses back to the
-parent typed (``error_kind``, ``rehydrate_error``). The retry ladder that
-reads the timeout and transient kinds waits for the slice that ports the
-retry policy (``ROADMAP.md``).
+parent typed (``error_kind``, ``rehydrate_error``). The retry policy
+(``policy.py``) retries the timeout and transient kinds, each from its own
+budget.
 """
 
 from __future__ import annotations

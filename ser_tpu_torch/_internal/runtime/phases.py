@@ -7,12 +7,13 @@ into ``InferenceExecution.phase_timings_seconds``.
 
 from __future__ import annotations
 
-import logging
 import time
 from collections.abc import Iterator
 from contextlib import contextmanager
 
-logger = logging.getLogger(__name__)
+from ser_tpu_torch._internal.utils.logger import get_logger
+
+logger = get_logger(__name__)
 
 PHASE_WORKFLOW_TOTAL = "workflow_total"
 PHASE_EMOTION_SETUP = "emotion_setup"

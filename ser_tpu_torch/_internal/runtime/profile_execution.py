@@ -9,7 +9,6 @@ postprocessing config.
 
 from __future__ import annotations
 
-import logging
 from typing import Any, Literal
 
 import numpy as np
@@ -22,9 +21,10 @@ from ser_tpu_torch._internal.runtime.postprocessing import (
     SegmentPostprocessingConfig,
     postprocess_frame_predictions,
 )
+from ser_tpu_torch._internal.utils.logger import get_logger
 from ser_tpu_torch.runtime.schema import FramePrediction, InferenceResult
 
-logger = logging.getLogger(__name__)
+logger = get_logger(__name__)
 
 type PoolingStrategy = Literal["mean", "mean_std"]
 

@@ -13,15 +13,15 @@ training artifacts, which the port does not write yet (``ROADMAP.md``).
 from __future__ import annotations
 
 import json
-import logging
 import os
 from dataclasses import dataclass
 from hashlib import sha256
 from pathlib import Path
 
 from ser_tpu_torch._internal.config.schema import AppConfig, default_data_root
+from ser_tpu_torch._internal.utils.logger import get_logger
 
-logger = logging.getLogger(__name__)
+logger = get_logger(__name__)
 
 
 class RestrictedBackendError(PermissionError):

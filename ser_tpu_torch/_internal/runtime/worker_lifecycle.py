@@ -7,13 +7,13 @@ and ``rehydrate_error``); a timed-out worker is terminated, then killed.
 
 Workers start from the ``spawn`` context only, never ``fork``: a forked
 child would inherit the parent's CUDA context, which CUDA does not support.
-The transcript lane isolates only runs on the CPU
-(``_internal/transcript/process_isolation.py``).
+A spawned worker builds its own. The emotion pass isolates on the card or
+the CPU (``profile_boundary.py``); the transcript lane isolates only runs on
+the CPU (``_internal/transcript/process_isolation.py``).
 """
 
 from __future__ import annotations
 
-import logging
 import multiprocessing as mp
 import pickle
 from collections.abc import Callable
@@ -28,8 +28,9 @@ from ser_tpu_torch._internal.runtime.errors import (
     error_kind,
     rehydrate_error,
 )
+from ser_tpu_torch._internal.utils.logger import get_logger
 
-logger = logging.getLogger(__name__)
+logger = get_logger(__name__)
 
 _SETUP_COMPLETE = ("phase", "setup_complete")
 _KILL_GRACE_SECONDS = 2.0

@@ -19,7 +19,6 @@ the settings the caller passed.
 
 from __future__ import annotations
 
-import logging
 from dataclasses import asdict, dataclass
 from functools import partial
 
@@ -34,10 +33,11 @@ from ser_tpu_torch._internal.transcript.process_isolation import (
 )
 from ser_tpu_torch._internal.transcript.profiling import default_calibration_report_path
 from ser_tpu_torch._internal.transcript.whisper_backend import BACKEND_ID, WhisperTranscriber
+from ser_tpu_torch._internal.utils.logger import get_logger
 from ser_tpu_torch.domain import TranscriptWord
 from ser_tpu_torch.profiles import ProfileName, require_ported
 
-logger = logging.getLogger(__name__)
+logger = get_logger(__name__)
 
 
 class TranscriptionError(RuntimeError):

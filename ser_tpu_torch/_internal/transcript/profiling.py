@@ -12,7 +12,6 @@ from __future__ import annotations
 
 import dataclasses
 import json
-import logging
 import math
 import re
 import time
@@ -22,9 +21,10 @@ from pathlib import Path
 
 import numpy as np
 
+from ser_tpu_torch._internal.utils.logger import get_logger
 from ser_tpu_torch.domain import TranscriptWord
 
-logger = logging.getLogger(__name__)
+logger = get_logger(__name__)
 
 #: The two canonical RAVDESS statements (every clip speaks one of these).
 RAVDESS_CANONICAL_SENTENCES: tuple[str, ...] = (

@@ -13,7 +13,6 @@ decoder (not a TPU kernel; its output matches this python path to 1e-6).
 
 from __future__ import annotations
 
-import logging
 import struct
 import time
 from pathlib import Path
@@ -22,8 +21,9 @@ import numpy as np
 from numpy.typing import NDArray
 
 from ser_tpu_torch._internal.config.schema import AudioReadConfig
+from ser_tpu_torch._internal.utils.logger import get_logger
 
-logger = logging.getLogger(__name__)
+logger = get_logger(__name__)
 
 _GIT_LFS_POINTER_PREFIX = b"version https://git-lfs.github.com/spec/v1"
 _WAVE_FORMAT_PCM = 0x0001

@@ -15,13 +15,14 @@ raises ``NotImplementedError`` (``ROADMAP.md``, slice 6).
 
 from __future__ import annotations
 
-import logging
 import os
 from pathlib import Path
 
 import numpy as np
 
-logger = logging.getLogger(__name__)
+from ser_tpu_torch._internal.utils.logger import get_logger
+
+logger = get_logger(__name__)
 
 _EPS = 1e-10
 

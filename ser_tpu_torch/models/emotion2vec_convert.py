@@ -32,17 +32,17 @@ holds the tensors converts them without a round trip through a file.
 
 from __future__ import annotations
 
-import logging
 from collections.abc import Mapping
 from pathlib import Path
 
 import numpy as np
 import torch
 
+from ser_tpu_torch._internal.utils.logger import get_logger
 from ser_tpu_torch.models.checkpoint_audit import AuditedState, unconsumed_key_error
 from ser_tpu_torch.models.wav2vec2 import Wav2Vec2Config
 
-logger = logging.getLogger(__name__)
+logger = get_logger(__name__)
 
 _AUDIO = "modality_encoders.AUDIO."
 _SKIP_PREFIXES = ("decoder.", "_ema", "ema.", "proj.", "regression_head.")

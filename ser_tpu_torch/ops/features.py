@@ -11,6 +11,10 @@ batched program of ``ops/dsp.py``, on the device the caller names.
   the same rows.
 - Frames shorter than 2048 samples take librosa's small-signal path (pad to
   at least 512, ``n_fft = min(size, 2048)`` and its mixed hop lengths).
+- ``extract_feature_vectors_batch`` (the training loader's) takes one
+  whole-clip vector per clip: the clips of one sample rate go through the
+  batched program together, each row zero-padded to the chunk's longest
+  clip and masked to its own length.
 
 Differences from the JAX package: one device, so no batch sharding; and no
 power-of-two buckets of rows, clip slices or whole-clip lengths. They bound
@@ -222,8 +226,40 @@ def extract_frame_features(
     return features, starts / float(sample_rate), ends / float(sample_rate)
 
 
+def extract_feature_vectors_batch(
+    clips: list[tuple[np.ndarray, int]],
+    *,
+    device: torch.device | str,
+    feature_flags: FeatureFlags | None = None,
+) -> np.ndarray:
+    """Whole-clip feature vectors of many clips in few device calls: (n_clips, D) float64, in input order."""
+    flags = feature_flags if feature_flags is not None else FeatureFlags()
+    device = torch.device(device)
+    out = np.zeros((len(clips), feature_dim(flags)), dtype=np.float64)
+    by_rate: dict[int, list[tuple[int, np.ndarray]]] = {}
+    for index, (audio, sample_rate) in enumerate(clips):
+        audio = np.asarray(audio, dtype=np.float32)
+        _validate(audio, sample_rate)
+        prepared = pad_audio_for_fft(audio)
+        if prepared.size < _FULL_NFFT:
+            out[index] = _features_small(prepared, sample_rate, flags, device)
+        else:
+            by_rate.setdefault(sample_rate, []).append((index, prepared))
+    for sample_rate, members in by_rate.items():
+        for chunk_start in range(0, len(members), _MAX_DEVICE_ROWS):
+            chunk = members[chunk_start : chunk_start + _MAX_DEVICE_ROWS]
+            lengths = np.asarray([prepared.size for _, prepared in chunk])
+            frames = np.zeros((len(chunk), int(lengths.max())), dtype=np.float32)
+            for row, (_, prepared) in enumerate(chunk):
+                frames[row, : prepared.size] = prepared
+            rows = _batched_features(frames, lengths, sample_rate, flags, device)
+            out[[index for index, _ in chunk]] = rows.astype(np.float64)
+    return out
+
+
 __all__ = [
     "extract_feature_from_signal",
+    "extract_feature_vectors_batch",
     "extract_frame_features",
     "feature_dim",
     "pad_audio_for_fft",

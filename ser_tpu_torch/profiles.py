@@ -30,8 +30,9 @@ PROFILE_PRECEDENCE: tuple[ProfileName, ...] = ("accurate-research", "accurate", 
 class ProfileRuntimeDefaults:
     """Execution budgets and postprocessing defaults for one profile.
 
-    The port reads the pooling and postprocessing fields; the budgets are
-    kept as the catalog states them, for the retry policy of a later slice.
+    The boundaries' retry policy reads the budgets (``_internal/runtime/
+    policy.py``); the windowed profiles read the pooling and postprocessing
+    fields.
     """
 
     timeout_seconds: float

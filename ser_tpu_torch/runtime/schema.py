@@ -11,6 +11,7 @@ from dataclasses import dataclass
 from ser_tpu_torch.domain import EmotionSegment
 
 OUTPUT_SCHEMA_VERSION = "v1"
+ARTIFACT_SCHEMA_VERSION = "v2"
 
 
 @dataclass(frozen=True)
@@ -61,6 +62,7 @@ def to_legacy_emotion_segments(result: InferenceResult) -> list[EmotionSegment]:
 
 
 __all__ = [
+    "ARTIFACT_SCHEMA_VERSION",
     "OUTPUT_SCHEMA_VERSION",
     "FramePrediction",
     "InferenceResult",

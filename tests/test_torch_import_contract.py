@@ -1,4 +1,4 @@
-"""The PyTorch port imports nothing of JAX and nothing of ser_tpu.
+"""The PyTorch port imports nothing of JAX, nothing of ser_tpu and no scikit-learn.
 
 Two checks: a fresh interpreter imports every ``ser_tpu_torch`` module and
 reports which modules that import added to ``sys.modules`` (a difference, so a
@@ -21,11 +21,13 @@ import pytest
 REPO_ROOT = Path(__file__).resolve().parents[1]
 PORT_ROOT = REPO_ROOT / "ser_tpu_torch"
 _FORBIDDEN_ROOTS = ("jax", "jaxlib", "flax", "optax", "orbax")
+#: The card's machine has no scikit-learn: the port draws its split itself (``_internal/data/split.py``).
+_FORBIDDEN_PACKAGES = ("sklearn",)
 
 
 def _forbidden(module: str) -> bool:
     root = module.split(".")[0]
-    if root.startswith(_FORBIDDEN_ROOTS):
+    if root.startswith(_FORBIDDEN_ROOTS) or root in _FORBIDDEN_PACKAGES:
         return True
     # The port's own name starts with "ser_tpu": compare whole path components.
     return root in ("ser_tpu", "ser")
@@ -162,6 +164,31 @@ def test_transcript_rest_and_int8_module_is_imported(fresh_import, module: str) 
     assert module in fresh_import["imported"]
 
 
+#: The inference boundary's retry ladder, the data layer and the fast head's trainer.
+BOUNDARY_DATA_AND_TRAINING_MODULES = (
+    "ser_tpu_torch._internal.utils.logger",
+    "ser_tpu_torch._internal.runtime.single_flight",
+    "ser_tpu_torch._internal.runtime.policy",
+    "ser_tpu_torch._internal.runtime.profile_boundary",
+    "ser_tpu_torch._internal.data.ontology",
+    "ser_tpu_torch._internal.data.manifest",
+    "ser_tpu_torch._internal.data.recipe",
+    "ser_tpu_torch._internal.data.dataset_audit",
+    "ser_tpu_torch._internal.data.registry",
+    "ser_tpu_torch._internal.data.embedding_cache",
+    "ser_tpu_torch._internal.data.split",
+    "ser_tpu_torch._internal.data.loader",
+    "ser_tpu_torch._internal.models.training_readiness",
+    "ser_tpu_torch._internal.models.training_orchestration",
+    "ser_tpu_torch._internal.train.metrics",
+)
+
+
+@pytest.mark.parametrize("module", BOUNDARY_DATA_AND_TRAINING_MODULES)
+def test_boundary_data_and_training_module_is_imported(fresh_import, module: str) -> None:
+    assert module in fresh_import["imported"]
+
+
 def test_port_import_loads_no_tokenizer_library(fresh_import) -> None:
     """``transformers`` is imported only inside ``from_pretrained_dir``."""
     assert not [name for name in fresh_import["added"] if name.split(".")[0] == "transformers"]
@@ -170,6 +197,7 @@ def test_port_import_loads_no_tokenizer_library(fresh_import) -> None:
 def test_forbidden_name_rule() -> None:
     assert _forbidden("ser_tpu") and _forbidden("ser_tpu.models.whisper") and _forbidden("ser.api")
     assert _forbidden("jax.numpy") and _forbidden("flax.linen") and _forbidden("orbax.checkpoint")
+    assert _forbidden("sklearn.model_selection") and not _forbidden("sklearnish")
     assert not _forbidden("ser_tpu_torch.models.whisper") and not _forbidden("torch")
 
 

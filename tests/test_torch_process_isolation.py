@@ -166,19 +166,35 @@ def test_oom_parser_reads_cuda_messages() -> None:
     assert oom.is_device_oom("CUBLAS_STATUS_ALLOC_FAILED when calling cublasCreate(handle)")
 
 
-def test_emotion_pass_isolation_knob_raises_instead_of_running_in_process() -> None:
-    """``SER_<PROFILE>_PROCESS_ISOLATION`` reads as in the JAX package; the port's
-    emotion boundary has no spawned attempt yet and refuses it."""
+def test_emotion_pass_isolation_knob_raises_instead_of_running_in_process(monkeypatch) -> None:
+    """``SER_<PROFILE>_PROCESS_ISOLATION`` reads as in the JAX package; with it the emotion
+    boundary hands the attempt to a spawned worker (module-level setup and compute, so that
+    they pickle) and builds nothing in this process; the worker's error raises typed."""
+    from functools import partial
+
+    from ser_tpu_torch._internal.models.artifacts import LoadedModel
+    from ser_tpu_torch._internal.runtime import profile_boundary
     from ser_tpu_torch._internal.runtime.profile_boundary import ProfileBoundarySpec, run_profile_inference
     from ser_tpu_torch.runtime.contracts import InferenceRequest
 
     settings = build_settings({"SER_ACCURATE_PROCESS_ISOLATION": "1", "SER_TORCH_DEVICE": "cpu"})
     assert settings.accurate_runtime.process_isolation is True
-    built = []
+    built, spawned = [], []
     spec = ProfileBoundarySpec(
         profile="accurate", backend_id="jax_whisper_encoder", model_id=None,
         backend_factory=lambda settings: built.append(settings), artifact_file_name="head.pkl",
     )
-    with pytest.raises(NotImplementedError, match="Process isolation of the 'accurate' emotion pass"):
+    monkeypatch.setattr(profile_boundary, "_load_model", lambda *_: LoadedModel(model=None, expected_feature_size=None))
+
+    def spawned_attempt(**kwargs):
+        spawned.append(kwargs)
+        raise errors.InferenceExecutionError("worker failed", profile="accurate")
+
+    monkeypatch.setattr(worker_lifecycle, "run_attempt_in_spawned_process", spawned_attempt)
+    with pytest.raises(errors.InferenceExecutionError, match="worker failed"):
         run_profile_inference(InferenceRequest(file_path="clip.wav", language="en"), spec=spec, settings=settings)
     assert built == []
+    assert len(spawned) == 1 and spawned[0]["compute"] is profile_boundary._spawned_compute
+    setup = spawned[0]["setup"]
+    assert isinstance(setup, partial) and setup.func is profile_boundary._spawned_setup
+    assert setup.args == ("accurate", "clip.wav") and spawned[0]["timeout_seconds"] == 120.0
