@@ -27,9 +27,11 @@ per source, in parallel), then, one phase per line:
    form) against the float32 plain version (TF32 off) at the medium profile's
    (8, 1499, 16, 64) with a ragged key mask, at Whisper's (8, 1500, 20, 64)
    and at T = 1409, with two planted faults its limit must catch (operands
-   rounded to TF32, masked keys let into the softmax); ``K2-medium``: masked
-   bf16 K2 at the medium profile's 30 s and 15 s buckets against its plain
-   version and its unmasked time; then K2-bwd (its
+   rounded to TF32, masked keys let into the softmax), and at the training
+   encode's 4 s bucket (32 clips of 3 s, and one) with the masked-key leak
+   planted; ``K2-medium``: masked bf16 K2 at the medium profile's 30 s and
+   15 s buckets and the training encode's 4 s bucket (batch 32 and 1) against
+   its plain version and its unmasked time; then K2-bwd (its
    backward: Δ, dK/dV and dQ kernels) at the training step's shapes and at
    T = 1409: K2's log-sum-exp against ``torch.logsumexp``, dq, dk and dv
    against the plain backward in float32 (with two planted faults its limit
@@ -129,15 +131,55 @@ per source, in parallel), then, one phase per line:
 18. ``fast-train``: a synthetic corpus (8 emotions × 4 actors × 6 clips of 3 s
     at 48 kHz, RAVDESS names, two corrupt headers admitted by
     ``SER_MAX_FAILED_FILE_RATIO``): ``loader.load_data`` with the features on
-    the card, held to the CPU route's at the golden tolerances; the head
-    (193 → 300 → 8, batch 256, 500 epochs at most) fitted on the card and on
-    the CPU from the same seeded layers and permutations (the same epochs,
-    losses at rtol 1e-4, the same test predictions); test accuracy at least
-    0.9, and below 0.5 with the labels shuffled (a planted fault); the
-    artifact served by ``api.infer(profile="fast")`` on a held-out clip; ms
-    per epoch, epochs and the features' audio-seconds per second.
+    the card, held to the CPU route's at the golden tolerances; then
+    ``api.train(profile="fast")`` (readiness quarantines the two corrupt
+    files, the fast backend's smoke, the fit, the artifact): its head
+    (193 → 300 → 8, batch 256, 500 epochs at most) fitted on the card, held
+    to the same fit on the CPU from the same seeded layers and permutations
+    (the same epochs, losses at rtol 1e-4, the same test predictions); test
+    accuracy at least 0.9, and below 0.5 with the labels shuffled (a planted
+    fault); the artifact served by ``api.infer(profile="fast")`` on a
+    held-out clip; ms per epoch, epochs and the features' audio-seconds per
+    second;
+19. ``accurate-train``: ``api.train(profile="accurate")`` with large-v3 at full
+    width (seeded random weights, bf16) on a synthetic corpus (8 emotions × 4
+    actors × 3 clips of 3 s at 48 kHz, two corrupt files): readiness (the two
+    quarantined), the smoke (16 stratified probes), the encode (one 30 s
+    window a clip: one K1 and 32 K2 launches per window, the smoke's
+    included), the head's fit on the card; readiness and smoke seconds, the
+    encode's audio-seconds per second, windows, epochs and ms per epoch,
+    the run's wall seconds by cause (readiness, smoke, encode, reads and the
+    failed reads' retry sleeps, the embedding cache's loads and stores,
+    pooling, noise controls, split, fit, artifact, the rest),
+    window and grouped UAR, test accuracy (at least
+    ``ACCURATE_TRAIN_ACCURACY_BAR``; the same rows with shuffled labels below
+    0.5); a second run on the same corpus reads every clip from the embedding
+    cache (only the smoke encodes) and gives the same rows bit for bit and the
+    same metrics; two clips' pooled rows through K1 and K2 against both
+    patched to their plain versions on the card (``ENCODER_REL_L2_BOUND``);
+    the artifact served by ``api.infer(profile="accurate")`` on a held-out
+    clip;
+20. ``medium-train``: ``api.train(profile="medium")`` with XLS-R 300M at full
+    width on the same corpus: the masked K2 launches (24 per batched encode),
+    the same numbers and checks (the bar ``MEDIUM_TRAIN_ACCURACY_BAR``), a
+    cached rerun, the pooled rows of one training batch (32 clips in the 4 s
+    bucket) through masked K2 against the plain attention patched in on the
+    card (``ENCODER_REL_L2_BOUND``, no launch in the plain run, a planted leak
+    of the padded frames above the bound), the artifact served by
+    ``api.infer(profile="medium")`` (its frames the head's own labels), and a
+    run whose first training encode a planted wrapper makes non-finite: the
+    retry and every later encode run in float32 through K2-f32, the backend
+    stays float32, and the same batch's rows through K2-f32 are held against
+    the float32 plain attention (``TRAIN_F32_ROW_REL_L2_BOUND``);
+21. ``research-train``: ``api.train(profile="accurate-research")`` with the
+    emotion2vec layout at full width on the same corpus: refused in readiness
+    while the license gate is shut (no kernel launched), then trained behind
+    the opened gate (masked K2 launches, the same numbers, the bar, the
+    planted fault and the row check of ``medium-train``) and served by
+    ``api.infer`` (its frames the trained head's own labels for the held-out
+    clip).
 
-Phases 5-15 set the launch counts of the kernels they run to 0 just before
+Phases 5-21 set the launch counts of the kernels they run to 0 just before
 their run and read them just after; K1's two forms count apart, and the
 main path must launch the fused form once per encode and the spectrum form
 never.
@@ -211,6 +253,16 @@ K2_F32_TOLERANCE = 2e-5
 # frames of a 30 s bucket, 8 chunks a call; its 15 s bucket has 749 frames.
 MEDIUM_ATTENTION = (8, 1499, 16, 64)
 MEDIUM_HALF_BUCKET_FRAMES = 749
+# The medium and research training encodes: 3 s clips in the 4 s bucket (199
+# frames, 149 of them valid), 32 clips a batch; each smoke probe one clip.
+TRAIN_BUCKET_FRAMES, TRAIN_CLIP_FRAMES, TRAIN_ENCODE_BATCH = 199, 149, 32
+# Pooled training rows of a float32 encode (XLS-R 300M, 24 layers) with K2-f32
+# against the float32 plain attention on the card: only the order of the sums
+# differs. Measured on an H100: 3.4e-7, and 3.9e-5 with the operands rounded
+# to TF32 (a planted fault); the limit sits between, about 30x the reading.
+# A leak of the padded frames into the keys (0.29) must land above it too, and
+# above ENCODER_REL_L2_BOUND in bf16.
+TRAIN_F32_ROW_REL_L2_BOUND = 1e-5
 # K2's log-sum-exp (natural log, about 8 at T = 1500) against torch.logsumexp
 # of the float32 scores: float32 sums in another order.
 K2_LSE_TOLERANCE = 1e-4
@@ -290,6 +342,9 @@ DECODE_LOGITS_REL_L2_BOUND = 5e-2
 DECODE_CHECK_REL_L2_BOUND = 2e-2
 # The transcript lane's beam and int8 phases: the 96-token budget (bench.py:469-475).
 TRANSCRIPT_BUDGET = 96
+# Positions of the decode phase's traced greedy loops, as the beam and int8 profiles trace: the
+# profiler's own processing of the trace, on the host, sets their cost, and it grows with the positions.
+DECODE_PROFILE_BUDGET = 16
 # alignment_forward's capture (teacher-forced, full causal attention) over the
 # greedy winners against the unfused greedy loop's own capture, bf16 at full
 # width, 2 windows, the 32 default alignment heads: rel L2 over the valid rows.
@@ -306,6 +361,13 @@ INT8_ENCODER_COSINE_BOUND = 0.995
 # decode reads 32 layers' weights per step, far more than the 50 MB L2, so
 # each call finds its weights in device memory, not in L2.
 ROTATION_BYTES = 160e6
+
+# Test accuracy of the heads that api.train fits on seeded random encoders over the synthetic corpus
+# (8 tone classes, speaker-disjoint split): set before the first run on the card. The planted fault
+# (the same rows with shuffled labels) must score below 0.5 (chance is 1/8). The accurate bar is the
+# fast head's; medium's is lower: a 2-layer random XLS-R on the CPU read 0.889 on this corpus.
+ACCURATE_TRAIN_ACCURACY_BAR = 0.9
+MEDIUM_TRAIN_ACCURACY_BAR = 0.75
 
 RAVDESS_LABELS = ["angry", "calm", "disgust", "fearful", "happy", "neutral", "sad", "surprised"]
 
@@ -332,13 +394,36 @@ def _hold_card(ms: float) -> None:
     torch.cuda._sleep(int(ms * _SLEEP_CYCLES_PER_MS[0]))
 
 
+def _held_run_ms(fn, calls: int, host_ms: float) -> float | None:
+    """Device ms of ``calls`` calls of ``fn`` enqueued behind a hold of the card, or
+    ``None`` if the host took longer to enqueue them than the card slept."""
+    import torch
+
+    hold_ms = 2.0 * host_ms * calls + 5.0
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    _hold_card(hold_ms)
+    start.record()
+    enqueue_started = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    enqueue_ms = (time.perf_counter() - enqueue_started) * 1e3
+    end.record()
+    torch.cuda.synchronize()
+    return None if enqueue_ms > hold_ms else start.elapsed_time(end)
+
+
 def cuda_ms(fn, *, iters: int = 20, warmup: int = 3) -> float:
     """Mean device time of ``fn`` in ms, from CUDA events around ``iters`` calls.
 
     The card is held in a sleep while the host enqueues the calls, so that the
     events time the calls back to back on the card and not the host's pace
     (a decode-step kernel takes less time on the card than its launch on the
-    host). Raises if the host took longer to enqueue than the card slept.
+    host). A plain version of many small ops can fill the card's queue of
+    pending launches, which blocks the host until the hold ends: when the host
+    took longer to enqueue than the card slept, the calls are timed again in
+    held runs of half as many, down to one call a run. Raises if even one call
+    outlasts its hold.
     """
     import torch
 
@@ -347,20 +432,20 @@ def cuda_ms(fn, *, iters: int = 20, warmup: int = 3) -> float:
         fn()
     torch.cuda.synchronize()
     host_ms = (time.perf_counter() - started) * 1e3 / warmup
-    hold_ms = 2.0 * host_ms * iters + 5.0
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    _hold_card(hold_ms)
-    start.record()
-    enqueue_started = time.perf_counter()
-    for _ in range(iters):
-        fn()
-    enqueue_ms = (time.perf_counter() - enqueue_started) * 1e3
-    end.record()
-    torch.cuda.synchronize()
-    if enqueue_ms > hold_ms:
-        raise AssertionError(f"the host took {enqueue_ms:.1f} ms to enqueue, longer than the card's {hold_ms:.1f} ms hold")
-    return start.elapsed_time(end) / iters
+    per_run = iters
+    while True:
+        total_ms = 0.0
+        for done in range(0, iters, per_run):
+            run_ms = _held_run_ms(fn, min(per_run, iters - done), host_ms)
+            if run_ms is None:
+                break
+            total_ms += run_ms
+        else:
+            return total_ms / iters
+        if per_run == 1:
+            raise AssertionError(f"one call took the host longer to enqueue than the card's hold of "
+                                 f"{2.0 * host_ms + 5.0:.1f} ms")
+        per_run = max(1, per_run // 2)
 
 
 def span_ms(fn, *, iters: int = 3, warmup: int = 1) -> float:
@@ -800,7 +885,8 @@ def _sdpa_ms(q, k, v, frame_mask) -> float:
 
 
 def phase_k2_f32() -> dict:
-    """K2-f32 against the float32 plain version: medium shapes masked, Whisper's unmasked, T = 1409."""
+    """K2-f32 against the float32 plain version: medium shapes masked, Whisper's unmasked, T = 1409, and the
+    training encode's 4 s bucket (batch 32 and 1) masked."""
     import torch
 
     from ser_tpu_torch.models import attention
@@ -808,12 +894,12 @@ def phase_k2_f32() -> dict:
     if torch.backends.cuda.matmul.allow_tf32 is not False:
         raise AssertionError("TF32 is on for float32 matmuls: the plain version would not be float32")
     torch.manual_seed(3)
-    cases = (("medium", MEDIUM_ATTENTION, True), ("whisper", (8, 1500, 20, 64), False),
-             ("ragged", (8, RAGGED_SEQ, 16, 64), False))
+    cases = (("medium", MEDIUM_ATTENTION, _ragged_mask(*MEDIUM_ATTENTION[:2], 150)),
+             ("whisper", (8, 1500, 20, 64), None), ("ragged", (8, RAGGED_SEQ, 16, 64), None),
+             *_training_attention_cases(16, 64))
     lines = {}
-    for label, (batch, seq, heads, dim), masked in cases:
+    for label, (batch, seq, heads, dim), mask in cases:
         q, k, v = (torch.randn(batch, seq, heads, dim, device="cuda") for _ in range(3))
-        mask = _ragged_mask(batch, seq, 150) if masked else None
         out = attention.flash_attention(q, k, v, frame_mask=mask)
         ref = attention.attention_reference(q, k, v, frame_mask=mask)
         torch.cuda.synchronize()
@@ -825,13 +911,23 @@ def phase_k2_f32() -> dict:
         if label == "ragged":
             lines[label] = line
             continue
+        if label.startswith("4s"):
+            # The training shapes: the planted leak of the padded frames into the keys, and the times.
+            line["mask_leak_fault"] = (attention.attention_reference(q, k, v) - ref)[mask].abs().max().item()
+            if not line["mask_leak_fault"] > K2_F32_TOLERANCE:
+                raise AssertionError(f"K2-f32's limit would pass a leak of the masked keys ({label}): {line}")
+            line.update(ms=cuda_ms(lambda: attention.flash_attention(q, k, v, frame_mask=mask)),
+                        library_ms=_sdpa_ms(q, k, v, mask))
+            lines[label] = line
+            del q, k, v, ref
+            continue
         # Planted faults the limit must catch: TF32 operands; the split with one cross
         # term dropped; the masked keys let into the softmax.
         line["tf32_fault"] = (_tf32_attention(q, k, v, mask) - ref).abs().max().item()
         line["dropped_term_fault"] = (_split_attention(q, k, v, mask, drop_cross=True) - ref).abs().max().item()
         line["split_emulation_err"] = (_split_attention(q, k, v, mask, drop_cross=False) - ref).abs().max().item()
         faults = [line["tf32_fault"], line["dropped_term_fault"]]
-        if masked:
+        if mask is not None:
             leaky = attention.attention_reference(q, k, v)
             line["mask_leak_fault"] = (leaky - ref)[mask].abs().max().item()
             faults.append(line["mask_leak_fault"])
@@ -881,21 +977,41 @@ def phase_k2_f32() -> dict:
         "library_ms": medium["library_ms"],
         "whisper_shape_ms": lines["whisper"]["ms"],
         "whisper_shape_library_ms": lines["whisper"]["library_ms"],
+        "train_shapes": {label: lines[label]["max_abs_err"] for label in ("4s-train", "4s-smoke")},
     }
 
 
+def _clip_mask(batch: int, seq: int, valid: int):
+    """A (B, T) key mask whose rows keep their first ``valid`` keys (equal clips in one bucket)."""
+    import torch
+
+    return (torch.arange(seq, device="cuda")[None, :] < valid).expand(batch, seq).contiguous()
+
+
+def _training_attention_cases(heads: int, dim: int) -> tuple:
+    """The medium and research training encodes' attention: a batch of 32 clips of 3 s in the 4 s bucket, and
+    a smoke probe's one clip; (label, shape, mask)."""
+    return tuple((label, (batch, TRAIN_BUCKET_FRAMES, heads, dim),
+                  _clip_mask(batch, TRAIN_BUCKET_FRAMES, TRAIN_CLIP_FRAMES))
+                 for label, batch in (("4s-train", TRAIN_ENCODE_BATCH), ("4s-smoke", 1)))
+
+
 def phase_k2_medium() -> dict:
-    """Masked bf16 K2 at the medium profile's shapes (30 s and 15 s buckets) against its plain version."""
+    """Masked bf16 K2 at the medium profile's shapes (30 s and 15 s buckets, and the training encode's 4 s
+    bucket at batch 32 and 1) against its plain version."""
     import torch
 
     from ser_tpu_torch.models import attention
 
     torch.manual_seed(4)
     batch, seq, heads, dim = MEDIUM_ATTENTION
+    cases = (("30s", (batch, seq, heads, dim), _ragged_mask(batch, seq, seq // 10)),
+             ("15s", (batch, MEDIUM_HALF_BUCKET_FRAMES, heads, dim),
+              _ragged_mask(batch, MEDIUM_HALF_BUCKET_FRAMES, MEDIUM_HALF_BUCKET_FRAMES // 10)),
+             *_training_attention_cases(heads, dim))
     result = {}
-    for label, frames in (("30s", seq), ("15s", MEDIUM_HALF_BUCKET_FRAMES)):
+    for label, (batch, frames, heads, dim), mask in cases:
         q, k, v = (torch.randn(batch, frames, heads, dim, device="cuda").to(torch.bfloat16) for _ in range(3))
-        mask = _ragged_mask(batch, frames, frames // 10)
         out = attention.flash_attention(q, k, v, frame_mask=mask)
         qf, kf, vf = (t.float() for t in (q, k, v))
         ref = attention.attention_reference(qf, kf, vf, frame_mask=mask)
@@ -1727,14 +1843,14 @@ def phase_decode() -> dict:
     if not logits_rel <= DECODE_LOGITS_REL_L2_BOUND:
         raise AssertionError(f"fused and unfused logits differ: rel L2 {logits_rel} > {DECODE_LOGITS_REL_L2_BOUND}")
     dsk.LN_QKV_COUNTER.launches = 0
-    decode(True, budget=64)
+    decode(True, budget=DECODE_PROFILE_BUDGET)
     profiled_steps = dsk.LN_QKV_COUNTER.launches / config.decoder_layers  # K3 runs once a layer a step
-    breakdown = _profile(lambda: decode(True, budget=64), "decode")
+    breakdown = _profile(lambda: decode(True, budget=DECODE_PROFILE_BUDGET), "decode")
     k3_step_ms = _LAST_PROFILE_GROUPS.get("K3 ln_qkv_project", 0.0) / profiled_steps if profiled_steps else 0.0
-    say("decode-profile", route="fused", budget=64, steps=profiled_steps, k3_device_ms_per_step=f"{k3_step_ms:.4f}",
-        detail=breakdown)
-    breakdown = _profile(lambda: decode(False, budget=64), "decode-unfused")
-    say("decode-profile", route="unfused", budget=64, detail=breakdown)
+    say("decode-profile", route="fused", budget=DECODE_PROFILE_BUDGET, steps=profiled_steps,
+        k3_device_ms_per_step=f"{k3_step_ms:.4f}", detail=breakdown)
+    breakdown = _profile(lambda: decode(False, budget=DECODE_PROFILE_BUDGET), "decode-unfused")
+    say("decode-profile", route="unfused", budget=DECODE_PROFILE_BUDGET, detail=breakdown)
     del decoder, weights
     torch.cuda.empty_cache()
 
@@ -2693,8 +2809,8 @@ def _split_step(encoder, optimizer, head, opt_state, wave, label) -> dict:
 
 
 def _spans_around(spans: dict, patches: list[tuple[object, str]]) -> list[tuple[object, str, object]]:
-    """Replaces each ``module.name`` by a wrapper that adds its synchronized host time to ``spans[name]``;
-    returns what to restore."""
+    """Replaces each ``module.name`` by a wrapper that adds its synchronized host time to ``spans[name]``,
+    a call that raises included; returns what to restore."""
     import torch
 
     restore = []
@@ -2704,10 +2820,11 @@ def _spans_around(spans: dict, patches: list[tuple[object, str]]) -> list[tuple[
         def wrapper(*args, _fn=original, _name=name, **kwargs):
             torch.cuda.synchronize()
             started = time.perf_counter()
-            result = _fn(*args, **kwargs)
-            torch.cuda.synchronize()
-            spans[_name] = spans.get(_name, 0.0) + time.perf_counter() - started
-            return result
+            try:
+                return _fn(*args, **kwargs)
+            finally:
+                torch.cuda.synchronize()
+                spans[_name] = spans.get(_name, 0.0) + time.perf_counter() - started
 
         setattr(module, name, wrapper)
         restore.append((module, name, original))
@@ -3582,19 +3699,16 @@ def _fast_class_audio(code: int, t, *, seed: int):
 
 def phase_fast_train() -> dict:
     """The fast profile trained on the card from a synthetic RAVDESS-named corpus and served:
-    ``load_data`` (the 193 features on the card, held to the CPU route's), the head's fit (held
-    to the same fit on the CPU), its accuracy with a planted fault, the artifact through
-    ``api.infer(profile="fast")``."""
-    import dataclasses
-
+    ``load_data`` (the 193 features on the card, held to the CPU route's), then
+    ``api.train(profile="fast")``: its head's fit (held to the same fit on the CPU), its accuracy
+    with a planted fault, the artifact through ``api.infer(profile="fast")``."""
     import numpy as np
     import torch
 
     import ser_tpu_torch.api as api
     from ser_tpu_torch._internal.config.bootstrap import build_settings
     from ser_tpu_torch._internal.data import loader
-    from ser_tpu_torch._internal.models import artifacts
-    from ser_tpu_torch._internal.train.metrics import accuracy, compute_ser_metrics
+    from ser_tpu_torch._internal.train.metrics import accuracy
     from ser_tpu_torch._internal.utils.audio_io import read_audio_file, write_wav
     from ser_tpu_torch.models.mlp_head import TorchMLPClassifier
     from ser_tpu_torch.ops import features
@@ -3633,16 +3747,36 @@ def phase_fast_train() -> dict:
         if max(ratios.values()) > 1.0:
             raise AssertionError(f"the card's training features disagree with the CPU route: {ratios}")
 
-        # No device given: the head takes the settings' (SER_TORCH_DEVICE unset: the card).
-        head = TorchMLPClassifier.from_config(settings.nn)
-        if head.device.type != "cuda":
-            raise AssertionError(f"from_config put the head on {head.device}, not on the card")
-        head.fit(x_train, y_train)  # warm
-        torch.cuda.synchronize()
+        # The training path itself: api.train(profile="fast") (readiness and quarantine, the smoke, load_data,
+        # the head's fit on the settings' device, the artifact), the split and the fit recorded on the way.
+        seen: dict = {}
+        load_data, fit = loader.load_data, TorchMLPClassifier.fit
+
+        def recorded_load(*args, **kwargs):
+            seen["split"] = load_data(*args, **kwargs)
+            return seen["split"]
+
+        def timed_fit(head, X, y):
+            torch.cuda.synchronize()
+            started = time.perf_counter()
+            out = fit(head, X, y)
+            torch.cuda.synchronize()
+            seen["fit_s"], seen["head"] = time.perf_counter() - started, head
+            return out
+
+        loader.load_data, TorchMLPClassifier.fit = recorded_load, timed_fit
         started = time.perf_counter()
-        head = TorchMLPClassifier.from_config(settings.nn).fit(x_train, y_train)
-        torch.cuda.synchronize()
-        fit_s = time.perf_counter() - started
+        try:
+            api.train(profile="fast", settings=settings)
+            torch.cuda.synchronize()
+        finally:
+            loader.load_data, TorchMLPClassifier.fit = load_data, fit
+        train_s = time.perf_counter() - started
+        report = json.loads(settings.models.training_report_file.read_text(encoding="utf-8"))
+        x_train, x_test, y_train, y_test = seen["split"]
+        head, fit_s = seen["head"], seen["fit_s"]
+        if head.device.type != "cuda":
+            raise AssertionError(f"api.train fitted the head on {head.device}, not on the card")
         cpu_head = TorchMLPClassifier.from_config(settings.nn, device="cpu").fit(x_train, y_train)
         if head.n_iter_ != cpu_head.n_iter_:
             raise AssertionError(f"the card's fit ran {head.n_iter_} epochs, the CPU's {cpu_head.n_iter_}")
@@ -3655,22 +3789,19 @@ def phase_fast_train() -> dict:
         fault_accuracy = accuracy(y_test, list(TorchMLPClassifier.from_config(settings.nn)
                                                .fit(x_train, shuffled).predict(x_test)))
         say("fast-train-fit", width="193-300-8", batch=settings.nn.batch_size, max_iter=settings.nn.max_iter,
+            train_s=f"{train_s:.3f}", report_accuracy=f"{report['accuracy']:.4f}",
             epochs=head.n_iter_, cpu_epochs=cpu_head.n_iter_, ms_per_epoch=f"{fit_s / head.n_iter_ * 1e3:.3f}",
             fit_s=f"{fit_s:.3f}", loss=f"{head.loss_:.6f}", cpu_loss=f"{cpu_head.loss_:.6f}",
             loss_curve_max_rel_err=f"{curve_err:.3g}",
             loss_rtol=1e-4, same_test_predictions=same_predictions, test_accuracy=f"{test_accuracy:.4f}",
-            planted_shuffled_labels_accuracy=f"{fault_accuracy:.4f}")
+            planted_shuffled_labels_accuracy=f"{fault_accuracy:.4f}",
+            quarantined=len(_quarantined_by_readiness(settings, "fast")))
         if not curve_err <= 1e-4 or not same_predictions:
             raise AssertionError("the card's fit departs from the CPU's on the same layers and permutations")
-        if not test_accuracy >= 0.9 or not fault_accuracy < 0.5:
-            raise AssertionError(f"test accuracy {test_accuracy}, with shuffled labels {fault_accuracy}")
+        if not test_accuracy >= 0.9 or not fault_accuracy < 0.5 or report["accuracy"] != test_accuracy:
+            raise AssertionError(f"test accuracy {test_accuracy} (report {report['accuracy']}), "
+                                 f"with shuffled labels {fault_accuracy}")
 
-        metadata = artifacts.build_artifact_metadata(
-            feature_vector_size=x_train.shape[1], training_samples=len(y_train), labels=head.classes_.tolist(),
-            seed=settings.nn.random_state, device="cuda", dtype="float32",
-            evaluation_summary=compute_ser_metrics(y_true=y_test, y_pred=list(predictions)),
-        )
-        artifacts.save_model_artifact(artifacts.build_model_artifact(head, metadata), settings.models.model_file)
         held_out, code = root / "held_out.wav", 5
         write_wav(held_out, _fast_class_audio(code, np.arange(int(seconds * sample_rate)) / sample_rate, seed=99),
                   sample_rate)
@@ -3685,7 +3816,611 @@ def phase_fast_train() -> dict:
     _check_fast_execution(execution, held_out, seconds)
     if frames[0].emotion != expected:
         raise AssertionError(f"the trained head labels a held-out {expected!r} clip {frames[0].emotion!r}")
-    return {"epochs": head.n_iter_, "ms_per_epoch": fit_s / head.n_iter_ * 1e3, "test_accuracy": test_accuracy}
+    return {"epochs": head.n_iter_, "ms_per_epoch": fit_s / head.n_iter_ * 1e3, "test_accuracy": test_accuracy,
+            "train_s": train_s}
+
+
+# The host work of an encoder profile's training outside readiness, the smoke, the encode and the fit, each
+# timed by _TrainProbe: (owner, name). Training's reads are timed apart, those that fail (the reader's retry
+# sleeps on a corrupt file) apart from those that succeed.
+_TRAIN_HOST_SPANS = (
+    ("training_orchestration", "bounded_retry_local_io"), ("EmbeddingCache", "load"), ("EmbeddingCache", "store"), ("encoder_training", "temporal_pooling_windows"),
+    ("encoder_training", "mean_std_pool"), ("encoder_training", "apply_noise_controls"),
+    ("encoder_training", "_split_training_files"), ("artifacts", "save_model_artifact"),
+)
+
+
+class _TrainProbe:
+    """Instruments one ``api.train`` run: readiness and smoke time, the encoder's calls in and out of
+    the smoke, the rows ``_windowed_dataset`` returns, the head's fit and the host work of
+    ``_TRAIN_HOST_SPANS``. ``arm`` runs once, when the smoke has returned (a planted fault that must
+    reach the training encode, not the smoke)."""
+
+    def __init__(self, backend, encode_attr: str, *, arm=None) -> None:
+        import torch
+
+        from ser_tpu_torch._internal.data.embedding_cache import EmbeddingCache
+        from ser_tpu_torch._internal.models import (
+            artifacts,
+            encoder_training,
+            training_orchestration,
+            training_readiness,
+        )
+        from ser_tpu_torch.models.mlp_head import TorchMLPClassifier
+
+        owners = {"training_orchestration": training_orchestration, "encoder_training": encoder_training,
+                  "EmbeddingCache": EmbeddingCache, "artifacts": artifacts}
+        self.spans: dict[str, float] = {}
+        self.host_spans: dict[str, float] = {}
+        host_restore = _spans_around(self.host_spans, [(owners[owner], name) for owner, name in _TRAIN_HOST_SPANS])
+        self.encodes = {"smoke": [], "train": []}  # (seconds, dtype) of each call
+        self.rows: list[tuple] = []
+        self.fits: list[dict] = []
+        self.in_smoke = False
+        probe = self
+        self._restore = host_restore + _spans_around(self.spans, [(training_orchestration, "run_training_readiness")])
+        smoke, windowed, fit, read = (training_readiness.run_backend_smoke, encoder_training._windowed_dataset,
+                                      TorchMLPClassifier.fit, encoder_training.read_audio_file)
+        encode = getattr(backend, encode_attr)
+
+        def timed_read(*args, **kwargs):
+            started, outcome = time.perf_counter(), "read_failed"
+            try:
+                out = read(*args, **kwargs)
+                outcome = "read"
+                return out
+            finally:
+                probe.host_spans[outcome] = probe.host_spans.get(outcome, 0.0) + time.perf_counter() - started
+
+        def timed_smoke(*args, **kwargs):
+            probe.in_smoke = True
+            torch.cuda.synchronize()
+            started = time.perf_counter()
+            try:
+                return smoke(*args, **kwargs)
+            finally:
+                torch.cuda.synchronize()
+                probe.spans["smoke"] = time.perf_counter() - started
+                probe.in_smoke = False
+                if arm is not None:
+                    arm()
+
+        def timed_encode(*args, **kwargs):
+            torch.cuda.synchronize()
+            started = time.perf_counter()
+            out = encode(*args, **kwargs)
+            torch.cuda.synchronize()
+            dtype = str(getattr(backend, "dtype", "bf16"))
+            probe.encodes["smoke" if probe.in_smoke else "train"].append((time.perf_counter() - started, dtype))
+            return out
+
+        def recorded_windows(**kwargs):
+            out = windowed(**kwargs)
+            probe.rows.append(out)
+            return out
+
+        def timed_fit(head, X, y):
+            torch.cuda.synchronize()
+            started = time.perf_counter()
+            out = fit(head, X, y)
+            torch.cuda.synchronize()
+            probe.fits.append({"seconds": time.perf_counter() - started, "epochs": head.n_iter_,
+                               "device": str(head.device)})
+            return out
+
+        training_readiness.run_backend_smoke = timed_smoke
+        encoder_training.read_audio_file = timed_read
+        encoder_training._windowed_dataset = recorded_windows
+        TorchMLPClassifier.fit = timed_fit
+        # An instance attribute (a planted wrapper) comes back on close; else the class's method.
+        self._backend_restore = (backend, encode_attr, backend.__dict__.get(encode_attr))
+        setattr(backend, encode_attr, timed_encode)
+        self._restore += [(training_readiness, "run_backend_smoke", smoke),
+                          (encoder_training, "_windowed_dataset", windowed), (TorchMLPClassifier, "fit", fit),
+                          (encoder_training, "read_audio_file", read)]
+
+    def close(self) -> None:
+        _restore(self._restore)
+        backend, name, previous = self._backend_restore
+        if previous is None:
+            delattr(backend, name)
+        else:
+            setattr(backend, name, previous)
+
+    def smoke_probes(self) -> int:
+        return len(self.encodes["smoke"])
+
+
+def _train_run(profile: str, settings, probe_factory, counters) -> tuple[dict, "_TrainProbe", dict, float]:
+    """One ``api.train(profile=...)`` under a fresh probe, its kernels' counts set to 0 just before;
+    returns the run's report (read back from disk), the probe, the counts and the wall seconds."""
+    import torch
+
+    import ser_tpu_torch.api as api
+    from ser_tpu_torch._internal.config.artifact_naming import profile_artifact_file_names
+
+    probe = probe_factory()
+    for counter in counters:
+        counter.launches = 0
+    started = time.perf_counter()
+    try:
+        api.train(profile=profile, settings=settings)
+        torch.cuda.synchronize()
+    finally:
+        probe.close()
+    wall = time.perf_counter() - started
+    launches = {counter.name: counter.launches for counter in counters}
+    report_name = profile_artifact_file_names(profile=profile, model_id=settings.profile_model_id(profile))[2]
+    report = json.loads((settings.models.folder / report_name).read_text(encoding="utf-8"))
+    return report, probe, launches, wall
+
+
+def _train_numbers(label: str, report: dict, probe: "_TrainProbe", launches: dict, wall: float,
+                   seconds_per_clip: float) -> dict:
+    """Prints one training run's numbers and returns them."""
+    train_encodes = probe.encodes["train"]
+    encode_s = sum(seconds for seconds, _ in train_encodes)
+    # The split holds every labelled file; the two corrupt ones are quarantined when training reads them
+    # (as in the JAX package), and every clip read is probed in the embedding cache before its encode.
+    encoded = report["cache_probes"]["misses"]
+    fit = probe.fits[0]
+    # The wall seconds by cause: each span is synchronized and none holds another but the reads.
+    host = {name: probe.host_spans.get(name, 0.0)
+            for name in ("read", "read_failed", *(name for _, name in _TRAIN_HOST_SPANS))}
+    parts = {
+        "readiness": probe.spans["run_training_readiness"], "smoke": probe.spans["smoke"], "encode": encode_s,
+        "read": host["read"], "read_failed": host["read_failed"],
+        "read_retry_wrapper": host["bounded_retry_local_io"] - host["read"] - host["read_failed"],
+        "cache_load": host["load"], "cache_store": host["store"],
+        "pooling": host["temporal_pooling_windows"] + host["mean_std_pool"],
+        "noise_controls": host["apply_noise_controls"], "split": host["_split_training_files"],
+        "fit": fit["seconds"], "artifact_save": host["save_model_artifact"],
+    }
+    parts["other"] = wall - sum(parts.values())
+    numbers = {
+        "wall_s": wall, "readiness_s": probe.spans["run_training_readiness"], "smoke_s": probe.spans["smoke"],
+        "smoke_probes": probe.smoke_probes(), "train_encode_calls": len(train_encodes),
+        "clips_in_split": report["train_samples"] + report["test_samples"],
+        "quarantined_mid_training": len(report.get("quarantined_mid_training", [])), "clips_encoded": encoded,
+        "encode_s": encode_s, "encode_audio_s_per_s": encoded * seconds_per_clip / encode_s if encode_s else None,
+        "train_windows": report["training_windows"], "test_windows": report["test_windows"],
+        "epochs": fit["epochs"], "ms_per_epoch": fit["seconds"] / fit["epochs"] * 1e3, "fit_device": fit["device"],
+        "window_uar": report["uar"], "grouped_uar": report["grouped"]["uar"], "test_accuracy": report["accuracy"],
+        "cache_probes": report.get("cache_probes"), "launches": launches,
+        "wall_parts_s": {name: round(seconds, 4) for name, seconds in parts.items()},
+    }
+    say(label, **{key: (f"{value:.4f}" if isinstance(value, float) else
+                        json.dumps(value) if isinstance(value, dict) else value) for key, value in numbers.items()})
+    return numbers
+
+
+def _shuffled_label_accuracy(settings, probe: "_TrainProbe") -> float:
+    """The planted fault: the run's own rows fitted with shuffled labels, scored on its test rows."""
+    import numpy as np
+
+    from ser_tpu_torch._internal.repr.runtime_policy import resolve_device
+    from ser_tpu_torch._internal.train.metrics import accuracy
+    from ser_tpu_torch.models.mlp_head import TorchMLPClassifier
+
+    (x_train, y_train, _, _), (x_test, y_test, _, _) = probe.rows[:2]
+    shuffled = list(np.random.default_rng(0).permutation(np.asarray(y_train)))
+    head = TorchMLPClassifier.from_config(settings.nn, device=resolve_device(settings.torch_runtime.device))
+    return accuracy(y_test, list(head.fit(x_train, shuffled).predict(x_test)))
+
+
+def _quarantined_by_readiness(settings, profile: str) -> list[str]:
+    from ser_tpu_torch._internal.models.training_readiness import default_readiness_report_path
+
+    return json.loads(default_readiness_report_path(settings, profile).read_text(encoding="utf-8"))["quarantined_files"]
+
+
+def _same_rows(first: "_TrainProbe", second: "_TrainProbe") -> bool:
+    import numpy as np
+
+    return all(
+        np.array_equal(a[0], b[0]) and a[1:3] == b[1:3] for a, b in zip(first.rows[:2], second.rows[:2])
+    ) and len(first.rows) == len(second.rows) == 2
+
+
+def _training_corpus(root: Path) -> list[Path]:
+    """The encoder profiles' training corpus: 8 emotions × 4 actors × 3 clips of 3 s at 48 kHz, two corrupt."""
+    return _write_fast_corpus(root, actors=4, clips=3, seconds=3.0, sample_rate=48000)
+
+
+def _training_env(root: Path, tmp: str) -> dict:
+    # Two corrupt files of 98: 2 % of the corpus, 1 of 13 of each of two classes, inside these budgets.
+    return {"SER_DATASET_FOLDER": str(root / "dataset"), "SER_MODELS_FOLDER": str(root / "models"),
+            "SER_CACHE_DIR": str(root / "cache"), "SER_TMP_FOLDER": str(root / tmp),
+            "SER_MAX_FAILED_FILE_RATIO": "0.05", "SER_MAX_FAILED_FILE_RATIO_PER_CLASS": "0.1"}
+
+
+def _plain_k1_k2(whisper_model, log_mel, attention):
+    """Patches the Whisper encoder's K1 and K2 to their plain versions on the card (float32 attention); returns
+    what to restore."""
+    def plain_log_mel_raw(waveform, *, sr=16000, n_fft=400, hop_length=160, n_mels=128, n_frames_out=None):
+        fb = log_mel._constant_on(waveform.device, log_mel._mel_fb_t, sr, n_fft, n_mels)
+        return log_mel.stft_power_mel_log_reference(waveform.float().contiguous(), fb, n_frames_out)
+
+    def plain_attention(q, k, v, *, frame_mask=None, compute_dtype=None):
+        return attention.attention_reference(q.float(), k.float(), v.float(), frame_mask=frame_mask).to(q.dtype)
+
+    restore = [(whisper_model, "log_mel_raw", whisper_model.log_mel_raw),
+               (whisper_model, "multi_head_attention", whisper_model.multi_head_attention)]
+    whisper_model.log_mel_raw = plain_log_mel_raw
+    whisper_model.multi_head_attention = plain_attention
+    return restore
+
+
+def _masked_rows_check(label: str, backend, settings, profile: str, files: list[Path], counters) -> dict:
+    """One 4 s-bucket batch of 32 training clips, encoded as training encodes them (``encode_clips``) and
+    pooled as its rows are: through the backend's kernel (K2 in bf16, K2-f32 once the backend is float32),
+    then with the plain attention patched into the encoder on the card, then with a planted leak of the
+    padded frames into the keys; in float32 also with operands rounded to TF32. Each planted fault must land
+    above the bound."""
+    import numpy as np
+    import torch
+
+    from ser_tpu_torch._internal.pool import mean_std_pool, temporal_pooling_windows
+    from ser_tpu_torch._internal.repr.encode_util import encode_clips
+    from ser_tpu_torch._internal.utils.audio_io import read_audio_file
+    from ser_tpu_torch.models import attention, wav2vec2
+
+    runtime = settings.profile_runtime(profile)
+    clips = [read_audio_file(str(path)) for path in files[:TRAIN_ENCODE_BATCH]]
+
+    def plain(q, k, v, *, frame_mask=None, compute_dtype=None):
+        return attention.attention_reference(q.float(), k.float(), v.float(), frame_mask=frame_mask).to(q.dtype)
+
+    def leaky(q, k, v, *, frame_mask=None, compute_dtype=None):
+        return plain(q, k, v)
+
+    def tf32(q, k, v, *, frame_mask=None, compute_dtype=None):
+        return _tf32_attention(q.float(), k.float(), v.float(), frame_mask).to(q.dtype)
+
+    def pooled_rows(route=None) -> tuple[np.ndarray, dict]:
+        for counter in counters:
+            counter.launches = 0
+        restore = [(wav2vec2, "multi_head_attention", wav2vec2.multi_head_attention)]
+        if route is not None:
+            wav2vec2.multi_head_attention = route
+        try:
+            encoded = encode_clips(backend, clips)
+            torch.cuda.synchronize()
+        finally:
+            _restore(restore)
+        rows = [mean_std_pool(item, temporal_pooling_windows(
+            item, window_size_seconds=runtime.pool_window_size_seconds,
+            window_stride_seconds=runtime.pool_window_stride_seconds)) for item in encoded]
+        return np.concatenate(rows), {counter.name: counter.launches for counter in counters}
+
+    def err(rows: np.ndarray, reference: np.ndarray) -> float:
+        return float(np.linalg.norm(rows - reference) / np.linalg.norm(reference))
+
+    dtype = backend.dtype
+    bound, kernel = ((ENCODER_REL_L2_BOUND, attention.COUNTER.name) if dtype == torch.bfloat16
+                     else (TRAIN_F32_ROW_REL_L2_BOUND, attention.F32_COUNTER.name))
+    kernel_rows, kernel_launches = pooled_rows()
+    plain_rows, plain_launches = pooled_rows(plain)
+    line = {"dtype": str(dtype), "rows": kernel_rows.shape[0], "width": kernel_rows.shape[1],
+            "rel_l2_err": err(kernel_rows, plain_rows), "bound": bound,
+            "mask_leak_fault": err(pooled_rows(leaky)[0], plain_rows), "kernel_launches": kernel_launches,
+            "plain_launches": sum(plain_launches.values())}
+    if dtype == torch.float32:
+        line["tf32_operands"] = err(pooled_rows(tf32)[0], plain_rows)
+    say(label, **{key: (f"{value:.3g}" if isinstance(value, float) else
+                        json.dumps(value) if isinstance(value, dict) else value) for key, value in line.items()})
+    expected = {counter.name: 0 for counter in counters} | {kernel: backend._config.num_hidden_layers}
+    faults = [line["mask_leak_fault"], line.get("tf32_operands", math.inf)]
+    if (not line["rel_l2_err"] <= bound or line["plain_launches"] or kernel_launches != expected
+            or not min(faults) > bound or backend.dtype != dtype):
+        raise AssertionError(f"{label}: the training rows through the kernel against the plain version: {line}")
+    return line
+
+
+def _serve_held_out(root: Path, profile: str, settings, backend, report: dict) -> list[str]:
+    """A held-out clip of the planted class 5 through ``api.infer``; its frames must be the trained head's own
+    labels for the clip's pooled windows. Returns the served labels."""
+    import numpy as np
+    import torch
+
+    import ser_tpu_torch.api as api
+    from ser_tpu_torch._internal.models import artifacts
+    from ser_tpu_torch._internal.pool import mean_std_pool, temporal_pooling_windows
+    from ser_tpu_torch._internal.repr.runtime_policy import resolve_device
+    from ser_tpu_torch._internal.utils.audio_io import read_audio_file, write_wav
+
+    held_out, code, seconds, sample_rate = root / "held_out.wav", 5, 3.0, 48000
+    write_wav(held_out, _fast_class_audio(code, np.arange(int(seconds * sample_rate)) / sample_rate, seed=99),
+              sample_rate)
+    started = time.perf_counter()
+    execution = api.infer(held_out, profile=profile, include_transcript=False, settings=settings)
+    torch.cuda.synchronize()
+    latency = time.perf_counter() - started
+    encoded = backend.encode_sequence(*read_audio_file(str(held_out)))
+    runtime = settings.profile_runtime(profile)
+    windows = temporal_pooling_windows(encoded, window_size_seconds=runtime.pool_window_size_seconds,
+                                       window_stride_seconds=runtime.pool_window_stride_seconds)
+    head = artifacts.load_model_artifact(report["model_path"], expected_profile=profile,
+                                         device=resolve_device(settings.torch_runtime.device)).model
+    own_labels = [str(label) for label in head.predict(mean_std_pool(encoded, windows))]
+    frames = [frame.emotion for frame in execution.detailed_result.frames]
+    _check_segments(execution, held_out, seconds, report["backend_id"])
+    say(f"{profile}-train-infer", clip="held_out_3s", latency_s=f"{latency:.4f}", frames=len(frames),
+        first_frame=frames[0], planted=settings.emotions[f"{code:02d}"], head_labels=json.dumps(own_labels))
+    if frames != own_labels:
+        raise AssertionError(f"api.infer served {frames}, the trained {profile} head says {own_labels}")
+    return frames
+
+
+def phase_accurate_train() -> dict:
+    """``api.train(profile="accurate")`` at large-v3 width (seeded random weights, bf16) on a synthetic
+    RAVDESS-named corpus: readiness and quarantine, the smoke, the encode through K1 and K2, the head's
+    fit on the card; a planted shuffled-label fault; a second run from the embedding cache; the pooled
+    rows of two clips against K1 and K2 patched to their plain versions; the artifact served by
+    ``api.infer``."""
+    import numpy as np
+    import torch
+
+    import ser_tpu_torch.api as api
+    from ser_tpu_torch._internal.config.bootstrap import build_settings
+    from ser_tpu_torch._internal.pool import mean_std_pool, temporal_pooling_windows
+    from ser_tpu_torch._internal.repr import encoders
+    from ser_tpu_torch._internal.utils.audio_io import read_audio_file, write_wav
+    from ser_tpu_torch.models import attention
+    from ser_tpu_torch.models import whisper as whisper_model
+    from ser_tpu_torch.ops import log_mel
+
+    phase_started = time.perf_counter()
+    seconds, sample_rate = 3.0, 48000
+    counters = (log_mel.FUSED_COUNTER, log_mel.COUNTER, attention.COUNTER, attention.F32_COUNTER)
+    scratch_root = REPO / "build"
+    scratch_root.mkdir(exist_ok=True)
+    os.environ.update({"SER_ALLOW_RANDOM_INIT": "1", "SER_RANDOM_INIT_SIZE": "full"})
+    with tempfile.TemporaryDirectory(dir=scratch_root, prefix="chip_smoke_accurate_train_") as tmp:
+        root = Path(tmp)
+        files = _training_corpus(root / "dataset")
+        settings = build_settings({**_training_env(root, "tmp"), "SER_ENABLE_ACCURATE_PROFILE": "1"})
+        started = time.perf_counter()
+        backend = encoders.build_encoder_backend("accurate", settings)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - started
+        say("accurate-train-backend", build_s=f"{build_s:.3f}", d_model=backend.feature_dim,
+            layers=backend._config.encoder_layers)
+
+        report, first, launches, wall = _train_run(
+            "accurate", settings, lambda: _TrainProbe(backend, "encode_sequence"), counters)
+        numbers = _train_numbers("accurate-train", report, first, launches, wall, seconds)
+        fault = _shuffled_label_accuracy(settings, first)
+        layers = backend._config.encoder_layers
+        windows = numbers["smoke_probes"] + numbers["train_encode_calls"]  # one 30 s window a 3 s clip
+        quarantined = _quarantined_by_readiness(settings, "accurate")
+        say("accurate-train-check", windows_encoded=windows, k1_expected=windows, k2_expected=layers * windows,
+            test_accuracy=f"{report['accuracy']:.4f}", bar=ACCURATE_TRAIN_ACCURACY_BAR,
+            planted_shuffled_labels_accuracy=f"{fault:.4f}", quarantined=len(quarantined),
+            split=report["split_metadata"]["split_strategy"])
+        if len(quarantined) != 2:
+            raise AssertionError(f"readiness quarantined {quarantined}, expected the two corrupt files")
+        expected = {"stft_power_mel_log": windows, "power_mel_log": 0, "flash_attention_fwd": layers * windows,
+                    "flash_attention_f32": 0}
+        if launches != expected or numbers["train_encode_calls"] != numbers["clips_encoded"]:
+            raise AssertionError(f"accurate training launched {launches}, expected {expected}")
+        if (numbers["smoke_probes"] != 16 or numbers["clips_encoded"] != 96 or numbers["quarantined_mid_training"] != 2
+                or not numbers["fit_device"].startswith("cuda")):
+            raise AssertionError(f"smoke probes {numbers['smoke_probes']}, clips encoded {numbers['clips_encoded']}, "
+                                 f"quarantined {numbers['quarantined_mid_training']}, fit on {numbers['fit_device']}")
+        if not report["accuracy"] >= ACCURATE_TRAIN_ACCURACY_BAR or not fault < 0.5:
+            raise AssertionError(f"test accuracy {report['accuracy']}, with shuffled labels {fault}")
+
+        # The same corpus again: every clip from the embedding cache, only the smoke encodes.
+        cached, second, cached_launches, cached_wall = _train_run(
+            "accurate", settings, lambda: _TrainProbe(backend, "encode_sequence"), counters)
+        cached_numbers = _train_numbers("accurate-train-cached", cached, second, cached_launches, cached_wall,
+                                        seconds)
+        probes = second.smoke_probes()
+        same_rows = _same_rows(first, second)
+        same_metrics = all(cached[key] == report[key] for key in ("accuracy", "uar", "macro_f1", "grouped"))
+        say("accurate-train-cache", hits=json.dumps(cached["cache_probes"]), same_rows_bit_for_bit=same_rows,
+            same_metrics=same_metrics, k1=cached_launches["stft_power_mel_log"], smoke_probes=probes)
+        if (cached["cache_probes"] != {"hits": 96, "misses": 0} or second.encodes["train"] or not same_rows
+                or not same_metrics or cached_launches["stft_power_mel_log"] != probes
+                or cached_launches["flash_attention_fwd"] != layers * probes):
+            raise AssertionError(f"the cached run: {cached['cache_probes']}, launches {cached_launches}, "
+                                 f"rows {same_rows}, metrics {same_metrics}")
+
+        # Two clips' pooled rows with K1 and K2 against both patched to their plain versions.
+        runtime = settings.accurate_runtime
+
+        def pooled_rows() -> np.ndarray:
+            rows = []
+            for path in files[:2]:
+                encoded = backend.encode_sequence(*read_audio_file(str(path)))
+                windows_ = temporal_pooling_windows(encoded, window_size_seconds=runtime.pool_window_size_seconds,
+                                                    window_stride_seconds=runtime.pool_window_stride_seconds)
+                rows.append(mean_std_pool(encoded, windows_))
+            return np.concatenate(rows)
+
+        kernel_rows = pooled_rows()
+        for counter in counters:
+            counter.launches = 0
+        restore = _plain_k1_k2(whisper_model, log_mel, attention)
+        try:
+            plain_rows = pooled_rows()
+        finally:
+            _restore(restore)
+        plain_launches = sum(counter.launches for counter in counters)
+        row_err = float(np.linalg.norm(kernel_rows - plain_rows) / np.linalg.norm(plain_rows))
+        say("accurate-train-kernels", rows=kernel_rows.shape[0], width=kernel_rows.shape[1],
+            rel_l2_err=f"{row_err:.3g}", bound=ENCODER_REL_L2_BOUND, plain_launches=plain_launches)
+        if not row_err <= ENCODER_REL_L2_BOUND or plain_launches:
+            raise AssertionError(f"K1/K2 rows against the plain versions: rel L2 {row_err}, {plain_launches} launches")
+
+        held_out, code = root / "held_out.wav", 5
+        write_wav(held_out, _fast_class_audio(code, np.arange(int(seconds * sample_rate)) / sample_rate, seed=99),
+                  sample_rate)
+        started = time.perf_counter()
+        execution = api.infer(held_out, profile="accurate", include_transcript=False, settings=settings)
+        torch.cuda.synchronize()
+        infer_s = time.perf_counter() - started
+    expected_label = settings.emotions[f"{code:02d}"]
+    frames = execution.detailed_result.frames
+    _check_segments(execution, held_out, seconds, "jax_whisper_encoder")
+    say("accurate-train-infer", clip="held_out_3s", latency_s=f"{infer_s:.4f}", frames=len(frames),
+        first_frame=frames[0].emotion, expected=expected_label)
+    if frames[0].emotion != expected_label:
+        raise AssertionError(f"the trained head labels a held-out {expected_label!r} clip {frames[0].emotion!r}")
+    wall_s = time.perf_counter() - phase_started
+    say("accurate-train-wall", wall_s=f"{wall_s:.1f}")
+    return {"numbers": numbers, "cached": cached_numbers, "launches": launches, "row_rel_l2_err": row_err,
+            "shuffled_accuracy": fault, "wall_s": wall_s}
+
+
+def phase_medium_train() -> dict:
+    """``api.train(profile="medium")`` at XLS-R 300M width (seeded random weights, bf16) on the same corpus:
+    the cross-clip masked encode through K2, the head's fit on the card, a planted shuffled-label fault, a
+    cached rerun, the training rows through masked K2 against the plain attention, the artifact served by
+    ``api.infer``; then a run whose first training encode a planted wrapper makes non-finite: the retry runs
+    in float32 through K2-f32, the backend stays float32, and its rows through K2-f32 are held against the
+    float32 plain attention."""
+    import torch
+
+    from ser_tpu_torch._internal.config.bootstrap import build_settings
+    from ser_tpu_torch._internal.repr import encoders
+    from ser_tpu_torch.models import attention
+    from ser_tpu_torch.ops import log_mel
+
+    phase_started = time.perf_counter()
+    counters = (attention.COUNTER, attention.F32_COUNTER, log_mel.FUSED_COUNTER)
+    scratch_root = REPO / "build"
+    scratch_root.mkdir(exist_ok=True)
+    os.environ.update({"SER_ALLOW_RANDOM_INIT": "1", "SER_RANDOM_INIT_SIZE": "full"})
+    with tempfile.TemporaryDirectory(dir=scratch_root, prefix="chip_smoke_medium_train_") as tmp:
+        root = Path(tmp)
+        files = _training_corpus(root / "dataset")
+        settings = build_settings({**_training_env(root, "tmp"), "SER_ENABLE_MEDIUM_PROFILE": "1"})
+        backend = encoders.build_encoder_backend("medium", settings)
+        layers = backend._config.num_hidden_layers
+        report, first, launches, wall = _train_run(
+            "medium", settings, lambda: _TrainProbe(backend, "_encode_batch"), counters)
+        numbers = _train_numbers("medium-train", report, first, launches, wall, 3.0)
+        fault = _shuffled_label_accuracy(settings, first)
+        calls = numbers["smoke_probes"] + numbers["train_encode_calls"]
+        expected = {"flash_attention_fwd": layers * calls, "flash_attention_f32": 0, "stft_power_mel_log": 0}
+        quarantined = _quarantined_by_readiness(settings, "medium")
+        say("medium-train-check", encode_calls=calls, smoke_calls=numbers["smoke_probes"],
+            train_calls=numbers["train_encode_calls"], masked_k2_expected=layers * calls,
+            test_accuracy=f"{report['accuracy']:.4f}", bar=MEDIUM_TRAIN_ACCURACY_BAR,
+            planted_shuffled_labels_accuracy=f"{fault:.4f}", quarantined=len(quarantined))
+        if launches != expected or not numbers["fit_device"].startswith("cuda") or len(quarantined) != 2:
+            raise AssertionError(f"medium training launched {launches}, expected {expected}; quarantined {quarantined}")
+        if not report["accuracy"] >= MEDIUM_TRAIN_ACCURACY_BAR or not fault < 0.5:
+            raise AssertionError(f"test accuracy {report['accuracy']}, with shuffled labels {fault}")
+
+        cached, second, cached_launches, cached_wall = _train_run(
+            "medium", settings, lambda: _TrainProbe(backend, "_encode_batch"), counters)
+        cached_numbers = _train_numbers("medium-train-cached", cached, second, cached_launches, cached_wall, 3.0)
+        same_rows = _same_rows(first, second)
+        if (cached["cache_probes"] != {"hits": 96, "misses": 0} or second.encodes["train"] or not same_rows
+                or cached_launches["flash_attention_fwd"] != layers * second.smoke_probes()):
+            raise AssertionError(f"the cached medium run: {cached['cache_probes']}, {cached_launches}, {same_rows}")
+        rows_bf16 = _masked_rows_check("medium-train-kernels", backend, settings, "medium", files, counters)
+        _serve_held_out(root, "medium", settings, backend, report)
+
+        # A fresh cache folder; the first training encode after the smoke planted non-finite.
+        planted = {"armed": False, "fired": False}
+        encode = backend._encode_batch
+
+        def planted_encode(batch, lengths):
+            out = encode(batch, lengths)
+            if planted["armed"] and not planted["fired"]:
+                planted["fired"] = True
+                return out * float("nan")
+            return out
+
+        backend._encode_batch = planted_encode
+        try:
+            retry_settings = build_settings({**_training_env(root, "tmp-retry"), "SER_ENABLE_MEDIUM_PROFILE": "1"})
+            retry, third, retry_launches, retry_wall = _train_run(
+                "medium", retry_settings,
+                lambda: _TrainProbe(backend, "_encode_batch", arm=lambda: planted.update(armed=True)), counters)
+        finally:
+            del backend._encode_batch  # the class's method again
+        dtypes = [dtype for _, dtype in third.encodes["train"]]
+        f32_calls = dtypes.count("torch.float32")
+        say("medium-train-retry", wall_s=f"{retry_wall:.3f}", encode_dtypes=json.dumps(dtypes),
+            k2_f32_launches=retry_launches["flash_attention_f32"], k2_launches=retry_launches["flash_attention_fwd"],
+            backend_dtype_after=str(backend.dtype), test_accuracy=f"{retry['accuracy']:.4f}")
+        # The planted call itself ran in bf16; its retry and every later call in float32.
+        if (not planted["fired"] or dtypes[0] != "torch.bfloat16" or set(dtypes[1:]) != {"torch.float32"}
+                or retry_launches["flash_attention_f32"] != layers * f32_calls
+                or retry_launches["flash_attention_fwd"] != layers * (third.smoke_probes() + 1)
+                or backend.dtype != torch.float32):
+            raise AssertionError(f"the float32 retry inside training: {dtypes}, {retry_launches}, {backend.dtype}")
+        rows_f32 = _masked_rows_check("medium-train-kernels-f32", backend, retry_settings, "medium", files, counters)
+    wall_s = time.perf_counter() - phase_started
+    say("medium-train-wall", wall_s=f"{wall_s:.1f}")
+    return {"numbers": numbers, "cached": cached_numbers, "launches": launches, "retry_launches": retry_launches,
+            "shuffled_accuracy": fault, "rows_bf16": rows_bf16, "rows_f32": rows_f32, "wall_s": wall_s}
+
+
+def phase_research_train() -> dict:
+    """``api.train(profile="accurate-research")`` with a full-width emotion2vec layout (seeded random
+    weights, bf16) on the same corpus: refused in readiness with the license gate shut (no encode), then
+    trained behind the opened gate through masked K2, with the planted shuffled-label fault, its rows held
+    against the plain attention, and served."""
+    import ser_tpu_torch.api as api
+    from ser_tpu_torch._internal.config.bootstrap import build_settings
+    from ser_tpu_torch._internal.models.training_orchestration import TrainingNotReadyError
+    from ser_tpu_torch._internal.repr import encoders
+    from ser_tpu_torch.models import attention
+    from ser_tpu_torch.ops import log_mel
+
+    phase_started = time.perf_counter()
+    counters = (attention.COUNTER, attention.F32_COUNTER, log_mel.FUSED_COUNTER)
+    scratch_root = REPO / "build"
+    scratch_root.mkdir(exist_ok=True)
+    os.environ.update({"SER_ALLOW_RANDOM_INIT": "1", "SER_RANDOM_INIT_SIZE": "full"})
+    with tempfile.TemporaryDirectory(dir=scratch_root, prefix="chip_smoke_research_train_") as tmp:
+        root = Path(tmp)
+        files = _training_corpus(root / "dataset")
+        # No consent recorded anywhere this run could read: only the env allowlist opens the gate.
+        os.environ["SER_RESTRICTED_BACKENDS_CONSENT_FILE"] = str(root / "no_consent.json")
+        env = {**_training_env(root, "tmp"), "SER_ENABLE_ACCURATE_RESEARCH_PROFILE": "1"}
+        for counter in counters:
+            counter.launches = 0
+        try:
+            api.train(profile="accurate-research", settings=build_settings(env))
+        except TrainingNotReadyError as err:
+            refused = str(err)
+        else:
+            raise AssertionError("accurate-research training ran with the license gate shut")
+        refused_launches = sum(counter.launches for counter in counters)
+        say("research-train-gate", refused=json.dumps(refused[:120]), launches=refused_launches)
+        if "restricted" not in refused or refused_launches:
+            raise AssertionError(f"the shut gate: {refused!r}, {refused_launches} launches")
+
+        settings = build_settings({**env, "SER_ENABLE_RESTRICTED_BACKENDS": "1",
+                                   "SER_ALLOWED_RESTRICTED_BACKENDS": "emotion2vec"})
+        backend = encoders.build_encoder_backend("accurate-research", settings)
+        layers = backend._config.num_hidden_layers
+        report, first, launches, wall = _train_run(
+            "accurate-research", settings, lambda: _TrainProbe(backend, "_encode_batch"), counters)
+        numbers = _train_numbers("research-train", report, first, launches, wall, 3.0)
+        fault = _shuffled_label_accuracy(settings, first)
+        calls = numbers["smoke_probes"] + numbers["train_encode_calls"]
+        expected = {"flash_attention_fwd": layers * calls, "flash_attention_f32": 0, "stft_power_mel_log": 0}
+        say("research-train-check", encode_calls=calls, masked_k2_expected=layers * calls,
+            test_accuracy=f"{report['accuracy']:.4f}", bar=MEDIUM_TRAIN_ACCURACY_BAR,
+            planted_shuffled_labels_accuracy=f"{fault:.4f}", backend=report["backend_id"],
+            model=report["backend_model_id"])
+        if launches != expected or not numbers["fit_device"].startswith("cuda"):
+            raise AssertionError(f"accurate-research training launched {launches}, expected {expected}")
+        if not report["accuracy"] >= MEDIUM_TRAIN_ACCURACY_BAR or not fault < 0.5:
+            raise AssertionError(f"test accuracy {report['accuracy']}, with shuffled labels {fault}")
+        rows = _masked_rows_check("research-train-kernels", backend, settings, "accurate-research", files, counters)
+        _serve_held_out(root, "accurate-research", settings, backend, report)
+    wall_s = time.perf_counter() - phase_started
+    say("research-train-wall", wall_s=f"{wall_s:.1f}")
+    return {"numbers": numbers, "launches": launches, "shuffled_accuracy": fault, "rows": rows, "wall_s": wall_s}
 
 
 def main() -> int:
@@ -3703,65 +4438,86 @@ def main() -> int:
     sys.path.insert(0, str(REPO))
 
     run_started = time.perf_counter()
-    phase = "env"
+    marks: list[tuple[str, float]] = []
+
+    def mark(name: str) -> str:
+        marks.append((name, time.perf_counter()))
+        return name
+
+    def say_phase_walls() -> None:
+        ends = [started for _, started in marks[1:]] + [time.perf_counter()]
+        say("phase-walls", seconds=json.dumps({name: round(end - started, 1)
+                                               for (name, started), end in zip(marks, ends)}))
+
+    phase = mark("env")
     try:
         env = phase_environment()
-        phase = "K1"
+        phase = mark("K1")
         k1 = phase_k1()
-        phase = "K2"
+        phase = mark("K2")
         k2 = phase_k2()
-        phase = "K2-f32"
+        phase = mark("K2-f32")
         k2_f32 = phase_k2_f32()
-        phase = "K2-medium"
+        phase = mark("K2-medium")
         k2_medium = phase_k2_medium()
-        phase = "K2-bwd"
+        phase = mark("K2-bwd")
         k2_bwd = phase_k2_bwd()
-        phase = "K3"
+        phase = mark("K3")
         k3 = phase_k3()
-        phase = "K4"
+        phase = mark("K4")
         k4 = phase_k4()
-        phase = "K5"
+        phase = mark("K5")
         k5 = phase_k5()
-        phase = "grad-guard"
+        phase = mark("grad-guard")
         phase_grad_guard()
-        phase = "encoder"
+        phase = mark("encoder")
         per_encode = phase_encoder()
-        phase = "decode"
+        phase = mark("decode")
         decode = phase_decode()
-        phase = "transcribe"
+        phase = mark("transcribe")
         transcribe = phase_transcribe()
-        phase = "infer"
+        phase = mark("infer")
         launches = phase_infer()
-        phase = "train"
+        phase = mark("train")
         train = phase_train()
-        phase = "medium-encoder"
+        phase = mark("medium-encoder")
         medium_encode = phase_medium_encoder()
-        phase = "medium-infer"
+        phase = mark("medium-infer")
         medium = phase_medium_infer()
         (REPO / "build").mkdir(exist_ok=True)
         with tempfile.TemporaryDirectory(dir=REPO / "build", prefix="chip_smoke_research_") as staging:
-            phase = "research-encoder"
+            phase = mark("research-encoder")
             research_encode = phase_research_encoder(Path(staging) / "cache")
-            phase = "research-infer"
+            phase = mark("research-infer")
             research = phase_research_infer(Path(staging) / "cache")
-        phase = "fast-infer"
+        phase = mark("fast-infer")
         phase_fast_infer()
-        phase = "beam"
+        phase = mark("beam")
         beam = phase_beam()
-        phase = "int8-decode"
+        phase = mark("int8-decode")
         int8_decode = phase_int8_decode(decode)
-        phase = "int8-encoder"
+        phase = mark("int8-encoder")
         int8_encoder = phase_int8_encoder()
-        phase = "k2-remeasure"
+        phase = mark("k2-remeasure")
         k2_remeasure = phase_k2_remeasure()
-        phase = "boundary"
+        phase = mark("boundary")
         boundary = phase_boundary()
-        phase = "fast-train"
+        phase = mark("fast-train")
+        started = time.perf_counter()
         phase_fast_train()
+        say("fast-train-wall", wall_s=f"{time.perf_counter() - started:.1f}")
+        phase = mark("accurate-train")
+        accurate_train = phase_accurate_train()
+        phase = mark("medium-train")
+        medium_train = phase_medium_train()
+        phase = mark("research-train")
+        research_train = phase_research_train()
     except Exception:
         traceback.print_exc()
+        say_phase_walls()
         print(f"chip_smoke: FAILED in phase {phase}", file=sys.stderr)
         return 1
+    say_phase_walls()
 
     # K1 (both forms) and K2: launches of the three api.infer requests; K3-K5: of the first
     # (full-budget) transcribe_words call. Each path's counts are set to 0 just
@@ -3804,6 +4560,25 @@ def main() -> int:
     retried = boundary["transient-once"]["launches"]
     for kernel in (k1["fused"], k1["spectrum"], k2):
         kernel.update(boundary_retry_launches=retried.get(kernel["name"], 0))
+    # The training entry points: launches of the first accurate, medium and accurate-research api.train
+    # runs (the smoke's 16 encodes included) and of the medium run whose planted non-finite encode
+    # retried in float32.
+    for kernel in (k1["fused"], k1["spectrum"], k2, k2_f32, k2_bwd, k3, k4, k5):
+        kernel.update(accurate_train_launches=accurate_train["launches"].get(kernel["name"], 0),
+                      medium_train_launches=medium_train["launches"].get(kernel["name"], 0),
+                      medium_train_retry_launches=medium_train["retry_launches"].get(kernel["name"], 0),
+                      research_train_launches=research_train["launches"].get(kernel["name"], 0))
+    # The training encodes' shapes (4 s bucket, batch 32 and 1) against the plain versions, and the pooled
+    # training rows through each kernel against the plain attention.
+    k2.update(train_shape_rel_l2_err=k2_medium["4s-train"]["rel_l2_err"],
+              smoke_shape_rel_l2_err=k2_medium["4s-smoke"]["rel_l2_err"],
+              accurate_train_rows_rel_l2_err=accurate_train["row_rel_l2_err"],
+              medium_train_rows_rel_l2_err=medium_train["rows_bf16"]["rel_l2_err"],
+              research_train_rows_rel_l2_err=research_train["rows"]["rel_l2_err"])
+    k2_f32.update(train_shape_max_abs_err=k2_f32["train_shapes"]["4s-train"],
+                  smoke_shape_max_abs_err=k2_f32["train_shapes"]["4s-smoke"],
+                  medium_train_rows_rel_l2_err=medium_train["rows_f32"]["rel_l2_err"])
+    del k2_f32["train_shapes"]
     say("run", wall_s=f"{time.perf_counter() - run_started:.1f}")
     print(json.dumps({"kernels": [k1["fused"], k1["spectrum"], k2, k2_f32, k2_bwd, k3, k4, k5]}))
     print(env["smi"])

@@ -1,7 +1,7 @@
-"""Internal runtime API: profile override and the inference workflow.
+"""Internal runtime API: profile override, the inference and the training workflows.
 
-Counterpart of ``ser_tpu/_internal/api/runtime.py`` (``apply_cli_profile_override``
-and ``infer``), for the four profiles.
+Counterpart of ``ser_tpu/_internal/api/runtime.py`` (``apply_cli_profile_override``,
+``infer`` and ``train``), for the four profiles.
 """
 
 from __future__ import annotations
@@ -10,6 +10,7 @@ import dataclasses
 from pathlib import Path
 
 from ser_tpu_torch._internal.config.schema import AppConfig
+from ser_tpu_torch._internal.repr.runtime_policy import resolve_device
 from ser_tpu_torch._internal.runtime.pipeline import create_runtime_pipeline
 from ser_tpu_torch.profiles import PROFILE_NAMES, ProfileName, require_ported
 from ser_tpu_torch.runtime.contracts import InferenceExecution, InferenceRequest, SubtitleFormat
@@ -61,4 +62,15 @@ def infer(
     return create_runtime_pipeline(resolved).run_inference(request)
 
 
-__all__ = ["apply_cli_profile_override", "infer"]
+def train(*, profile: ProfileName | None = None, settings: AppConfig) -> None:
+    """Library training entry point: the active profile's training through the runtime pipeline.
+
+    The device is resolved first: with no card and no request for the CPU it
+    raises before readiness touches the corpus.
+    """
+    resolved = apply_cli_profile_override(settings, profile)
+    resolve_device(resolved.torch_runtime.device)
+    create_runtime_pipeline(resolved).run_training()
+
+
+__all__ = ["apply_cli_profile_override", "infer", "train"]

@@ -1,13 +1,17 @@
-"""Artifact filename of a transformer profile's head, per (profile, model id).
+"""Artifact filenames of a profile's head and training report, per (profile, model id).
 
 Counterpart of ``ser_tpu/_internal/config/artifact_naming.py``: the same stable
-sha1-suffixed names, so a head trained by ``ser_tpu`` is found by the port.
+sha1-suffixed names, so a head trained by either package is found by the other.
 """
 
 from __future__ import annotations
 
 import re
 from hashlib import sha1
+
+FAST_MODEL_FILE_NAME = "ser_model.pkl"
+FAST_SECURE_MODEL_FILE_NAME = "ser_model.skops"
+FAST_TRAINING_REPORT_FILE_NAME = "training_report.json"
 
 
 def artifact_model_id_suffix(model_id: str) -> str:
@@ -23,8 +27,29 @@ def artifact_model_id_suffix(model_id: str) -> str:
 
 def profile_artifact_file_name(*, profile: str, model_id: str) -> str:
     """The head artifact's filename (``ser_model_<profile>_<suffix>.pkl``)."""
+    return profile_artifact_file_names(profile=profile, model_id=model_id)[0]
+
+
+def profile_artifact_file_names(*, profile: str, model_id: str | None) -> tuple[str, str, str]:
+    """``(model, secure_model, training_report)`` filenames; the fast profile's are fixed."""
+    if profile == "fast":
+        return (FAST_MODEL_FILE_NAME, FAST_SECURE_MODEL_FILE_NAME, FAST_TRAINING_REPORT_FILE_NAME)
+    if not model_id:
+        raise ValueError(f"Profile {profile!r} needs a model id for its artifact names.")
     token = profile.replace("-", "_")
-    return f"ser_model_{token}_{artifact_model_id_suffix(model_id)}.pkl"
+    suffix = artifact_model_id_suffix(model_id)
+    return (
+        f"ser_model_{token}_{suffix}.pkl",
+        f"ser_model_{token}_{suffix}.skops",
+        f"training_report_{token}_{suffix}.json",
+    )
 
 
-__all__ = ["artifact_model_id_suffix", "profile_artifact_file_name"]
+__all__ = [
+    "FAST_MODEL_FILE_NAME",
+    "FAST_SECURE_MODEL_FILE_NAME",
+    "FAST_TRAINING_REPORT_FILE_NAME",
+    "artifact_model_id_suffix",
+    "profile_artifact_file_name",
+    "profile_artifact_file_names",
+]

@@ -21,7 +21,14 @@ is present), ``SER_DATASET_RECIPE`` (which turns the strict audit on unless
 ``SER_DATASET_STRICT_AUDIT`` (alias ``SER_STRICT_DATASET_AUDIT``) says
 otherwise), ``SER_DATASET_REGISTRY_ROOT``, ``SER_DATA_LOADER_MAX_WORKERS``
 (alias ``SER_MAX_WORKERS``), ``SER_DATA_LOADER_MAX_FAILED_FILE_RATIO`` (alias
-``SER_MAX_FAILED_FILE_RATIO``), ``SER_TEST_SIZE``, ``SER_RANDOM_STATE``, the label
+``SER_MAX_FAILED_FILE_RATIO``), the quarantine budgets
+``SER_DATA_LOADER_MAX_FAILED_FILES`` (alias ``SER_MAX_FAILED_FILES``),
+``SER_MAX_FAILED_FILE_RATIO_PER_CORPUS`` and ``..._PER_CLASS`` (each the global
+ratio unless set), ``SER_MAX_FAILURES_PER_REASON``,
+``SER_MIN_REMAINING_PER_CLASS_SPLIT`` and ``SER_STRICT_QUARANTINE``,
+``SER_TEST_SIZE``, ``SER_DEV_SIZE``, ``SER_RANDOM_STATE``, the encoder
+profiles' window noise controls ``SER_MEDIUM_MIN_WINDOW_STD`` and
+``SER_MEDIUM_MAX_WINDOWS_PER_CLIP``, the label
 ontology's ``SER_LABEL_ONTOLOGY_ID``, ``SER_ALLOWED_LABELS``,
 ``SER_UNKNOWN_LABEL_POLICY`` (an unknown value reads as ``drop``) and
 ``SER_OTHER_LABEL``, and the transcript lane's ``WHISPER_BACKEND``, ``WHISPER_MODEL``,
@@ -144,20 +151,36 @@ def _data_sections(env: Mapping[str, str], base: AppConfig) -> dict[str, object]
             registry_root=_path(env, "SER_DATASET_REGISTRY_ROOT"),
         ),
     )
+    ratio = _first(_number(float), env, "SER_DATA_LOADER_MAX_FAILED_FILE_RATIO", "SER_MAX_FAILED_FILE_RATIO")
+    per_corpus = _number(float)(env, "SER_MAX_FAILED_FILE_RATIO_PER_CORPUS")
+    per_class = _number(float)(env, "SER_MAX_FAILED_FILE_RATIO_PER_CLASS")
     data_loader = dataclasses.replace(
         base.data_loader,
         **_changes(
             max_workers=_first(_number(int), env, "SER_DATA_LOADER_MAX_WORKERS", "SER_MAX_WORKERS"),
-            max_failed_file_ratio=_first(
-                _number(float), env, "SER_DATA_LOADER_MAX_FAILED_FILE_RATIO", "SER_MAX_FAILED_FILE_RATIO"
-            ),
+            max_failed_file_ratio=ratio,
+            max_failed_files=_first(_number(int), env, "SER_DATA_LOADER_MAX_FAILED_FILES", "SER_MAX_FAILED_FILES"),
+            # The per-corpus and per-class budgets follow the global ratio unless set themselves.
+            max_failed_file_ratio_per_corpus=ratio if per_corpus is None else per_corpus,
+            max_failed_file_ratio_per_class=ratio if per_class is None else per_class,
+            max_failures_per_reason=_number(int)(env, "SER_MAX_FAILURES_PER_REASON"),
+            min_remaining_per_class_split=_number(int)(env, "SER_MIN_REMAINING_PER_CLASS_SPLIT"),
+            strict_quarantine=_bool(env, "SER_STRICT_QUARANTINE"),
         ),
     )
     training = dataclasses.replace(
         base.training,
         **_changes(
             test_size=_number(float)(env, "SER_TEST_SIZE"),
+            dev_size=_number(float)(env, "SER_DEV_SIZE"),
             random_state=_number(int)(env, "SER_RANDOM_STATE"),
+        ),
+    )
+    medium_training = dataclasses.replace(
+        base.medium_training,
+        **_changes(
+            min_window_std=_number(float)(env, "SER_MEDIUM_MIN_WINDOW_STD"),
+            max_windows_per_clip=_number(int)(env, "SER_MEDIUM_MAX_WINDOWS_PER_CLIP"),
         ),
     )
     policy = _str(env, "SER_UNKNOWN_LABEL_POLICY")
@@ -173,7 +196,13 @@ def _data_sections(env: Mapping[str, str], base: AppConfig) -> dict[str, object]
             other_label=_str(env, "SER_OTHER_LABEL"),
         ),
     )
-    return {"dataset": dataset, "data_loader": data_loader, "training": training, "ontology": ontology}
+    return {
+        "dataset": dataset,
+        "data_loader": data_loader,
+        "training": training,
+        "medium_training": medium_training,
+        "ontology": ontology,
+    }
 
 
 def build_settings(env: Mapping[str, str] | None = None) -> AppConfig:

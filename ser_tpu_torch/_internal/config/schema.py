@@ -4,7 +4,7 @@ Counterpart of ``ser_tpu/_internal/config/schema.py``. Field names, defaults
 and the platform cache/data directories are the JAX package's, so one
 environment configures both packages alike. Only the sections the four
 profiles' inference paths, their transcript lane, the restricted-backend
-gate, the data layer and the fast head's trainer read are here; the full
+gate, the data layer and the training entry points read are here; the full
 settings builder is later work (``ROADMAP.md``).
 """
 
@@ -17,13 +17,14 @@ from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Literal
 
+from ser_tpu_torch._internal.config.artifact_naming import FAST_MODEL_FILE_NAME, FAST_TRAINING_REPORT_FILE_NAME
 from ser_tpu_torch._internal.data.ravdess import RAVDESS_EMOTIONS
 from ser_tpu_torch.profiles import ProfileName, ProfileRuntimeDefaults, require_ported
 from ser_tpu_torch.runtime.schema import OUTPUT_SCHEMA_VERSION
 
 APP_NAME = "ser"
-#: The fast profile's head artifact (``artifact_naming.FAST_MODEL_FILE_NAME``).
-DEFAULT_FAST_MODEL_FILE_NAME = "ser_model.pkl"
+#: The fast profile's head artifact.
+DEFAULT_FAST_MODEL_FILE_NAME = FAST_MODEL_FILE_NAME
 
 
 def _platform_cache_base_dir() -> Path:
@@ -74,6 +75,9 @@ class NeuralNetConfig:
     batch_size: int | Literal["auto"] = 256
     epsilon: float = 1e-08
     hidden_layer_sizes: tuple[int, ...] = (300,)
+    #: Read by nothing in the fit (constant Adam steps, as in the JAX package); kept so that both
+    #: packages' settings digests (``training_readiness._settings_digest``) agree.
+    learning_rate: Literal["constant", "invscaling", "adaptive"] = "adaptive"
     max_iter: int = 500
     random_state: int = 42
 
@@ -99,19 +103,34 @@ class DatasetConfig:
 
 @dataclass(frozen=True)
 class DataLoaderConfig:
-    """Decode parallelism and the failure budget of dataset loading."""
+    """Decode parallelism and the failure and quarantine budgets of dataset loading."""
 
     max_workers: int = 8
     max_failed_file_ratio: float = 0.01
+    max_failed_files: int = 25
+    max_failed_file_ratio_per_corpus: float = 0.01
+    max_failed_file_ratio_per_class: float = 0.01
+    max_failures_per_reason: int = 10
+    min_remaining_per_class_split: int = 1
+    strict_quarantine: bool = False
 
 
 @dataclass(frozen=True)
 class TrainingConfig:
-    """The train/test split of model training."""
+    """The train/dev/test split of model training."""
 
     test_size: float = 0.25
+    dev_size: float = 0.10
     random_state: int = 42
     stratify_split: bool = True
+
+
+@dataclass(frozen=True)
+class MediumTrainingConfig:
+    """Noise controls of the encoder profiles' training windows (``noise_controls.py``)."""
+
+    min_window_std: float = 0.0
+    max_windows_per_clip: int = 0
 
 
 @dataclass(frozen=True)
@@ -162,6 +181,11 @@ class ModelsConfig:
     def model_file(self) -> Path:
         """The fast profile's head artifact."""
         return self.folder / self.model_file_name
+
+    @property
+    def training_report_file(self) -> Path:
+        """The fast profile's training report."""
+        return self.folder / FAST_TRAINING_REPORT_FILE_NAME
 
     @property
     def huggingface_cache_root(self) -> Path:
@@ -248,6 +272,7 @@ class AppConfig:
     dataset: DatasetConfig = field(default_factory=DatasetConfig)
     data_loader: DataLoaderConfig = field(default_factory=DataLoaderConfig)
     training: TrainingConfig = field(default_factory=TrainingConfig)
+    medium_training: MediumTrainingConfig = field(default_factory=MediumTrainingConfig)
     ontology: OntologyConfig = field(default_factory=OntologyConfig)
     audio_read: AudioReadConfig = field(default_factory=AudioReadConfig)
     models: ModelsConfig = field(default_factory=ModelsConfig)
@@ -294,6 +319,7 @@ __all__ = [
     "DataLoaderConfig",
     "DatasetConfig",
     "FeatureFlags",
+    "MediumTrainingConfig",
     "ModelsConfig",
     "NeuralNetConfig",
     "OntologyConfig",

@@ -1,7 +1,8 @@
-"""The train/test split of ``loader.load_data``, drawn as scikit-learn 1.9 draws it.
+"""The train/test splits of the training paths, drawn as scikit-learn 1.9 draws them.
 
 The JAX package splits with ``sklearn.model_selection.train_test_split``,
-which the port does not import. These functions draw the same indices from
+``GroupShuffleSplit`` and ``StratifiedGroupKFold``, which the port does not
+import. These functions draw the same indices from
 ``np.random.RandomState(random_state)`` in the same order:
 
 - the sizes as ``_validate_shuffle_split`` gives them (``n_test`` the ceiling
@@ -13,7 +14,12 @@ which the port does not import. These functions draw the same indices from
   ``_approximate_mode`` (ties of the remainders broken by ``rng.choice``),
   one permutation per class in class order, then a permutation of the train
   and of the test set. A class of one member, or fewer train or test draws
-  than classes, raises ``ValueError`` as there.
+  than classes, raises ``ValueError`` as there;
+- grouped (``GroupShuffleSplit``): the unstratified draw over the groups as
+  ``np.unique`` sorts them, each side the rows of its groups in row order;
+- grouped folds (``StratifiedGroupKFold`` with shuffle): the groups shuffled
+  once, then taken in order of falling spread of their class counts, each to
+  the fold whose class shares it evens most (ties to the smaller fold).
 """
 
 from __future__ import annotations
@@ -106,4 +112,78 @@ def train_test_indices(
     return rng.permutation(train), rng.permutation(test)
 
 
-__all__ = ["approximate_mode", "split_sizes", "train_test_indices"]
+def group_shuffle_indices(
+    groups: Sequence, *, test_size: float, random_state: int
+) -> tuple[NDArray[np.int64], NDArray[np.int64]]:
+    """``(train, test)`` row indices of ``GroupShuffleSplit(n_splits=1)``: ``test_size`` is a share of the groups."""
+    classes, group_indices = np.unique(np.asarray(groups), return_inverse=True)
+    group_train, group_test = train_test_indices(len(classes), test_size=test_size, random_state=random_state)
+    return np.flatnonzero(np.isin(group_indices, group_train)), np.flatnonzero(np.isin(group_indices, group_test))
+
+
+def _best_fold(y_counts_per_fold: NDArray, y_cnt: NDArray, group_y_counts: NDArray) -> int:
+    best_fold = -1
+    min_eval = np.inf
+    min_samples_in_fold = np.inf
+    for i in range(y_counts_per_fold.shape[0]):
+        y_counts_per_fold[i] += group_y_counts
+        std_per_class = np.std(y_counts_per_fold / y_cnt.reshape(1, -1), axis=0)
+        y_counts_per_fold[i] -= group_y_counts
+        fold_eval = np.mean(std_per_class)
+        samples_in_fold = np.sum(y_counts_per_fold[i])
+        if fold_eval < min_eval or (np.isclose(fold_eval, min_eval) and samples_in_fold < min_samples_in_fold):
+            min_eval = fold_eval
+            min_samples_in_fold = samples_in_fold
+            best_fold = i
+    return best_fold
+
+
+def stratified_group_kfold_indices(
+    labels: Sequence, groups: Sequence, *, n_splits: int, random_state: int
+) -> list[tuple[NDArray[np.int64], NDArray[np.int64]]]:
+    """``(train, test)`` row indices of each fold of ``StratifiedGroupKFold(n_splits, shuffle=True)``."""
+    n_samples = len(labels)
+    if n_splits > n_samples:
+        raise ValueError(
+            f"Cannot have number of splits n_splits={n_splits} greater than the number of samples: "
+            f"n_samples={n_samples}."
+        )
+    rng = np.random.RandomState(random_state)
+    _, y_inv, y_cnt = np.unique(np.asarray(labels), return_inverse=True, return_counts=True)
+    if np.all(n_splits > y_cnt):
+        raise ValueError(f"n_splits={n_splits} cannot be greater than the number of members in each class.")
+    _, groups_inv, groups_cnt = np.unique(np.asarray(groups), return_inverse=True, return_counts=True)
+    if n_splits > len(groups_cnt):
+        raise ValueError(
+            f"Cannot have number of splits n_splits={n_splits} greater than the number of groups: {len(groups_cnt)}."
+        )
+    y_counts_per_group = np.zeros((len(groups_cnt), len(y_cnt)))
+    for class_idx, group_idx in zip(y_inv, groups_inv):
+        y_counts_per_group[group_idx, class_idx] += 1
+    perm = np.arange(len(groups_cnt))
+    rng.shuffle(perm)
+    y_counts_per_group = y_counts_per_group[perm]
+    inv_perm = np.empty_like(perm)
+    inv_perm[perm] = np.arange(perm.size)
+    groups_inv = inv_perm[groups_inv]
+    y_counts_per_fold = np.zeros((n_splits, len(y_cnt)))
+    groups_per_fold: list[set[int]] = [set() for _ in range(n_splits)]
+    for group_idx in np.argsort(-np.std(y_counts_per_group, axis=1), kind="stable"):
+        best = _best_fold(y_counts_per_fold, y_cnt, y_counts_per_group[group_idx])
+        y_counts_per_fold[best] += y_counts_per_group[group_idx]
+        groups_per_fold[best].add(group_idx)
+    indices = np.arange(n_samples)
+    folds = []
+    for fold in groups_per_fold:
+        test_mask = np.isin(groups_inv, list(fold))
+        folds.append((indices[~test_mask], indices[test_mask]))
+    return folds
+
+
+__all__ = [
+    "approximate_mode",
+    "group_shuffle_indices",
+    "split_sizes",
+    "stratified_group_kfold_indices",
+    "train_test_indices",
+]

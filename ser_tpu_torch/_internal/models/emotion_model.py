@@ -1,19 +1,20 @@
-"""Emotion model facade, inference half: load the fast head, predict a file.
+"""Emotion model facade: train the fast head, load it, predict a file.
 
-Counterpart of the inference half of ``ser_tpu/_internal/models/
-emotion_model.py`` (``load_model``, ``predict_emotions_detailed`` and the
-fast profile's framing constants). The head and the feature program run on
-the settings' torch device (the card unless ``SER_TORCH_DEVICE=cpu``).
-``train_model`` waits for the training slice (``ROADMAP.md``).
+Counterpart of ``ser_tpu/_internal/models/emotion_model.py`` (``train_model``,
+``load_model``, ``predict_emotions_detailed`` and the fast profile's framing
+constants). The head and the feature program run on the settings' torch
+device (the card unless ``SER_TORCH_DEVICE=cpu``).
 """
 
 from __future__ import annotations
 
+from typing import Any
 
 from ser_tpu_torch._internal.config.bootstrap import reload_settings
 from ser_tpu_torch._internal.config.schema import AppConfig
 from ser_tpu_torch._internal.features import extract_feature_frames
 from ser_tpu_torch._internal.models import artifacts, fast_path
+from ser_tpu_torch._internal.models.fast_training import train_fast_model
 from ser_tpu_torch._internal.repr.runtime_policy import resolve_device
 from ser_tpu_torch._internal.utils.logger import get_logger
 from ser_tpu_torch.runtime.schema import InferenceResult
@@ -23,6 +24,11 @@ logger = get_logger(__name__)
 #: The fast profile's encode framing.
 FAST_FRAME_SIZE_SECONDS = 3.0
 FAST_FRAME_STRIDE_SECONDS = 1.0
+
+
+def train_model(*, settings: AppConfig | None = None) -> dict[str, Any]:
+    """Trains the fast profile's head (the legacy ``--train`` path); returns its report."""
+    return train_fast_model(settings=settings if settings is not None else reload_settings())
 
 
 def load_model(*, settings: AppConfig | None = None, profile: str = "fast") -> artifacts.LoadedModel:
@@ -65,4 +71,10 @@ def predict_emotions_detailed(
     )
 
 
-__all__ = ["FAST_FRAME_SIZE_SECONDS", "FAST_FRAME_STRIDE_SECONDS", "load_model", "predict_emotions_detailed"]
+__all__ = [
+    "FAST_FRAME_SIZE_SECONDS",
+    "FAST_FRAME_STRIDE_SECONDS",
+    "load_model",
+    "predict_emotions_detailed",
+    "train_model",
+]

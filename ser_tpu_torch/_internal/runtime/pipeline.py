@@ -1,17 +1,19 @@
-"""Runtime pipeline: profile check → emotion inference → transcript → timeline.
+"""Runtime pipeline: training of the active profile, and inference (profile check →
+emotion inference → transcript → timeline).
 
-Counterpart of ``ser_tpu/_internal/runtime/pipeline.py``: the same phase
+Counterpart of ``ser_tpu/_internal/runtime/pipeline.py``: ``run_training``
+dispatches to the active profile's training entry point (``train_fns``, by
+default the four profiles' own), and ``run_inference`` keeps the same phase
 timings, the transcript lane behind ``include_transcript``
 (``extract_transcript``), the same timeline merge of words and emotion
-segments, and the same ``InferenceExecution``. CSV and
-subtitle export are not ported yet and raise ``NotImplementedError``
-(``ROADMAP.md``).
+segments, and the same ``InferenceExecution``. CSV and subtitle export are
+not ported yet and raise ``NotImplementedError`` (``ROADMAP.md``).
 """
 
 from __future__ import annotations
 
 from collections.abc import Callable
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 from ser_tpu_torch._internal.config.schema import AppConfig
 from ser_tpu_torch._internal.runtime import phases
@@ -23,6 +25,8 @@ from ser_tpu_torch.domain import EmotionSegment, TimelineEntry, TranscriptWord
 from ser_tpu_torch.profiles import ProfileName, require_ported, resolve_profile_name
 from ser_tpu_torch.runtime.contracts import InferenceExecution, InferenceRequest
 from ser_tpu_torch.runtime.schema import InferenceResult, to_legacy_emotion_segments
+
+type TrainFn = Callable[[AppConfig], object]
 
 
 def _refuse_unported_outputs(request: InferenceRequest) -> None:
@@ -43,10 +47,11 @@ def _refuse_unported_outputs(request: InferenceRequest) -> None:
 
 @dataclass(frozen=True)
 class RuntimePipeline:
-    """Orchestrates inference for the active profile."""
+    """Orchestrates training and inference for the active profile."""
 
     settings: AppConfig
     backend_hooks: dict[str, BackendHook]
+    train_fns: dict[ProfileName, TrainFn] = field(default_factory=dict)
     print_timeline_fn: Callable[[list[TimelineEntry]], None] = timeline_utils.print_timeline
 
     @property
@@ -57,6 +62,14 @@ class RuntimePipeline:
             accurate_profile=flags.accurate_profile,
             accurate_research_profile=flags.accurate_research_profile,
         )
+
+    def run_training(self) -> None:
+        """Runs training for the active profile."""
+        profile = self.active_profile
+        train_fn = self.train_fns.get(profile)
+        if train_fn is None:
+            raise NotImplementedError(f"Training for profile {profile!r} is not wired.")
+        train_fn(self.settings)
 
     def run_inference(self, request: InferenceRequest) -> InferenceExecution:
         """Runs one inference workflow end to end."""
@@ -108,9 +121,27 @@ class RuntimePipeline:
         )
 
 
+def _default_train_fns() -> dict[ProfileName, TrainFn]:
+    from ser_tpu_torch._internal.models.fast_training import train_fast_model
+    from ser_tpu_torch._internal.models.training_entrypoints import (
+        train_accurate_model,
+        train_accurate_research_model,
+        train_medium_model,
+    )
+
+    return {
+        "fast": lambda settings: train_fast_model(settings=settings),
+        "medium": lambda settings: train_medium_model(settings=settings),
+        "accurate": lambda settings: train_accurate_model(settings=settings),
+        "accurate-research": lambda settings: train_accurate_research_model(settings=settings),
+    }
+
+
 def create_runtime_pipeline(settings: AppConfig) -> RuntimePipeline:
     """Wires the default pipeline for one settings snapshot."""
-    return RuntimePipeline(settings=settings, backend_hooks=build_backend_hooks(settings))
+    return RuntimePipeline(
+        settings=settings, backend_hooks=build_backend_hooks(settings), train_fns=_default_train_fns()
+    )
 
 
 __all__ = ["RuntimePipeline", "create_runtime_pipeline"]

@@ -84,7 +84,7 @@ def _load_model(spec: ProfileBoundarySpec, settings: AppConfig) -> artifacts.Loa
     except FileNotFoundError as err:
         raise ModelUnavailableError(
             f"No trained artifact for profile {spec.profile!r} at {path}. "
-            "Train this profile with ser_tpu first.",
+            "Train this profile first (api.train).",
             profile=spec.profile,
         ) from err
     except artifacts.ArtifactError as err:

@@ -6,8 +6,10 @@ either its id in ``SER_ALLOWED_RESTRICTED_BACKENDS`` or a persisted consent
 record; a record carries the policy's fingerprint, so a changed policy asks
 again. The policy text, its fingerprint and the consent store's path and
 JSON are the JAX package's byte for byte, so consent recorded by either
-package is honoured by the other. ``build_provenance_metadata`` serves
-training artifacts, which the port does not write yet (``ROADMAP.md``).
+package is honoured by the other. ``build_provenance_metadata`` gives the
+training artifacts and reports the license and access facts at training
+time, with the JAX package's keys; its dependency fingerprint covers the
+port's compute-critical packages (torch, numpy).
 """
 
 from __future__ import annotations
@@ -129,10 +131,57 @@ def ensure_backend_access(
         )
 
 
+def build_provenance_metadata(*, settings: AppConfig, backend_id: str, profile: str) -> dict[str, object]:
+    """License and access provenance for a training artifact and its report.
+
+    The code revision (``SER_CODE_REVISION``), a fingerprint of the
+    compute-critical dependency versions, and the backend's restricted-access
+    facts at training time: under which policy and consent it was trained.
+    """
+    policy = RESTRICTED_BACKEND_POLICIES.get(backend_id)
+    allowed_env = settings.runtime_flags.allowed_restricted_backends
+    if policy is None:
+        access_source = "unrestricted"
+        access_allowed = True
+    elif backend_id in allowed_env:
+        access_source = "env_allowlist"
+        access_allowed = settings.runtime_flags.restricted_backends
+    elif _read_consents().get(backend_id) == policy.fingerprint:
+        access_source = "persisted_consent"
+        access_allowed = settings.runtime_flags.restricted_backends
+    else:
+        access_source = "denied"
+        access_allowed = False
+    provenance: dict[str, object] = {
+        "code_revision": os.environ.get("SER_CODE_REVISION", "").strip() or "unknown",
+        "dependency_manifest_fingerprint": _dependency_manifest_fingerprint(),
+        "backend_id": backend_id,
+        "profile": profile,
+        "runtime_restricted_backends_enabled": settings.runtime_flags.restricted_backends,
+        "backend_is_restricted": policy is not None,
+        "backend_access_allowed": access_allowed,
+        "backend_access_source": access_source,
+    }
+    if policy is not None:
+        provenance["backend_license_id"] = policy.license_id
+        provenance["restricted_backend_policy_fingerprint"] = policy.fingerprint
+    return provenance
+
+
+def _dependency_manifest_fingerprint() -> str:
+    """Stable fingerprint of the compute-critical dependency versions."""
+    import numpy
+    import torch
+
+    parts = [f"torch=={torch.__version__}", f"numpy=={numpy.__version__}"]
+    return sha256("|".join(parts).encode("utf-8")).hexdigest()[:16]
+
+
 __all__ = [
     "BackendPolicy",
     "RESTRICTED_BACKEND_POLICIES",
     "RestrictedBackendError",
+    "build_provenance_metadata",
     "consent_store_path",
     "ensure_backend_access",
     "has_backend_consent",

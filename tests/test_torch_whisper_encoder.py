@@ -4,7 +4,9 @@ JAX's own parameters (``init_whisper_encoder_params``) are carried across with
 ``convert.py``; the encoder states of two 30 s windows agree at 1e-4 (the
 tolerance the JAX package pins against HF's torch Whisper). The HF loader
 returns the same parameter tree as the JAX loader and keeps its refusal of
-unconsumed encoder tensors.
+unconsumed encoder tensors, and the port's encoder on a random-init HF
+checkpoint's weights agrees with ``transformers.WhisperModel(cfg).encoder``
+at 1e-4.
 """
 
 from __future__ import annotations
@@ -172,3 +174,20 @@ def test_unconsumed_encoder_tensor_refuses_the_load(hf_whisper_dir, tmp_path) ->
     with pytest.raises(KeyError, match="unconsumed"):
         jax_whisper.load_hf_whisper_encoder_params(tmp_path, jax_whisper.whisper_config_from_hf_dir(tmp_path))
     assert json.loads((tmp_path / "config.json").read_text())["d_model"] == 64
+
+
+def test_encoder_states_match_transformers_whisper_encoder(hf_whisper_dir) -> None:
+    """The port's encoder on the HF checkpoint's weights against ``transformers``' own encoder, at 1e-4."""
+    config = torch_whisper.whisper_config_from_hf_dir(hf_whisper_dir)
+    params = torch_whisper.load_hf_whisper_encoder_params(hf_whisper_dir, config)
+    ours = torch_whisper.build_whisper_encoder(
+        config, convert.whisper_encoder_state_dict(params), device=torch.device("cpu"), dtype=torch.float32
+    )
+    reference = transformers.WhisperModel.from_pretrained(hf_whisper_dir).encoder.eval()
+    frames = 2 * reference.config.max_source_positions
+    mel = torch.from_numpy(np.random.default_rng(4).standard_normal((2, frames, config.n_mels)).astype(np.float32))
+    with torch.inference_mode():
+        states = ours(mel)
+        expected = reference(input_features=mel.transpose(1, 2)).last_hidden_state
+    assert states.shape == expected.shape == (2, reference.config.max_source_positions, config.d_model)
+    np.testing.assert_allclose(states.numpy(), expected.numpy(), atol=ATOL)
