@@ -55,7 +55,9 @@ per source, in parallel), then, one phase per line:
    bf16) over the encoder states of 2 windows, 448-token budget, through the
    kernels and through PyTorch ops: ms per step, tokens per second, launches,
    the two routes' logits over the positions before their first differing
-   token, a device-time profile of each, and a 2-layer card-vs-CPU check;
+   token, a device-time profile of each (busy share: the union of the
+   device events' intervals over the wall time), and a 2-layer card-vs-CPU
+   check;
 7. ``WhisperForTranscription.transcribe_words`` on a 60 s synthetic clip at
    full width (no VAD, no retries), cold and warm, at the 448- and the
    96-token budget, with the launches of K1-K5;
@@ -177,9 +179,26 @@ per source, in parallel), then, one phase per line:
     the opened gate (masked K2 launches, the same numbers, the bar, the
     planted fault and the row check of ``medium-train``) and served by
     ``api.infer`` (its frames the trained head's own labels for the held-out
-    clip).
+    clip);
+22. ``dist-train``: the train lane of phase 9 through the distributed layer:
+    ``initialize_distributed()`` from ``SER_DIST_*`` with one process (an
+    NCCL group of 1), ``build_mesh`` (1x1) and
+    ``make_sharded_train_loop(encoder, mesh, ...)``: its 3 losses and every
+    updated parameter against the one-device loop from the same start (the
+    same bits), with a planted fault (one gradient doubled at the second
+    step) the limit must catch; launches of K1, K2 and K2-bwd equal to phase
+    9's; ms per step beside the one-device loop's, timed in turns, and phase
+    9's (the collective path's cost), and the data-axis mean's own time; a
+    checkpoint saved and restored at the mesh, then one more step, against
+    the uninterrupted step;
+23. ``batch-infer``: ``infer_many`` over 12 WAVs (four each of 10, 45 and
+    75 s) and a corrupt file under that group (the gather path): accurate at
+    full width (K1 once and K2 32 times per clip encode) and medium (XLS-R
+    300M layout, ``chunked_encode_many``: masked K2 24 times per cross-clip
+    batch), each row against ``api.infer`` on the same file, the corrupt
+    file's error in its row, files and audio-seconds per second.
 
-Phases 5-21 set the launch counts of the kernels they run to 0 just before
+Phases 5-23 set the launch counts of the kernels they run to 0 just before
 their run and read them just after; K1's two forms count apart, and the
 main path must launch the fused form once per encode and the spectrum form
 never.
@@ -370,6 +389,23 @@ ACCURATE_TRAIN_ACCURACY_BAR = 0.9
 MEDIUM_TRAIN_ACCURACY_BAR = 0.75
 
 RAVDESS_LABELS = ["angry", "calm", "disgust", "fearful", "happy", "neutral", "sad", "surprised"]
+
+# dist-train: the mesh loop (an NCCL group of 1, a 1x1 mesh) against the one-device loop from the same
+# start. The same kernels in the same order on the same inputs, cuDNN's convolutions held to their
+# deterministic algorithms in both, and a data-axis all-reduce over one rank (a copy): the same bits,
+# so the limit on losses and parameters is 0. The planted fault (one gradient doubled at the second step)
+# must land above it, as must a restored checkpoint's next step parted from the uninterrupted one.
+DIST_TRAIN_ATOL = 0.0
+# batch-infer: four clips each of 10, 45 and 75 s (1, 2 and 3 windows of 30 s; 15 s chunks and 30 s
+# chunks for medium). Accurate: each clip encodes as api.infer encodes it (its windows in one batch), so
+# its rows are expected bit for bit; the limit allows 1e-6 of probability. Medium: infer_many batches
+# chunks across clips by bucket (a 45 s clip's 15 s tail in the 15 s bucket, where api.infer pads it to
+# 30 s with its first chunk), so its bf16 products run at other shapes: a limit of 1e-2 on probabilities
+# (the bf16 encoder's 2e-2 relative error against float32 is the wider bound), and frame labels held
+# wherever api.infer's top-two margin is wider than twice that.
+BATCH_CLIP_SECONDS = (10.0, 45.0, 75.0) * 4
+BATCH_ACCURATE_PROB_ATOL = 1e-6
+BATCH_MEDIUM_PROB_ATOL = 1e-2
 
 
 def say(phase: str, **fields) -> None:
@@ -1534,17 +1570,38 @@ def _kernel_group(name: str) -> str:
 _LAST_PROFILE_GROUPS: dict[str, float] = {}
 
 
+def _union_ms(intervals: list[tuple[float, float]]) -> float:
+    """The length of the union of (start, end) intervals in microseconds, in ms."""
+    total, reach = 0.0, float("-inf")
+    for start, end in sorted(intervals):
+        if end > reach:
+            total += end - max(start, reach)
+            reach = end
+    return total / 1e3
+
+
 def _profile(run, label: str) -> str:
     """Device time of one ``run()`` by kernel group, and the device's busy share.
 
     The profiler runs one warm-up step first, so the profiled step's wall
     time holds no profiler start-up. Only device events (kernels, memsets,
-    copies) are summed. Informational: where the profiler cannot trace the
-    card, it says so and the run goes on (the phase's numbers come from the
-    host clock and CUDA events).
+    copies) are summed. The busy share is the union of their intervals over
+    the wall time: kernels that overlap (on two streams, or a copy beside a
+    kernel) count once, so it cannot pass 1, as the sum of their times can.
+    Informational: where the profiler cannot trace the card, it says so and
+    the run goes on (the phase's numbers come from the host clock and CUDA
+    events).
     """
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
+
+    def traced_ready(prof) -> None:
+        traced.setdefault("events", prof.key_averages())
+        traced.setdefault("device_events", [
+            (event.name, event.time_range.start, event.time_range.end)
+            for event in prof.events() if event.device_type == DeviceType.CUDA
+        ])
 
     # A trace that starts right after another one ended (CUPTI torn down, see
     # TEARDOWN_CUPTI above) may hold no device events: trace once more.
@@ -1554,7 +1611,7 @@ def _profile(run, label: str) -> str:
             with profile(
                 activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
-                on_trace_ready=lambda p: traced.setdefault("events", p.key_averages()),
+                on_trace_ready=traced_ready,
             ) as prof:
                 run()
                 torch.cuda.synchronize()
@@ -1588,7 +1645,13 @@ def _profile(run, label: str) -> str:
     rows = [[e.key[:72], e.count, round(e.self_device_time_total / 1e3, 3)] for e in top]
     say(f"{label}-kernels", top=json.dumps(rows))
     shares = ", ".join(f"{g}:{ms:.3f}ms" for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]))
-    return f"wall_ms={wall_ms:.3f} device_ms={device_ms:.3f} busy={device_ms / wall_ms:.4f} groups=[{shares}]"
+    # The device events summed above, by name: the trace's device timeline also holds the
+    # profiler step's own annotation, which spans the whole step.
+    names = {event.key for event in kernels}
+    intervals = [(start, end) for name, start, end in traced.get("device_events", []) if name in names]
+    busy = f"{_union_ms(intervals) / wall_ms:.4f}" if intervals else "unavailable"
+    return (f"wall_ms={wall_ms:.3f} device_ms={device_ms:.3f} busy={busy} "
+            f"kernel_sum_over_wall={device_ms / wall_ms:.4f} groups=[{shares}]")
 
 
 def phase_encoder() -> dict:
@@ -4423,6 +4486,340 @@ def phase_research_train() -> dict:
     return {"numbers": numbers, "launches": launches, "shuffled_accuracy": fault, "rows": rows, "wall_s": wall_s}
 
 
+# --------------------------------------------------------------------------- #
+# The distributed layer: dist-train and batch-infer
+# --------------------------------------------------------------------------- #
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _world_of_one() -> str:
+    """``initialize_distributed()`` through ``SER_DIST_*`` with one process: an NCCL group of 1 on the card."""
+    import torch.distributed as dist
+
+    from ser_tpu_torch.parallel.distributed import initialize_distributed
+
+    os.environ.update({"SER_DIST_COORDINATOR": f"127.0.0.1:{_free_port()}", "SER_DIST_NUM_PROCESSES": "1",
+                       "SER_DIST_PROCESS_ID": "0"})
+    if not initialize_distributed():
+        raise AssertionError("initialize_distributed() did not form a group from SER_DIST_*")
+    backend = dist.get_backend()
+    if backend != "nccl" or dist.get_world_size() != 1:
+        raise AssertionError(f"expected an NCCL group of 1, got {backend} of {dist.get_world_size()}")
+    return backend
+
+
+def _max_abs_diff(ours: dict, reference: dict) -> float:
+    return max((ours[name].float() - reference[name].float()).abs().max().item() for name in reference)
+
+
+def _train_state(encoder, head) -> dict:
+    from ser_tpu_torch.parallel import train_step as ts
+
+    return {name: tensor.detach().clone() for name, tensor in ts.train_parameters(encoder, head).items()}
+
+
+def phase_dist_train(train: dict) -> dict:
+    """``bench.py``'s train lane through the distributed layer on one card: an NCCL group of 1 from
+    ``SER_DIST_*``, ``build_mesh`` (1x1), ``make_sharded_train_loop(encoder, mesh, ...)``; held to the
+    one-device loop from the same start, a planted fault, a checkpoint round trip at the mesh."""
+    import torch
+
+    from ser_tpu_torch.parallel.mesh import build_mesh
+
+    backend = _world_of_one()
+    mesh = build_mesh()
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        return _dist_train(train, backend, mesh, deterministic)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+
+def _dist_train(train: dict, backend: str, mesh, timing_deterministic: bool) -> dict:
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from ser_tpu_torch.models import attention
+    from ser_tpu_torch.models import whisper as wm
+    from ser_tpu_torch.ops import log_mel
+    from ser_tpu_torch.parallel import checkpoint, optim
+    from ser_tpu_torch.parallel import train_step as ts
+
+    config, cuda = wm.WhisperConfig(), torch.device("cuda")
+    batch, k_steps = 4, 3
+    state = wm.random_whisper_encoder_state(config, seed=0, device=cuda)
+    rng = np.random.default_rng(0)
+    waves = torch.from_numpy((0.1 * rng.standard_normal((k_steps, batch, wm.CHUNK_SAMPLES))).astype(np.float32))
+    labels = torch.from_numpy(rng.integers(0, 8, size=(k_steps, batch)).astype(np.int32))
+
+    def start(target, optimizer):
+        """A fresh encoder from the seeded state on ``target`` (the card, or the mesh)."""
+        encoder = wm.build_trainable_whisper_encoder(
+            config, {name: tensor.clone() for name, tensor in state.items()}, device=cuda,
+            compute_dtype=torch.bfloat16, remat=True, remat_policy="dots",
+            mesh=target if target is mesh else None)
+        place, run_steps, optimizer = ts.make_sharded_train_loop(encoder, target, optimizer)
+        head, placed_waves, placed_labels = place(_train_head(config), waves, labels)
+        opt_state = ts.place_optimizer_state(target, optimizer.init(ts.train_parameters(encoder, head)))
+        return encoder, head, opt_state, run_steps, placed_waves, placed_labels
+
+    ref_encoder, ref_head, ref_state, ref_run, w, lab = start(cuda, optim.adafactor(1e-4))
+    ref_head, ref_state, reference_losses = ref_run(ref_head, ref_state, w, lab)
+    reference = _train_state(ref_encoder, ref_head)
+
+    counters = (log_mel.FUSED_COUNTER, log_mel.COUNTER, attention.COUNTER, attention.BWD_COUNTER)
+    encoder, head, opt_state, run_steps, w, lab = start(mesh, optim.adafactor(1e-4))
+    for counter in counters:
+        counter.launches = 0
+    head, opt_state, losses = run_steps(head, opt_state, w, lab)
+    torch.cuda.synchronize()
+    launches = {c.name: c.launches for c in counters}
+    ours = _train_state(encoder, head)
+    loss_diff = (losses - reference_losses).abs().max().item()
+    param_diff = _max_abs_diff(ours, reference)
+    same_bits = loss_diff == 0 and all(torch.equal(ours[n], reference[n]) for n in reference)
+
+    # A checkpoint at the mesh after these 3 steps, then one more step, uninterrupted and restored.
+    with tempfile.TemporaryDirectory(dir=REPO / "build", prefix="chip_smoke_dist_train_") as tmp:
+        path = Path(tmp) / "trainstate"
+        started = time.perf_counter()
+        checkpoint.save_train_state(path, encoder_params=encoder.state_dict(), head_params=head,
+                                    opt_state=opt_state, step=k_steps, mesh=mesh)
+        save_s = time.perf_counter() - started
+        head, opt_state, next_loss = run_steps(head, opt_state, w[:1], lab[:1])
+        uninterrupted = _train_state(encoder, head)
+
+        # Timed in turns on the live states (warm), K steps a call: one device, mesh, mesh, one device,
+        # with cuDNN's algorithms chosen as phase train chooses them.
+        routes = {"one_device": [ref_head, ref_state, ref_run], "mesh": [head, opt_state, run_steps]}
+        turns: dict[str, list[float]] = {"one_device": [], "mesh": []}
+        torch.backends.cudnn.deterministic = timing_deterministic
+        try:
+            for route in ("one_device", "mesh", "mesh", "one_device"):
+                route_head, route_state, route_run = routes[route]
+                torch.cuda.synchronize()
+                started = time.perf_counter()
+                route_head, route_state, timed_losses = route_run(route_head, route_state, w, lab)
+                timed_losses = timed_losses.cpu()
+                turns[route].append((time.perf_counter() - started) / k_steps * 1e3)
+                routes[route][:2] = [route_head, route_state]
+            # The collective path's own time: the data-axis mean of K more mesh steps, synchronized
+            # around, in buckets and with one collective per tensor (a bucket limit of one byte).
+            data_mean_ms = {}
+            for label, limit in (("buckets", ts.BUCKET_BYTES), ("per_tensor", 1)):
+                spans: dict[str, float] = {}
+                restore = _spans_around(spans, [(ts, "_data_mean")])
+                bucket_bytes, ts.BUCKET_BYTES = ts.BUCKET_BYTES, limit
+                try:
+                    run_steps(*routes["mesh"][:2], w, lab)
+                finally:
+                    ts.BUCKET_BYTES = bucket_bytes
+                    _restore(restore)
+                data_mean_ms[label] = spans["_data_mean"] / k_steps * 1e3
+        finally:
+            torch.backends.cudnn.deterministic = True
+        ms_per_step, one_device_ms = statistics.mean(turns["mesh"]), statistics.mean(turns["one_device"])
+        del encoder, head, opt_state, ours, routes, ref_encoder, ref_head, ref_state
+        torch.cuda.empty_cache()
+
+        encoder, _, _, run_steps, w, lab = start(mesh, optim.adafactor(1e-4))
+        started = time.perf_counter()
+        params, head, opt_state, step = checkpoint.restore_train_state(path, map_location=cuda, mesh=mesh)
+        encoder.load_state_dict(params, strict=True)
+        head = {name: tensor.requires_grad_() for name, tensor in head.items()}
+        restore_s = time.perf_counter() - started
+        head, opt_state, resumed_loss = run_steps(head, opt_state, w[:1], lab[:1])
+        resumed = _train_state(encoder, head)
+        resume_diff = max(_max_abs_diff(resumed, uninterrupted), (resumed_loss - next_loss).abs().max().item())
+        del encoder, head, opt_state, params, resumed, uninterrupted
+
+    # Planted fault: one gradient scaled by 2 before the update. adafactor's first step is blind to a
+    # gradient's scale (v = g² + eps, so the update is g/|g|); the fault is planted at the second step.
+    base = optim.adafactor(1e-4)
+    planted_name = "encoder.layers.0.attn.q.weight"
+
+    def planted_apply(params, grads, opt_state, layout=None):
+        if opt_state["count"] == 1:
+            grads = {**grads, planted_name: grads[planted_name] * 2}
+        return base.apply(params, grads, opt_state, layout)
+
+    encoder, head, opt_state, run_steps, w, lab = start(mesh, dataclasses.replace(base, apply=planted_apply))
+    head, opt_state, fault_losses = run_steps(head, opt_state, w, lab)
+    fault_diff = _max_abs_diff(_train_state(encoder, head), reference)
+    del encoder, head, opt_state, reference, state
+    torch.cuda.empty_cache()
+
+    say("dist-train", backend=backend, mesh="1x1", batch=batch, steps=k_steps, ms_per_step=f"{ms_per_step:.2f}",
+        one_device_ms_per_step=f"{one_device_ms:.2f}", turns=json.dumps({k: [round(v, 2) for v in t]
+                                                                          for k, t in turns.items()}),
+        collective_cost_ms_per_step=f"{ms_per_step - one_device_ms:.2f}",
+        data_mean_ms_per_step=json.dumps({k: round(v, 2) for k, v in data_mean_ms.items()}),
+        train_ms_per_step=f"{train['ms_per_step']:.2f}",
+        losses=json.dumps([round(x, 6) for x in losses.cpu().tolist()]),
+        one_device_losses=json.dumps([round(x, 6) for x in reference_losses.cpu().tolist()]),
+        same_bits=same_bits, loss_max_abs_diff=f"{loss_diff:.3g}", param_max_abs_diff=f"{param_diff:.3g}",
+        limit=DIST_TRAIN_ATOL, launches=json.dumps(launches), train_launches=json.dumps(train["launches"]))
+    say("dist-train-checkpoint", save_s=f"{save_s:.2f}", restore_s=f"{restore_s:.2f}", restored_step=step,
+        next_loss=f"{next_loss.item():.6f}", resumed_loss=f"{resumed_loss.item():.6f}",
+        max_abs_diff=f"{resume_diff:.3g}", limit=DIST_TRAIN_ATOL)
+    say("dist-train-fault", planted=f"{planted_name} gradient x2 at step 2",
+        param_max_abs_diff=f"{fault_diff:.3g}", limit=DIST_TRAIN_ATOL,
+        losses=json.dumps([round(x, 6) for x in fault_losses.cpu().tolist()]))
+    if not (loss_diff <= DIST_TRAIN_ATOL and param_diff <= DIST_TRAIN_ATOL):
+        raise AssertionError(f"the mesh loop parts from the one-device loop: loss {loss_diff}, params {param_diff}")
+    if step != k_steps or not resume_diff <= DIST_TRAIN_ATOL:
+        raise AssertionError(f"the restored step parts from the uninterrupted one: {resume_diff} (step {step})")
+    if not fault_diff > DIST_TRAIN_ATOL:
+        raise AssertionError(f"the limit missed the planted fault: {fault_diff}")
+    if launches != train["launches"]:
+        raise AssertionError(f"dist-train launched {launches}, phase train {train['launches']}")
+    if not torch.isfinite(timed_losses).all():
+        raise AssertionError(f"non-finite losses: {timed_losses.tolist()}")
+    return {"launches": launches, "ms_per_step": ms_per_step, "one_device_ms_per_step": one_device_ms,
+            "data_mean_ms_per_step": data_mean_ms, "same_bits": same_bits}
+
+
+def _batch_rows_check(label: str, rows, references: dict, prob_limit: float, *, exact_segments: bool) -> dict:
+    """Each decoded row against ``api.infer`` on its file: segments (exactly, or label for label where
+    the reference's top-two margin is wider than twice the limit) and frame probabilities."""
+    worst, segments_differ, frames_differ = 0.0, 0, 0
+    for row in rows:
+        reference = references.get(row.file_path)
+        if reference is None:
+            continue
+        ours, theirs = row.result, reference.detailed_result
+        if len(ours.frames) != len(theirs.frames):
+            raise AssertionError(f"{label}: {row.file_path} has {len(ours.frames)} frames, api.infer "
+                                 f"{len(theirs.frames)}")
+        for mine, ref in zip(ours.frames, theirs.frames):
+            worst = max(worst, max(abs(mine.probabilities[k] - p) for k, p in ref.probabilities.items()))
+            top = sorted(ref.probabilities.values(), reverse=True)
+            if mine.emotion != ref.emotion:
+                frames_differ += 1
+                if top[0] - top[1] > 2 * prob_limit:
+                    raise AssertionError(f"{label}: {row.file_path} frame at {ref.start_seconds} s is "
+                                         f"{mine.emotion}, api.infer {ref.emotion} (margin {top[0] - top[1]:.3g})")
+        if [(s.emotion, s.start_seconds, s.end_seconds) for s in ours.segments] != [
+                (s.emotion, s.start_seconds, s.end_seconds) for s in theirs.segments]:
+            segments_differ += 1
+            if exact_segments:
+                raise AssertionError(f"{label}: {row.file_path} segments differ from api.infer's")
+    if not worst <= prob_limit:
+        raise AssertionError(f"{label}: probabilities {worst} from api.infer's, limit {prob_limit}")
+    return {"prob_max_abs_diff": worst, "segments_differ": segments_differ, "frames_differ": frames_differ}
+
+
+def phase_batch_infer() -> dict:
+    """``infer_many`` over 12 WAVs (four each of 10, 45 and 75 s) and a corrupt file, under the NCCL
+    group of 1 (the gather path): accurate at full width (K1, K2) and medium (masked K2), each row
+    against ``api.infer`` on the same file."""
+    import torch
+    import torch.distributed as dist
+
+    import ser_tpu_torch.api as api
+    from ser_tpu_torch._internal.config.artifact_naming import profile_artifact_file_name
+    from ser_tpu_torch._internal.config.bootstrap import build_settings
+    from ser_tpu_torch._internal.repr import encode_util
+    from ser_tpu_torch.models import attention
+    from ser_tpu_torch.ops import log_mel
+    from ser_tpu_torch.parallel import batch_inference
+    from ser_tpu_torch.parallel.batch_inference import infer_many
+
+    if not dist.is_initialized():
+        _world_of_one()
+    counters = (log_mel.FUSED_COUNTER, log_mel.COUNTER, attention.COUNTER, attention.F32_COUNTER)
+    os.environ.update({"SER_ALLOW_RANDOM_INIT": "1", "SER_RANDOM_INIT_SIZE": "full"})
+    readings = {}
+    with tempfile.TemporaryDirectory(dir=REPO / "build", prefix="chip_smoke_batch_") as tmp:
+        root = Path(tmp)
+        files, seconds = [], []
+        for index, length in enumerate(BATCH_CLIP_SECONDS):
+            clip = root / f"clip_{index:02d}_{int(length)}s.wav"
+            _write_clip(clip, length, 48000, seed=20 + index)
+            files.append(str(clip))
+            seconds.append(length)
+        corrupt = root / "corrupt.wav"
+        corrupt.write_bytes(b"RIFF\x00\x00\x00\x00WAVEjunk")
+        paths = files[:6] + [str(corrupt)] + files[6:]
+        audio_s = sum(seconds)
+        for profile, feature_size, backend_id, model_id in (
+                ("accurate", 2 * 1280, "jax_whisper_encoder", "openai/whisper-large-v3"),
+                ("medium", 2 * 1024, "jax_xlsr", MEDIUM_MODEL_ID)):
+            _write_head_envelope(root / "models" / profile_artifact_file_name(profile=profile, model_id=model_id),
+                                 feature_size=feature_size, backend_id=backend_id, profile=profile,
+                                 model_id=model_id)
+            settings = build_settings({"SER_ENABLE_ACCURATE_PROFILE": "1", "SER_ENABLE_MEDIUM_PROFILE": "1",
+                                       "SER_MODELS_FOLDER": str(root / "models"),
+                                       "SER_CACHE_DIR": str(root / "cache")})
+            for counter in counters:
+                counter.launches = 0
+            torch.cuda.synchronize()
+            started = time.perf_counter()
+            rows = infer_many(paths, profile=profile, settings=settings)
+            torch.cuda.synchronize()
+            cold_s = time.perf_counter() - started
+            launches = {c.name: c.launches for c in counters}
+            started = time.perf_counter()
+            infer_many(paths, profile=profile, settings=settings)
+            torch.cuda.synchronize()
+            warm_s = time.perf_counter() - started
+            # Once more, split on the host clock: the decode (summed over its threads), the
+            # encode, and the per-clip window, pool, predict and postprocess pass.
+            spans: dict[str, float] = {}
+            restore = _spans_around(spans, [(batch_inference, "read_audio_file"), (encode_util, "encode_clips"),
+                                            (batch_inference, "run_windowed_inference_once")])
+            try:
+                started = time.perf_counter()
+                infer_many(paths, profile=profile, settings=settings)
+                split_s = time.perf_counter() - started
+            finally:
+                _restore(restore)
+            references = {path: api.infer(path, profile=profile, include_transcript=False, settings=settings)
+                          for path in files}
+            if [row.file_path for row in rows] != paths:
+                raise AssertionError(f"{profile}: rows out of input order")
+            bad = [row for row in rows if row.result is None]
+            if [row.file_path for row in bad] != [str(corrupt)] or not bad[0].error:
+                raise AssertionError(f"{profile}: failed rows {[(r.file_path, r.error) for r in bad]}")
+            exact = profile == "accurate"
+            check = _batch_rows_check(f"batch-infer-{profile}", rows, references,
+                                      BATCH_ACCURATE_PROB_ATOL if exact else BATCH_MEDIUM_PROB_ATOL,
+                                      exact_segments=exact)
+            say(f"batch-infer-{profile}", files=len(files), corrupt_error=json.dumps(bad[0].error[:80]),
+                audio_s=audio_s, cold_s=f"{cold_s:.3f}", warm_s=f"{warm_s:.3f}",
+                files_per_s=f"{len(files) / warm_s:.2f}", audio_s_per_s=f"{audio_s / warm_s:.1f}",
+                cold_files_per_s=f"{len(files) / cold_s:.2f}", launches=json.dumps(launches),
+                prob_max_abs_diff=f"{check['prob_max_abs_diff']:.3g}",
+                prob_limit=BATCH_ACCURATE_PROB_ATOL if exact else BATCH_MEDIUM_PROB_ATOL,
+                segments_differ=check["segments_differ"], frames_differ=check["frames_differ"])
+            say(f"batch-infer-{profile}-split", wall_s=f"{split_s:.3f}",
+                **{f"{name}_s": f"{value:.3f}" for name, value in spans.items()})
+            readings[profile] = {"launches": launches, "files_per_s": len(files) / warm_s,
+                                 "audio_s_per_s": audio_s / warm_s, **check}
+    accurate, medium = readings["accurate"]["launches"], readings["medium"]["launches"]
+    expected = {"stft_power_mel_log": len(files), "power_mel_log": 0, "flash_attention_fwd": 32 * len(files),
+                "flash_attention_f32": 0}
+    if accurate != expected:
+        raise AssertionError(f"batch-infer accurate launched {accurate}, expected {expected}")
+    # chunked_encode_many: the 12 clips' 15 s chunks (4 clips of 10 s, and the tails of the 45 and 75 s
+    # clips) in one batch of the 15 s bucket, their 12 full 30 s chunks in one of the 30 s bucket.
+    expected = {"stft_power_mel_log": 0, "power_mel_log": 0, "flash_attention_fwd": 24 * 2,
+                "flash_attention_f32": 0}
+    if medium != expected:
+        raise AssertionError(f"batch-infer medium launched {medium}, expected {expected}")
+    return readings
+
+
 def main() -> int:
     try:
         import torch
@@ -4512,11 +4909,19 @@ def main() -> int:
         medium_train = phase_medium_train()
         phase = mark("research-train")
         research_train = phase_research_train()
+        phase = mark("dist-train")
+        dist_train = phase_dist_train(train)
+        phase = mark("batch-infer")
+        batch_infer = phase_batch_infer()
     except Exception:
         traceback.print_exc()
         say_phase_walls()
         print(f"chip_smoke: FAILED in phase {phase}", file=sys.stderr)
         return 1
+    finally:
+        from ser_tpu_torch.parallel.distributed import shutdown_distributed
+
+        shutdown_distributed()
     say_phase_walls()
 
     # K1 (both forms) and K2: launches of the three api.infer requests; K3-K5: of the first
@@ -4579,6 +4984,12 @@ def main() -> int:
                   smoke_shape_max_abs_err=k2_f32["train_shapes"]["4s-smoke"],
                   medium_train_rows_rel_l2_err=medium_train["rows_f32"]["rel_l2_err"])
     del k2_f32["train_shapes"]
+    # The distributed layer: launches of dist-train's compared mesh call (3 steps) and of the first
+    # infer_many call of batch-infer (12 clips; masked K2: medium's).
+    for kernel in (k1["fused"], k1["spectrum"], k2, k2_f32, k2_bwd, k3, k4, k5):
+        kernel.update(dist_train_launches=dist_train["launches"].get(kernel["name"], 0),
+                      batch_infer_launches=batch_infer["accurate"]["launches"].get(kernel["name"], 0),
+                      batch_infer_medium_launches=batch_infer["medium"]["launches"].get(kernel["name"], 0))
     say("run", wall_s=f"{time.perf_counter() - run_started:.1f}")
     print(json.dumps({"kernels": [k1["fused"], k1["spectrum"], k2, k2_f32, k2_bwd, k3, k4, k5]}))
     print(env["smi"])

@@ -11,6 +11,7 @@ environment configures both packages: ``SER_ENABLE_MEDIUM_PROFILE``,
 ``SER_MODEL_CACHE_DIR``, ``SER_MEDIUM_MODEL_ID``, ``SER_ACCURATE_MODEL_ID``,
 ``SER_ACCURATE_RESEARCH_MODEL_ID``, ``SER_OUTPUT_SCHEMA_VERSION``,
 ``SER_TORCH_DEVICE``, ``SER_TORCH_DTYPE``, ``SER_DEFAULT_LANGUAGE``,
+``SER_MESH_DATA_AXIS_SIZE``, ``SER_MESH_MODEL_AXIS_SIZE``,
 ``SER_TMP_FOLDER`` (alias ``SER_TMP_DIR``), the ``SER_<PROFILE>_<KNOB>``
 runtime overrides of the four profiles (``SER_<PROFILE>_TIMEOUT_SECONDS``,
 ``..._MAX_TIMEOUT_RETRIES``, ``..._MAX_TRANSIENT_RETRIES``,
@@ -285,6 +286,13 @@ def build_settings(env: Mapping[str, str] | None = None) -> AppConfig:
             separation_model_path=_path(env, "SER_SEPARATION_MODEL_PATH"),
         ),
     )
+    mesh = dataclasses.replace(
+        base.mesh,
+        **_changes(
+            data_axis_size=_number(int)(env, "SER_MESH_DATA_AXIS_SIZE"),
+            model_axis_size=_number(int)(env, "SER_MESH_MODEL_AXIS_SIZE"),
+        ),
+    )
     tmp_folder = _path(env, "SER_TMP_FOLDER") or _path(env, "SER_TMP_DIR")
     if tmp_folder is None and cache_root is not None:
         tmp_folder = cache_root / "tmp"
@@ -299,6 +307,7 @@ def build_settings(env: Mapping[str, str] | None = None) -> AppConfig:
         schema=schema,
         torch_runtime=torch_runtime,
         transcription=transcription,
+        mesh=mesh,
         tmp_folder=tmp_folder if tmp_folder is not None else base.tmp_folder,
         default_language=_str(env, "SER_DEFAULT_LANGUAGE") or base.default_language,
         **_data_sections(env, base),

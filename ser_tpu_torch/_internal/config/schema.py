@@ -4,7 +4,7 @@ Counterpart of ``ser_tpu/_internal/config/schema.py``. Field names, defaults
 and the platform cache/data directories are the JAX package's, so one
 environment configures both packages alike. Only the sections the four
 profiles' inference paths, their transcript lane, the restricted-backend
-gate, the data layer and the training entry points read are here; the full
+gate, the data layer, the training entry points and the mesh read are here; the full
 settings builder is later work (``ROADMAP.md``).
 """
 
@@ -264,6 +264,19 @@ class TorchRuntimeConfig:
 
 
 @dataclass(frozen=True)
+class MeshConfig:
+    """The (data, model) mesh layout (``SER_MESH_DATA_AXIS_SIZE`` / ``SER_MESH_MODEL_AXIS_SIZE``).
+
+    An axis size of 0 means "infer from the process count": the data axis
+    absorbs what the model axis leaves.
+    """
+
+    data_axis_size: int = 0
+    model_axis_size: int = 1
+    axis_names: tuple[str, str] = ("data", "model")
+
+
+@dataclass(frozen=True)
 class AppConfig:
     """The port's settings snapshot."""
 
@@ -289,6 +302,7 @@ class AppConfig:
     schema: SchemaConfig = field(default_factory=SchemaConfig)
     torch_runtime: TorchRuntimeConfig = field(default_factory=TorchRuntimeConfig)
     transcription: TranscriptionConfig = field(default_factory=TranscriptionConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
     tmp_folder: Path = field(default_factory=lambda: default_cache_root() / "tmp")
     default_language: str = "en"
 
@@ -320,6 +334,7 @@ __all__ = [
     "DatasetConfig",
     "FeatureFlags",
     "MediumTrainingConfig",
+    "MeshConfig",
     "ModelsConfig",
     "NeuralNetConfig",
     "OntologyConfig",

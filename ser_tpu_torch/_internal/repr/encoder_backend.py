@@ -12,9 +12,12 @@ float32 encode. ``chunked_encode_many`` pools many clips' chunks into
 cross-clip batches, grouped by bucket, with the same batch caps.
 
 Differences from the JAX package: ``encode_batch`` returns a float32 tensor
-on the backend's device; on one device ``shard_chunk_batch`` passes its
-inputs through (no mesh); and ``_gather_valid_finite`` is one plain function
-on tensors (the JAX package builds a new ``jax.jit`` on every call).
+on the backend's device; ``shard_chunk_batch`` always passes its inputs
+through, since one process drives one card here and a collective issued for
+one request would hang the ranks that never see that request (the port
+spreads work over ranks by file, in ``parallel.batch_inference.infer_many``,
+and by batch, in training); and ``_gather_valid_finite`` is one plain
+function on tensors (the JAX package builds a new ``jax.jit`` on every call).
 """
 
 from __future__ import annotations
@@ -110,7 +113,7 @@ def bucket_samples(length: int, sample_rate: int = ENCODER_SAMPLE_RATE) -> int:
 
 
 def shard_chunk_batch(batch: np.ndarray, lengths: np.ndarray) -> tuple[np.ndarray, np.ndarray, int]:
-    """``(batch, lengths, true_rows)``: on one device the batch is laid out as it is."""
+    """``(batch, lengths, true_rows)``: the batch as it is, under a process group too (see above)."""
     return batch, lengths, batch.shape[0]
 
 

@@ -29,6 +29,19 @@ _BACKEND_CACHE: dict[tuple, EncoderBackend] = {}
 _BACKEND_CACHE_LOCK = threading.Lock()
 
 
+def resolved_model_id(profile: ProfileName, settings: AppConfig) -> str:
+    """The model id the backend will actually load (the settings' override wins; "" for fast).
+
+    Everything that keys on model identity (embedding caches, artifact
+    metadata, compatibility checks) uses this, not the catalog's default.
+    """
+    return {
+        "medium": settings.models.medium_model_id,
+        "accurate": settings.models.accurate_model_id,
+        "accurate-research": settings.models.accurate_research_model_id,
+    }.get(profile, "")
+
+
 def build_encoder_backend(profile: ProfileName, settings: AppConfig) -> EncoderBackend:
     """Builds (or reuses) the encoder backend for one transformer profile."""
     spec = require_ported(profile)
@@ -63,4 +76,4 @@ def build_encoder_backend(profile: ProfileName, settings: AppConfig) -> EncoderB
         return _BACKEND_CACHE.setdefault(cache_key, backend)
 
 
-__all__ = ["EncoderBackend", "build_encoder_backend"]
+__all__ = ["EncoderBackend", "build_encoder_backend", "resolved_model_id"]

@@ -9,6 +9,7 @@ postprocessing config.
 
 from __future__ import annotations
 
+from collections.abc import Callable
 from typing import Any, Literal
 
 import numpy as np
@@ -53,9 +54,15 @@ def run_windowed_inference_once(
     pooling_strategy: PoolingStrategy = "mean_std",
     output_schema_version: str,
     expected_feature_size: int | None = None,
+    encode_fn: Callable[[np.ndarray, int], EncodedSequence] | None = None,
 ) -> InferenceResult:
-    """One deterministic windowed inference pass for transformer profiles."""
-    encoded = backend.encode_sequence(audio, sample_rate)
+    """One deterministic windowed inference pass for transformer profiles.
+
+    ``encode_fn`` replaces ``backend.encode_sequence`` (batch inference hands
+    in a clip it encoded in a batch with others).
+    """
+    encode = encode_fn if encode_fn is not None else backend.encode_sequence
+    encoded = encode(audio, sample_rate)
     windows = temporal_pooling_windows(
         encoded,
         window_size_seconds=pool_window_size_seconds,

@@ -69,6 +69,7 @@ from ser_tpu_torch.models.attention import multi_head_attention
 from ser_tpu_torch.models.checkpoint_audit import AuditedState, unconsumed_key_error
 from ser_tpu_torch.models.hf_checkpoint import read_hf_tensors
 from ser_tpu_torch.models.quant import QuantDense
+from ser_tpu_torch.models.tensor_parallel import copy_to_model_group, local_slice, reduce_from_model_group
 from ser_tpu_torch.ops.activations import gelu_erf
 from ser_tpu_torch.ops.decode_step_kernels import require_fused_decode_shapes
 from ser_tpu_torch.ops.log_mel import log_mel_raw, normalize_log_mel, set_strict_float32
@@ -170,17 +171,52 @@ class LayerNorm(nn.Module):
         return y.to(self.out_dtype if self.out_dtype is not None else torch.promote_types(x.dtype, self.weight.dtype))
 
 
-def _dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+def _dense(
+    layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype, group: torch.distributed.ProcessGroup | None = None
+) -> torch.Tensor:
     """flax ``nn.Dense(dtype=...)``: input, kernel and bias cast to ``dtype``.
 
     The casts are no-ops for weights stored in ``dtype`` (inference); for
     float32 master weights the gradient reaches them through the cast. A
-    ``QuantDense`` quantizes ``x`` as it comes and returns ``dtype``.
+    ``QuantDense`` quantizes ``x`` as it comes and returns ``dtype``. With a
+    model ``group`` the layer is column-parallel: its weight holds this rank's
+    output rows and its bias is whole, of which this rank's slice is added.
     """
     if isinstance(layer, QuantDense):
         return layer(x, dtype)
-    bias = None if layer.bias is None else layer.bias.to(dtype)
+    bias = layer.bias
+    if bias is not None and group is not None:
+        bias = local_slice(bias, group)
+    bias = None if bias is None else bias.to(dtype)
     return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
+
+
+def _row_parallel(
+    layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype, group: torch.distributed.ProcessGroup
+) -> torch.Tensor:
+    """A row-parallel ``nn.Dense``: this rank's input columns, the partial sums added over
+    ``group`` (Megatron's ``g``), then the whole bias, once."""
+    partial_sum = F.linear(x.to(dtype), layer.weight.to(dtype))
+    return reduce_from_model_group(partial_sum, group) + layer.bias.to(dtype)
+
+
+def _linear_layers(
+    d_in: int, d_out: int, quant_int8: bool, parts: int
+) -> tuple[nn.Module, nn.Module]:
+    """A (column-parallel, row-parallel) pair d_in → d_out → d_in cut into ``parts``.
+
+    The column-parallel layer holds d_out / parts output rows and its whole
+    bias, the row-parallel one d_out / parts input columns and its whole
+    bias; at one part both are the plain layers.
+    """
+    if parts == 1:
+        linear = QuantDense if quant_int8 else nn.Linear
+        return linear(d_in, d_out), linear(d_out, d_in)
+    if quant_int8:
+        raise ValueError("The W8A8 encoder (inference only) has no tensor-parallel form.")
+    column, row = nn.Linear(d_in, d_out // parts), nn.Linear(d_out // parts, d_in)
+    column.bias = nn.Parameter(torch.empty(d_out))
+    return column, row
 
 
 def _conv(layer: nn.Conv1d, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -193,36 +229,56 @@ class MultiHeadAttention(nn.Module):
 
     ``compute_dtype`` None computes in the weights' dtype. ``quant_int8``
     makes the four projections W8A8 (``QuantDense``, the same state dict).
+    With a ``model_group`` of P ranks (Megatron tensor parallelism) q, k and v
+    are column-parallel and hold this rank's H/P heads, and ``out`` is
+    row-parallel; the head count comes from q's local width.
     """
 
     def __init__(
-        self, config: WhisperConfig, compute_dtype: torch.dtype | None = None, quant_int8: bool = False
+        self,
+        config: WhisperConfig,
+        compute_dtype: torch.dtype | None = None,
+        quant_int8: bool = False,
+        model_group: torch.distributed.ProcessGroup | None = None,
     ) -> None:
         super().__init__()
         d = config.d_model
-        linear = QuantDense if quant_int8 else nn.Linear
+        parts = 1 if model_group is None else torch.distributed.get_world_size(model_group)
         self.n_heads = config.n_heads
+        self.head_dim = d // config.n_heads
         self.compute_dtype = compute_dtype
-        self.q = linear(d, d)
-        self.k = linear(d, d, bias=False)
-        self.v = linear(d, d)
-        self.out = linear(d, d)
+        self.model_group = model_group
+        q, out = _linear_layers(d, d, quant_int8, parts)
+        self.q = q
+        self.k = (QuantDense if quant_int8 else nn.Linear)(d, d // parts, bias=False)
+        self.v = _linear_layers(d, d, quant_int8, parts)[0]
+        self.out = out
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        batch, seq, d = x.shape
+        batch, seq, _ = x.shape
         dtype = self.compute_dtype or self.q.weight.dtype
+        group = self.model_group
         if not isinstance(self.q, QuantDense):  # W8A8 quantizes the LayerNorm's output as it comes
             x = x.to(dtype)  # once for the three projections
-        heads = (batch, seq, self.n_heads, d // self.n_heads)
-        q = _dense(self.q, x, dtype).view(heads)
+        if group is not None:
+            x = copy_to_model_group(x, group)
+        q = _dense(self.q, x, dtype, group)
+        heads = (batch, seq, q.shape[-1] // self.head_dim, self.head_dim)
+        q = q.view(heads)
         k = _dense(self.k, x, dtype).view(heads)
-        v = _dense(self.v, x, dtype).view(heads)
-        out = multi_head_attention(q, k, v, compute_dtype=dtype)
-        return _dense(self.out, out.reshape(batch, seq, d), dtype)
+        v = _dense(self.v, x, dtype, group).view(heads)
+        out = multi_head_attention(q, k, v, compute_dtype=dtype).reshape(batch, seq, -1)
+        if group is None:
+            return _dense(self.out, out, dtype)
+        return _row_parallel(self.out, out, dtype, group)
 
 
 class EncoderBlock(nn.Module):
-    """Pre-norm block: x + attn(LN(x)), then x + mlp(LN(x))."""
+    """Pre-norm block: x + attn(LN(x)), then x + mlp(LN(x)).
+
+    With a ``model_group``, ``mlp_in`` is column-parallel and ``mlp_out``
+    row-parallel, as in the attention: one sum over the group per product pair.
+    """
 
     def __init__(
         self,
@@ -230,22 +286,27 @@ class EncoderBlock(nn.Module):
         ln_dtype: torch.dtype = torch.float32,
         compute_dtype: torch.dtype | None = None,
         quant_int8: bool = False,
+        model_group: torch.distributed.ProcessGroup | None = None,
     ) -> None:
         super().__init__()
         d = config.d_model
-        linear = QuantDense if quant_int8 else nn.Linear
+        parts = 1 if model_group is None else torch.distributed.get_world_size(model_group)
         self.compute_dtype = compute_dtype
+        self.model_group = model_group
         self.attn_ln = LayerNorm(d, config.layer_norm_eps, ln_dtype)
-        self.attn = MultiHeadAttention(config, compute_dtype, quant_int8)
+        self.attn = MultiHeadAttention(config, compute_dtype, quant_int8, model_group)
         self.mlp_ln = LayerNorm(d, config.layer_norm_eps, ln_dtype)
-        self.mlp_in = linear(d, 4 * d)
-        self.mlp_out = linear(4 * d, d)
+        self.mlp_in, self.mlp_out = _linear_layers(d, 4 * d, quant_int8, parts)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dtype = self.compute_dtype or self.mlp_in.weight.dtype
+        group = self.model_group
         x = x + self.attn(self.attn_ln(x))
-        h = _dense(self.mlp_in, self.mlp_ln(x), dtype)
-        return x + _dense(self.mlp_out, gelu_erf(h), dtype)
+        if group is None:
+            h = _dense(self.mlp_in, self.mlp_ln(x), dtype)
+            return x + _dense(self.mlp_out, gelu_erf(h), dtype)
+        h = _dense(self.mlp_in, copy_to_model_group(self.mlp_ln(x).to(dtype), group), dtype, group)
+        return x + _row_parallel(self.mlp_out, gelu_erf(h), dtype, group)
 
 
 REMAT_POLICIES = ("full", "dots")
@@ -274,7 +335,9 @@ class WhisperEncoder(nn.Module):
     block in the backward (``torch.utils.checkpoint``, non-reentrant), all of
     it (``"full"``) or all but the projection products (``"dots"``); it acts
     only when grad mode is on. ``quant_int8`` (inference only) makes every
-    block's projection products W8A8.
+    block's projection products W8A8. ``model_group`` (training) makes every
+    block tensor-parallel over that group; the stem, the LayerNorms and the
+    residual stream stay whole on every rank.
     """
 
     def __init__(
@@ -286,6 +349,7 @@ class WhisperEncoder(nn.Module):
         remat: bool = False,
         remat_policy: str = "full",
         quant_int8: bool = False,
+        model_group: torch.distributed.ProcessGroup | None = None,
     ) -> None:
         super().__init__()
         if remat_policy not in REMAT_POLICIES:
@@ -298,7 +362,8 @@ class WhisperEncoder(nn.Module):
         self.conv1 = nn.Conv1d(config.n_mels, d, kernel_size=3, padding=1)
         self.conv2 = nn.Conv1d(d, d, kernel_size=3, stride=2, padding=1)
         self.layers = nn.ModuleList(
-            EncoderBlock(config, ln_dtype, compute_dtype, quant_int8) for _ in range(config.encoder_layers)
+            EncoderBlock(config, ln_dtype, compute_dtype, quant_int8, model_group)
+            for _ in range(config.encoder_layers)
         )
         self.final_ln = LayerNorm(d, config.layer_norm_eps)
         self._positions: dict[tuple, torch.Tensor] = {}
@@ -360,16 +425,33 @@ def build_trainable_whisper_encoder(
     compute_dtype: torch.dtype,
     remat: bool = True,
     remat_policy: str = "dots",
+    mesh=None,
 ) -> WhisperEncoder:
     """A train-mode encoder with float32 master weights on ``device``, computing in ``compute_dtype``.
 
     The training counterpart of :func:`build_whisper_encoder`: the JAX
     package's training encoder keeps float32 parameters
     (``init_whisper_encoder_params``) and casts them per op. Built on the meta
-    device and filled by assignment, like the inference encoder.
+    device and filled by assignment, like the inference encoder: a float32
+    tensor of ``state_dict`` already on ``device`` becomes the parameter
+    itself, and training updates it in place. On a
+    ``mesh`` (``ser_tpu_torch.parallel.mesh``) whose model axis has P > 1
+    ranks, ``state_dict`` is the full one: this rank keeps its shards of it
+    (``parallel.sharding.shard_state_dict``) and its blocks run
+    tensor-parallel over the model axis, H/P heads each.
     """
+    from ser_tpu_torch.parallel.sharding import model_group, shard_state_dict
+
+    group = model_group(mesh)
+    if group is not None:
+        parts = torch.distributed.get_world_size(group)
+        if config.n_heads % parts:
+            raise ValueError(f"A model axis of {parts} does not divide {config.n_heads} heads.")
+        state_dict = shard_state_dict(mesh, state_dict)
     with torch.device("meta"):
-        encoder = WhisperEncoder(config, compute_dtype=compute_dtype, remat=remat, remat_policy=remat_policy)
+        encoder = WhisperEncoder(
+            config, compute_dtype=compute_dtype, remat=remat, remat_policy=remat_policy, model_group=group
+        )
     placed = {name: tensor.to(device=device, dtype=torch.float32) for name, tensor in state_dict.items()}
     encoder.load_state_dict(placed, strict=True, assign=True)
     return encoder.train()

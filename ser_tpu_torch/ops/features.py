@@ -16,7 +16,9 @@ batched program of ``ops/dsp.py``, on the device the caller names.
   batched program together, each row zero-padded to the chunk's longest
   clip and masked to its own length.
 
-Differences from the JAX package: one device, so no batch sharding; and no
+Differences from the JAX package: no batch sharding (one process drives
+one card, and a request's rows stay on it, as ``shard_chunk_batch`` keeps a
+request's chunks; see ``_internal/repr/encoder_backend.py``); and no
 power-of-two buckets of rows, clip slices or whole-clip lengths. They bound
 the number of programs XLA compiles, and eager PyTorch compiles none; every
 row is computed alone and masked to its true length, so the results are the

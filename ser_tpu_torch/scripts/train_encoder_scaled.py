@@ -7,7 +7,12 @@ train the whole Whisper-encoder classifier with ``make_sharded_train_loop``
 ``ser_tpu_torch.parallel.checkpoint`` and resume exactly with ``--resume``.
 It runs on the CUDA card (bf16 compute, kernels K1, K2 and K2-bwd) unless
 ``SER_TORCH_DEVICE=cpu`` asks for the CPU (float32 compute, the kernels'
-plain versions). One device: ``SER_MESH_*`` axes above 1 are refused.
+plain versions). Run as one process per rank (``SER_DIST_*`` or torchrun),
+it trains on the (data, model) mesh that ``SER_MESH_DATA_AXIS_SIZE`` /
+``SER_MESH_MODEL_AXIS_SIZE`` shape: the global ``--batch`` split over the
+data axis (which must divide it), the encoder tensor-parallel over the
+model axis. Only rank 0 prints and writes checkpoints (every rank gathers
+its shards for the write); a checkpoint resumes at another mesh shape.
 
 The encoder's random weights come from ``random_whisper_encoder_state(seed)``
 (a ``torch.Generator``), so they differ from the JAX script's for the same
@@ -21,12 +26,15 @@ Examples:
   # One H100, production dims (remat; batch 4, adafactor and 'dots' as the bench):
   python -m ser_tpu_torch.scripts.train_encoder_scaled --dataset ~/ravdess --model large \\
       --steps 100 --batch 4 --checkpoint ~/ck --resume
+
+  # Four H100s of one host, dp2 x tp2 (NCCL):
+  SER_MESH_MODEL_AXIS_SIZE=2 torchrun --nproc-per-node 4 -m ser_tpu_torch.scripts.train_encoder_scaled \\
+      --synthetic --model large --batch 4
 """
 
 from __future__ import annotations
 
 import argparse
-import os
 import sys
 import time
 from pathlib import Path
@@ -102,9 +110,10 @@ def main(argv: list[str] | None = None) -> int:
         parser.error("one of --dataset or --synthetic is required")
 
     import torch
+    import torch.distributed as dist
 
+    from ser_tpu_torch._internal.config.bootstrap import reload_settings
     from ser_tpu_torch._internal.data.ravdess import RAVDESS_EMOTIONS
-    from ser_tpu_torch._internal.repr.runtime_policy import resolve_device
     from ser_tpu_torch.models.whisper import (
         CHUNK_SAMPLES,
         WhisperConfig,
@@ -112,9 +121,13 @@ def main(argv: list[str] | None = None) -> int:
         random_whisper_encoder_state,
     )
     from ser_tpu_torch.parallel.checkpoint import restore_train_state, save_train_state
+    from ser_tpu_torch.parallel.distributed import initialize_distributed
+    from ser_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, axis_size, build_mesh
     from ser_tpu_torch.parallel.optim import adafactor, adam
+    from ser_tpu_torch.parallel.sharding import data_slice
     from ser_tpu_torch.parallel.train_step import (
         make_sharded_train_loop,
+        mesh_device,
         place_optimizer_state,
         train_parameters,
     )
@@ -122,8 +135,12 @@ def main(argv: list[str] | None = None) -> int:
     labels = sorted(set(RAVDESS_EMOTIONS.values()))
     labels_index = {label: i for i, label in enumerate(labels)}
     config = WhisperConfig() if args.model == "large" else WhisperConfig.tiny()
-    device = resolve_device(os.environ.get("SER_TORCH_DEVICE", "auto"))
+    initialize_distributed()
+    mesh = build_mesh(reload_settings().mesh)  # SER_MESH_* env controls dp×tp
+    device = mesh_device(mesh)
     on_card = device.type == "cuda"
+    lead = not dist.is_initialized() or dist.get_rank() == 0
+    say = print if lead else (lambda *_args, **_kwargs: None)
 
     rng = np.random.default_rng(args.seed)
     clips = None
@@ -131,11 +148,16 @@ def main(argv: list[str] | None = None) -> int:
         clips = _discover_clips(args.dataset.expanduser(), dict(RAVDESS_EMOTIONS))
         if not clips:
             raise SystemExit(f"No labeled RAVDESS WAVs under {args.dataset}")
-        print(f"{len(clips)} labeled clips, {len(labels)} classes")
+        say(f"{len(clips)} labeled clips, {len(labels)} classes")
 
-    data_axis = int(os.environ.get("SER_MESH_DATA_AXIS_SIZE", "1") or 1)
-    model_axis = int(os.environ.get("SER_MESH_MODEL_AXIS_SIZE", "1") or 1)
-    print(f"mesh: data={data_axis} model={model_axis} device={device}")
+    data_axis, model_axis = axis_size(mesh, DATA_AXIS), axis_size(mesh, MODEL_AXIS)
+    say(f"mesh: data={data_axis} model={model_axis}")
+    if args.batch % data_axis:
+        raise SystemExit(
+            f"--batch {args.batch} must be divisible by the mesh data axis "
+            f"({data_axis}; set SER_MESH_DATA_AXIS_SIZE/"
+            f"SER_MESH_MODEL_AXIS_SIZE to reshape)."
+        )
     encoder = build_trainable_whisper_encoder(
         config,
         random_whisper_encoder_state(config, seed=args.seed, device=device),
@@ -143,11 +165,10 @@ def main(argv: list[str] | None = None) -> int:
         compute_dtype=torch.bfloat16 if on_card else torch.float32,
         remat=True,
         remat_policy=args.remat_policy,
+        mesh=mesh,
     )
     optimizer = adafactor(args.learning_rate) if args.optimizer == "adafactor" else adam(args.learning_rate)
-    place, run_steps, optimizer = make_sharded_train_loop(
-        encoder, device, optimizer, data_axis_size=data_axis, model_axis_size=model_axis
-    )
+    place, run_steps, optimizer = make_sharded_train_loop(encoder, mesh, optimizer)
 
     head_rng = np.random.default_rng(args.seed)
     head = {
@@ -174,17 +195,22 @@ def main(argv: list[str] | None = None) -> int:
         return (torch.from_numpy(waves).to(device), torch.from_numpy(labs).to(device),
                 torch.from_numpy(valid).to(device))
 
-    waves, labs, valid = super_batch()
-    head, waves, labs = place(head, waves, labs)
-    opt_state = place_optimizer_state(device, optimizer.init(train_parameters(encoder, head)))
+    def place_batch(waves, labs, valid):
+        """This rank's slice (dim 1) of a super-batch."""
+        return tuple(data_slice(mesh, tensor, 1) for tensor in (waves, labs, valid))
+
+    global_batch = super_batch()
+    head, waves, labs = place(head, *global_batch[:2])
+    valid = data_slice(mesh, global_batch[2], 1)
+    opt_state = place_optimizer_state(mesh, optimizer.init(train_parameters(encoder, head)))
     step = 0
     ckpt_path = args.checkpoint / "trainstate" if args.checkpoint else None
     if args.resume and ckpt_path and (ckpt_path.exists() or ckpt_path.with_name("trainstate.staging").exists()):
-        encoder_params, head_params, opt_state, step = restore_train_state(ckpt_path, map_location=device)
+        encoder_params, head_params, opt_state, step = restore_train_state(ckpt_path, map_location=device, mesh=mesh)
         encoder.load_state_dict(encoder_params, strict=True)
-        head, _, _ = place(head_params, waves, labs)
-        opt_state = place_optimizer_state(device, opt_state)
-        print(f"resumed at step {step}")
+        head, _, _ = place(head_params, *global_batch[:2])
+        opt_state = place_optimizer_state(mesh, opt_state)
+        say(f"resumed at step {step}")
 
     dispatch = 0
     while step < args.steps:
@@ -194,18 +220,19 @@ def main(argv: list[str] | None = None) -> int:
         elapsed = time.perf_counter() - start
         step += k
         audio_s = k * batch * CHUNK_SAMPLES / 16000.0
-        print(
+        say(
             f"step {step:>5}  loss {losses[-1]:.4f}  "
             f"{audio_s / elapsed:7.1f} audio_s/s  {elapsed / k * 1000:6.0f} ms/step"
         )
         dispatch += 1
         if ckpt_path and (dispatch % args.checkpoint_every == 0 or step >= args.steps):
             save_train_state(
-                ckpt_path, encoder_params=encoder.state_dict(), head_params=head, opt_state=opt_state, step=step
+                ckpt_path, encoder_params=encoder.state_dict(), head_params=head, opt_state=opt_state, step=step,
+                mesh=mesh,
             )
         if step < args.steps:
-            waves, labs, valid = super_batch()
-    print("done")
+            waves, labs, valid = place_batch(*super_batch())
+    say("done")
     return 0
 
 

@@ -225,3 +225,21 @@ def _imported_modules(path: Path) -> list[str]:
 def test_source_imports_no_forbidden_package(source: Path) -> None:
     offenders = [name for name in _imported_modules(source) if _forbidden(name)]
     assert offenders == [], f"{source.relative_to(REPO_ROOT)} imports {offenders}"
+
+
+#: The distributed layer and batch inference, with both scripts that drive them.
+DISTRIBUTED_MODULES = (
+    "ser_tpu_torch.parallel.mesh",
+    "ser_tpu_torch.parallel.sharding",
+    "ser_tpu_torch.parallel.distributed",
+    "ser_tpu_torch.parallel.batch_inference",
+    "ser_tpu_torch.models.tensor_parallel",
+    "ser_tpu_torch._internal.repr.encoders",
+    "ser_tpu_torch.scripts.train_encoder_scaled",
+    "ser_tpu_torch.scripts.evaluate_profile",
+)
+
+
+@pytest.mark.parametrize("module", DISTRIBUTED_MODULES)
+def test_distributed_module_is_imported(fresh_import, module: str) -> None:
+    assert module in fresh_import["imported"]
