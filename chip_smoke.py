@@ -196,9 +196,25 @@ per source, in parallel), then, one phase per line:
     full width (K1 once and K2 32 times per clip encode) and medium (XLS-R
     300M layout, ``chunked_encode_many``: masked K2 24 times per cross-clip
     batch), each row against ``api.infer`` on the same file, the corrupt
-    file's error in its row, files and audio-seconds per second.
+    file's error in its row, files and audio-seconds per second;
+24. ``separate``: htdemucs at its published widths (48 channels, depth 4,
+    nfft 4096, bottom 512, 5 transformer layers of 8 heads; seeded synthetic
+    weights staged as ``.npz``) and the spectrogram U-Net at its defaults:
+    one segment each through the card's float32 forward against a float64
+    forward of the same module on the card (``SEPARATE_DEMUCS_REL_L2_BOUND``,
+    ``SEPARATE_UNET_REL_L2_BOUND``; planted faults: htdemucs's inverse STFT
+    reading the DC bin's imaginary part, one LayerScale x1.01, one U-Net
+    GroupNorm scale x1.01); then ``WhisperTranscriber(use_demucs=True)
+    .transcribe`` of a 60 s music-like WAV through
+    ``SER_SEPARATION_MODEL_PATH``, once per separator, cold and warm, with the
+    full-width large-v3 of phase ``transcribe`` (96 tokens): spans of the
+    separation, the spectral gate and the transcribe, ms per dispatch and
+    dispatches, the host's share, peak memory, K1-K5 launches of the cold
+    call; and the timeline of the demucs run's words and a warm
+    ``api.infer(profile="accurate")`` written as CSV, SRT, VTT and ASS and
+    read back.
 
-Phases 5-23 set the launch counts of the kernels they run to 0 just before
+Phases 5-24 set the launch counts of the kernels they run to 0 just before
 their run and read them just after; K1's two forms count apart, and the
 main path must launch the fused form once per encode and the spectrum form
 never.
@@ -406,6 +422,20 @@ DIST_TRAIN_ATOL = 0.0
 BATCH_CLIP_SECONDS = (10.0, 45.0, 75.0) * 4
 BATCH_ACCURATE_PROB_ATOL = 1e-6
 BATCH_MEDIUM_PROB_ATOL = 1e-2
+# separate: one segment's vocals from the card's float32 forward against a float64 forward of the same
+# module and weights on the card, relative L2, for htdemucs (7.8 s at 44.1 kHz) and the U-Net (10 s at
+# 16 kHz). TF32 is off in both, so only the order and the precision of the sums differ. The seeded random
+# htdemucs amplifies its own rounding about 20x: at its published widths float32 read 1.6e-4 from float64
+# on the CPU and 3.3e-4 on the card, where it read 1.8e-3 until the inverse STFT zeroed the DC bin's
+# imaginary part, which cuFFT's float32 inverse reads (models/demucs_v4.py::_ispec). Planted faults: that
+# imaginary part left in (1.8e-3), and one LayerScale vector of the first cross layer x1.01 (0.18); the
+# limit sits about 2.4x from the reading and from the first fault. The U-Net at its defaults read 2.3e-7
+# on the card and its planted fault (one decoder GroupNorm scale x1.01) 1.7e-3; its limit is about 4x
+# its reading.
+SEPARATE_DEMUCS_REL_L2_BOUND = 8e-4
+SEPARATE_UNET_REL_L2_BOUND = 1e-6
+# The transcribed clip of the separate phase: 60 s, two Whisper windows.
+SEPARATE_CLIP_SECONDS = 60.0
 
 
 def say(phase: str, **fields) -> None:
@@ -4820,6 +4850,283 @@ def phase_batch_infer() -> dict:
     return readings
 
 
+def _music_clip(seconds: float, sample_rate: int, seed: int):
+    """Music-like audio: a looping bass and chord with a beat, a gliding voice-like tone, noise."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(seconds * sample_rate)) / sample_rate
+    beat = (np.sin(2 * np.pi * 2.0 * t) > 0).astype(np.float64)
+    chord = sum(np.sin(2 * np.pi * f * t) for f in (110.0, 220.0, 277.2, 329.6)) / 4
+    voice = np.sin(2 * np.pi * (300 + 60 * np.sin(2 * np.pi * 0.5 * t)) * t) * (np.sin(2 * np.pi * 0.1 * t) > -0.3)
+    audio = 0.4 * chord * (0.6 + 0.4 * beat) + 0.3 * voice + 0.03 * rng.standard_normal(t.size)
+    return (0.8 * audio / np.abs(audio).max()).astype(np.float32)
+
+
+def _ispec_reading_dc_imag(z, cfg, length):
+    """``demucs_v4._ispec`` without its zeroing of the DC bin's imaginary part (a planted fault)."""
+    import torch
+    import torch.nn.functional as F
+
+    from ser_tpu_torch.models import demucs_v4 as tdm
+
+    *lead, freqs, le = z.shape
+    pad = cfg.hop // 2 * 3
+    total = cfg.hop * math.ceil(length / cfg.hop) + 2 * pad
+    z = F.pad(z.reshape(-1, freqs, le), (2, 2, 0, 1))
+    x = torch.istft(z, cfg.nfft, cfg.hop, window=tdm._window(cfg.nfft, z), normalized=True, center=True,
+                    length=total)
+    return x[:, pad : pad + length].reshape(*lead, length)
+
+
+def _separator_checks(tree, config, npz_root: Path) -> dict:
+    """(a)-(c): htdemucs and the U-Net at their published widths, one segment each, the card's float32
+    forward against a float64 forward of the same module on the card, each with a planted fault."""
+    import numpy as np
+    import torch
+
+    from ser_tpu_torch.models import convert
+    from ser_tpu_torch.models import demucs_v4 as tdm
+    from ser_tpu_torch.models import separation as tsep
+
+    cuda = torch.device("cuda")
+    results: dict = {}
+
+    def rel64(value, reference) -> float:
+        return ((value.double() - reference).norm() / reference.norm()).item()
+
+    # htdemucs: one 7.8 s stereo segment at 44.1 kHz.
+    vocals = config.sources.index("vocals")
+    mix = np.repeat(_music_clip(config.segment_seconds, config.sample_rate, seed=1)[None, None, :],
+                    config.audio_channels, axis=1)[:, :, : config.segment_samples]
+    params32 = convert.demucs_params(tree, device=cuda)
+    params64 = convert.demucs_params(tree, device=cuda, dtype=torch.float64)
+    mix32 = torch.from_numpy(np.ascontiguousarray(mix)).to(cuda)
+    started = time.perf_counter()
+    with torch.inference_mode():
+        reference = tdm.demucs_forward(params64, mix32.double(), config)[:, vocals].mean(dim=1)
+    torch.cuda.synchronize()
+    f64_s = time.perf_counter() - started
+    del params64
+    ours = tdm.vocals_forward(params32, mix32, config, vocals)
+    gamma = params32["crosstransformer"]["layers"][0]["gamma_1"]
+    gamma.mul_(1.01)
+    planted = tdm.vocals_forward(params32, mix32, config, vocals)
+    gamma.div_(1.01)
+    ispec = tdm._ispec
+    tdm._ispec = _ispec_reading_dc_imag
+    try:
+        planted_dc = tdm.vocals_forward(params32, mix32, config, vocals)
+    finally:
+        tdm._ispec = ispec
+    results["demucs"] = {"rel_l2_err": rel64(ours, reference), "planted_rel_l2_err": rel64(planted, reference),
+                         "dc_planted_rel_l2_err": rel64(planted_dc, reference), "float64_forward_s": f64_s,
+                         "finite": bool(torch.isfinite(ours).all())}
+    del reference, ours, planted, planted_dc, params32
+    torch.cuda.empty_cache()
+
+    # The U-Net at SeparatorConfig() defaults: one 10 s mono segment at 16 kHz.
+    unet_config = tsep.SeparatorConfig()
+    unet_tree = tsep.init_separator_params(unet_config, seed=0)
+    unet_path = npz_root / "unet.npz"
+    tsep.save_separator_params(unet_tree, unet_path, config=unet_config)
+    loaded, loaded_config = tsep.load_separator_params(unet_path)
+    model32 = tsep.build_separator(loaded, loaded_config, device=cuda)
+    model64 = tsep.build_separator(loaded, loaded_config, device=cuda).double()
+    segment = torch.from_numpy(_music_clip(unet_config.segment_seconds, unet_config.sample_rate, seed=2)[None]).to(cuda)
+    with torch.inference_mode():
+        reference = tsep.separate_segments(model64, segment.double())
+        with tdm.strict_float32(cuda):
+            ours = tsep.separate_segments(model32, segment)
+            norm = model32.dec_norm[1].weight
+            norm.mul_(1.01)
+            planted = tsep.separate_segments(model32, segment)
+            norm.div_(1.01)
+    results["unet"] = {"rel_l2_err": rel64(ours, reference), "planted_rel_l2_err": rel64(planted, reference),
+                       "finite": bool(torch.isfinite(ours).all())}
+    results["unet_path"] = unet_path
+    for name, bound in (("demucs", SEPARATE_DEMUCS_REL_L2_BOUND), ("unet", SEPARATE_UNET_REL_L2_BOUND)):
+        check = results[name]
+        planted = {key: value for key, value in check.items() if key.endswith("planted_rel_l2_err")}
+        say(f"separate-{name}-accuracy", rel_l2_err=f"{check['rel_l2_err']:.3e}", bound=bound,
+            **{key: f"{value:.3e}" for key, value in planted.items()},
+            **({"float64_forward_s": f"{check['float64_forward_s']:.2f}"} if name == "demucs" else {}))
+        if not check["finite"] or not check["rel_l2_err"] <= bound:
+            raise AssertionError(f"{name}: float32 vocals {check['rel_l2_err']:.3e} from float64, bound {bound}")
+        for key, value in planted.items():
+            if not value > bound:
+                raise AssertionError(f"{name}: the planted fault {key} ({value:.3e}) passed the bound")
+    return results
+
+
+def phase_separate() -> dict:
+    """htdemucs and the U-Net at published widths, then the separated 60 s transcribe and its export."""
+    import csv
+
+    import numpy as np
+    import torch
+
+    import ser_tpu_torch.api as api
+    from ser_tpu_torch._internal.config.artifact_naming import profile_artifact_file_name
+    from ser_tpu_torch._internal.config.bootstrap import build_settings
+    from ser_tpu_torch._internal.config.schema import TimelineConfig
+    from ser_tpu_torch._internal.transcript.whisper_backend import WhisperTranscriber
+    from ser_tpu_torch._internal.utils import denoise, source_separation, subtitles
+    from ser_tpu_torch._internal.utils import timeline as timeline_utils
+    from ser_tpu_torch._internal.utils.audio_io import write_wav
+    from ser_tpu_torch.models import attention
+    from ser_tpu_torch.models import demucs_v4 as tdm
+    from ser_tpu_torch.models import separation as tsep
+    from ser_tpu_torch.ops import decode_step_kernels as dsk
+    from ser_tpu_torch.ops import log_mel
+
+    (REPO / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=REPO / "build", prefix="chip_smoke_separate_") as tmp:
+        root = Path(tmp)
+        # (a) htdemucs at the published widths, the port's synthetic weights (seed 0), staged as .npz.
+        config = tdm.DemucsV4Config()
+        started = time.perf_counter()
+        tree = tdm.init_demucs_params(config, seed=0)
+        demucs_path = root / "htdemucs.npz"
+        tdm.save_demucs_npz(tree, demucs_path, config=config)
+        tree, config = tdm.load_demucs_npz(demucs_path)
+        say("separate-stage", demucs_params=sum(int(np.asarray(x).size) for x in _leaves(tree)),
+            demucs_npz_mb=f"{demucs_path.stat().st_size / 1e6:.1f}", seconds=f"{time.perf_counter() - started:.2f}")
+        # (b), (c)
+        checks = _separator_checks(tree, config, root)
+        del tree
+
+        # (d) WhisperTranscriber(use_demucs=True).transcribe on a 60 s WAV, once per separator.
+        clip = root / "music_60s.wav"
+        write_wav(clip, _music_clip(SEPARATE_CLIP_SECONDS, 44100, seed=3), 44100)
+        model = _transcription_model()
+        counters = (log_mel.FUSED_COUNTER, log_mel.COUNTER, attention.COUNTER, attention.F32_COUNTER,
+                    attention.BWD_COUNTER, *dsk.COUNTERS)
+        spans: dict[str, float] = {}
+        dispatches: list[tuple[int, float]] = []
+
+        def timed(name, fn, record=None):
+            def wrapper(*args, **kwargs):
+                torch.cuda.synchronize()
+                began = time.perf_counter()
+                result = fn(*args, **kwargs)
+                torch.cuda.synchronize()
+                elapsed = time.perf_counter() - began
+                spans[name] = spans.get(name, 0.0) + elapsed
+                if record is not None:
+                    record.append((len(args[1]), elapsed * 1e3))
+                return result
+
+            return wrapper
+
+        originals = [(source_separation, "separate_vocals_auto"), (denoise, "spectral_gate_denoise"),
+                     (tdm, "vocals_forward"), (tsep, "separate_segments")]
+        saved = [(module, name, getattr(module, name)) for module, name in originals]
+        source_separation.separate_vocals_auto = timed("separation", source_separation.separate_vocals_auto)
+        denoise.spectral_gate_denoise = timed("spectral_gate", denoise.spectral_gate_denoise)
+        tdm.vocals_forward = timed("device_forward", tdm.vocals_forward, dispatches)
+        tsep.separate_segments = timed("device_forward", tsep.separate_segments, dispatches)
+        model.transcribe_words = timed("transcribe", model.transcribe_words)
+        runs: dict = {}
+        try:
+            for kind, path in (("demucs", demucs_path), ("unet", checks["unet_path"])):
+                os.environ["SER_SEPARATION_MODEL_PATH"] = str(path)
+                source_separation._NEURAL_PARAM_CACHE.clear()
+                transcriber = WhisperTranscriber(model_name="large-v3", cache_root=root, device="cuda",
+                                                 use_demucs=True, use_vad=False)
+                transcriber._model = model
+                run: dict = {}
+                for attempt in ("cold", "warm"):
+                    spans.clear()
+                    dispatches.clear()
+                    for counter in counters:
+                        counter.launches = 0
+                    torch.cuda.reset_peak_memory_stats()
+                    started = time.perf_counter()
+                    words = transcriber.transcribe(str(clip), language="en")
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - started
+                    run[attempt] = {"wall_s": wall, "spans": dict(spans), "dispatches": list(dispatches),
+                                    "launches": {c.name: c.launches for c in counters},
+                                    "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "words": words}
+                _check_words(run["cold"]["words"], SEPARATE_CLIP_SECONDS)
+                launches = run["cold"]["launches"]
+                k3, k4, k5 = (launches[c.name] for c in dsk.COUNTERS)
+                if (launches["stft_power_mel_log"], launches["power_mel_log"], launches["flash_attention_fwd"]) != (
+                        1, 0, 32) or not (k3 == k4 == k5 and k3 > 0 and k3 % 32 == 0):
+                    raise AssertionError(f"separated transcribe ({kind}) launches {launches}: expected K1 fused 1, "
+                                         "K1 spectrum 0, K2 32 and K3-K5 32 a step")
+                for attempt in ("cold", "warm"):
+                    reading = run[attempt]
+                    rows = [n for n, _ in reading["dispatches"]]
+                    full = [ms for n, ms in reading["dispatches"] if n == max(rows)]
+                    say(f"separate-transcribe-{kind}", attempt=attempt, clip_seconds=SEPARATE_CLIP_SECONDS,
+                        wall_s=f"{reading['wall_s']:.4f}",
+                        spans_s=json.dumps({k: round(v, 4) for k, v in reading["spans"].items()}),
+                        dispatches=len(rows), rows=json.dumps(rows),
+                        ms_per_full_dispatch=f"{statistics.mean(full):.2f}",
+                        host_separation_s=f"{reading['spans']['separation'] - sum(ms for _, ms in reading['dispatches']) / 1e3:.4f}",
+                        peak_gb=f"{reading['peak_gb']:.2f}", words=len(reading["words"]),
+                        launches=json.dumps(reading["launches"]))
+                runs[kind] = run
+        finally:
+            for module, name, original in saved:
+                setattr(module, name, original)
+            del model.transcribe_words
+            os.environ.pop("SER_SEPARATION_MODEL_PATH", None)
+            source_separation._NEURAL_PARAM_CACHE.clear()
+        del model
+        torch.cuda.empty_cache()
+
+        # (e) The export: the demucs run's words and a warm accurate api.infer's emotion segments.
+        artifact = root / "models" / profile_artifact_file_name(profile="accurate", model_id="openai/whisper-large-v3")
+        _write_head_envelope(artifact, feature_size=2 * 1280)
+        os.environ["SER_ALLOW_RANDOM_INIT"] = "1"
+        os.environ["SER_RANDOM_INIT_SIZE"] = "full"
+        settings = build_settings({"SER_ENABLE_ACCURATE_PROFILE": "1", "SER_MODELS_FOLDER": str(root / "models"),
+                                   "SER_CACHE_DIR": str(root / "cache")})
+        api.infer(clip, profile="accurate", include_transcript=False, settings=settings)
+        started = time.perf_counter()
+        execution = api.infer(clip, profile="accurate", include_transcript=False, settings=settings)
+        infer_warm_s = time.perf_counter() - started
+        _check_segments(execution, clip, SEPARATE_CLIP_SECONDS, "jax_whisper_encoder")
+        timeline = timeline_utils.build_timeline(runs["demucs"]["cold"]["words"], execution.emotions)
+        folder = TimelineConfig(folder=root / "transcripts")
+        csv_path = timeline_utils.save_timeline_to_csv(timeline, str(clip), timeline_config=folder)
+        cues = subtitles.timeline_to_subtitle_cues(timeline)
+        written = {fmt: subtitles.save_timeline_to_subtitles(timeline, str(clip), subtitle_format=fmt,
+                                                              timeline_config=folder)
+                   for fmt in ("srt", "vtt", "ass")}
+        with open(csv_path, newline="", encoding="utf-8") as handle:
+            rows = list(csv.reader(handle))
+        texts = {fmt: Path(path).read_text(encoding="utf-8") for fmt, path in written.items()}
+        counts = {"csv_rows": len(rows) - 1, "srt_cues": texts["srt"].count(" --> "),
+                  "vtt_cues": texts["vtt"].count(" --> "), "ass_cues": texts["ass"].count("\nDialogue: ")}
+        say("separate-export", timeline_rows=len(timeline), cues=len(cues), infer_warm_s=f"{infer_warm_s:.4f}",
+            **counts)
+        if rows[0] != ["Time (s)", "Emotion", "Speech"] or [r[0] for r in rows[1:]] != [
+                str(round(e.timestamp_seconds, 2)) for e in timeline]:
+            raise AssertionError(f"the CSV's rows do not read back as the timeline: {rows[:3]}")
+        if not cues or counts["csv_rows"] != len(timeline) or {
+                counts["srt_cues"], counts["vtt_cues"], counts["ass_cues"]} != {len(cues)}:
+            raise AssertionError(f"exported rows or cues {counts}, expected {len(timeline)} rows, {len(cues)} cues")
+        if not texts["vtt"].startswith("WEBVTT\n") or not texts["ass"].startswith("[Script Info]\n"):
+            raise AssertionError("a subtitle file lacks its header")
+    return {"launches": runs["demucs"]["cold"]["launches"], "unet_launches": runs["unet"]["cold"]["launches"],
+            "checks": {k: v for k, v in checks.items() if k != "unet_path"}}
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for value in tree.values():
+            yield from _leaves(value)
+    elif isinstance(tree, list):
+        for value in tree:
+            yield from _leaves(value)
+    else:
+        yield tree
+
+
 def main() -> int:
     try:
         import torch
@@ -4913,6 +5220,8 @@ def main() -> int:
         dist_train = phase_dist_train(train)
         phase = mark("batch-infer")
         batch_infer = phase_batch_infer()
+        phase = mark("separate")
+        separate = phase_separate()
     except Exception:
         traceback.print_exc()
         say_phase_walls()
@@ -4990,6 +5299,11 @@ def main() -> int:
         kernel.update(dist_train_launches=dist_train["launches"].get(kernel["name"], 0),
                       batch_infer_launches=batch_infer["accurate"]["launches"].get(kernel["name"], 0),
                       batch_infer_medium_launches=batch_infer["medium"]["launches"].get(kernel["name"], 0))
+    # Neural separation before the transcript: launches of the cold separated transcribe (htdemucs; the
+    # U-Net's apart), one 60 s clip in two windows.
+    for kernel in (k1["fused"], k1["spectrum"], k2, k2_f32, k2_bwd, k3, k4, k5):
+        kernel.update(separate_launches=separate["launches"].get(kernel["name"], 0),
+                      separate_unet_launches=separate["unet_launches"].get(kernel["name"], 0))
     say("run", wall_s=f"{time.perf_counter() - run_started:.1f}")
     print(json.dumps({"kernels": [k1["fused"], k1["spectrum"], k2, k2_f32, k2_bwd, k3, k4, k5]}))
     print(env["smi"])

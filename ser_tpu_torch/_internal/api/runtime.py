@@ -49,7 +49,12 @@ def infer(
     subtitle_format: SubtitleFormat | None = None,
     settings: AppConfig,
 ) -> InferenceExecution:
-    """Library inference entry point: one request through the runtime pipeline."""
+    """Library inference entry point: one request through the runtime pipeline.
+
+    ``save_transcript`` writes the timeline's CSV under the settings' timeline
+    folder; a subtitle path or format writes ASS, SRT or VTT subtitles (a
+    blank path or an unknown format raises before any compute).
+    """
     resolved = apply_cli_profile_override(settings, profile)
     request = InferenceRequest(
         file_path=str(file_path),

@@ -12,7 +12,9 @@ environment configures both packages: ``SER_ENABLE_MEDIUM_PROFILE``,
 ``SER_ACCURATE_RESEARCH_MODEL_ID``, ``SER_OUTPUT_SCHEMA_VERSION``,
 ``SER_TORCH_DEVICE``, ``SER_TORCH_DTYPE``, ``SER_DEFAULT_LANGUAGE``,
 ``SER_MESH_DATA_AXIS_SIZE``, ``SER_MESH_MODEL_AXIS_SIZE``,
-``SER_TMP_FOLDER`` (alias ``SER_TMP_DIR``), the ``SER_<PROFILE>_<KNOB>``
+``SER_TMP_FOLDER`` (alias ``SER_TMP_DIR``), ``SER_TRANSCRIPTS_FOLDER`` (alias
+``SER_TRANSCRIPTS_DIR``; else ``<SER_DATA_DIR>/transcripts`` when that is
+set), the ``SER_<PROFILE>_<KNOB>``
 runtime overrides of the four profiles (``SER_<PROFILE>_TIMEOUT_SECONDS``,
 ``..._MAX_TIMEOUT_RETRIES``, ``..._MAX_TRANSIENT_RETRIES``,
 ``..._RETRY_BACKOFF_SECONDS`` and ``..._PROCESS_ISOLATION`` among them), the
@@ -293,6 +295,10 @@ def build_settings(env: Mapping[str, str] | None = None) -> AppConfig:
             model_axis_size=_number(int)(env, "SER_MESH_MODEL_AXIS_SIZE"),
         ),
     )
+    transcripts_folder = _first(_path, env, "SER_TRANSCRIPTS_FOLDER", "SER_TRANSCRIPTS_DIR")
+    if transcripts_folder is None and data_root is not None:
+        transcripts_folder = data_root / "transcripts"
+    timeline = dataclasses.replace(base.timeline, **_changes(folder=transcripts_folder))
     tmp_folder = _path(env, "SER_TMP_FOLDER") or _path(env, "SER_TMP_DIR")
     if tmp_folder is None and cache_root is not None:
         tmp_folder = cache_root / "tmp"
@@ -307,6 +313,7 @@ def build_settings(env: Mapping[str, str] | None = None) -> AppConfig:
         schema=schema,
         torch_runtime=torch_runtime,
         transcription=transcription,
+        timeline=timeline,
         mesh=mesh,
         tmp_folder=tmp_folder if tmp_folder is not None else base.tmp_folder,
         default_language=_str(env, "SER_DEFAULT_LANGUAGE") or base.default_language,

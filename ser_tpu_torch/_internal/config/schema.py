@@ -3,8 +3,9 @@
 Counterpart of ``ser_tpu/_internal/config/schema.py``. Field names, defaults
 and the platform cache/data directories are the JAX package's, so one
 environment configures both packages alike. Only the sections the four
-profiles' inference paths, their transcript lane, the restricted-backend
-gate, the data layer, the training entry points and the mesh read are here; the full
+profiles' inference paths, their transcript lane and its timeline export,
+the restricted-backend gate, the data layer, the training entry points and
+the mesh read are here; the full
 settings builder is later work (``ROADMAP.md``).
 """
 
@@ -203,6 +204,13 @@ class ModelsConfig:
 
 
 @dataclass(frozen=True)
+class TimelineConfig:
+    """Where the timeline's CSV and subtitle exports go (``SER_TRANSCRIPTS_FOLDER``)."""
+
+    folder: Path = field(default_factory=lambda: default_data_root() / "transcripts")
+
+
+@dataclass(frozen=True)
 class TranscriptionConfig:
     """Runtime controls of the transcript lane (the JAX package's fields and defaults).
 
@@ -302,6 +310,7 @@ class AppConfig:
     schema: SchemaConfig = field(default_factory=SchemaConfig)
     torch_runtime: TorchRuntimeConfig = field(default_factory=TorchRuntimeConfig)
     transcription: TranscriptionConfig = field(default_factory=TranscriptionConfig)
+    timeline: TimelineConfig = field(default_factory=TimelineConfig)
     mesh: MeshConfig = field(default_factory=MeshConfig)
     tmp_folder: Path = field(default_factory=lambda: default_cache_root() / "tmp")
     default_language: str = "en"
@@ -340,6 +349,7 @@ __all__ = [
     "OntologyConfig",
     "RuntimeFlags",
     "SchemaConfig",
+    "TimelineConfig",
     "TorchRuntimeConfig",
     "TrainingConfig",
     "TranscriptionConfig",

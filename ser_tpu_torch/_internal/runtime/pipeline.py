@@ -6,8 +6,10 @@ dispatches to the active profile's training entry point (``train_fns``, by
 default the four profiles' own), and ``run_inference`` keeps the same phase
 timings, the transcript lane behind ``include_transcript``
 (``extract_transcript``), the same timeline merge of words and emotion
-segments, and the same ``InferenceExecution``. CSV and subtitle export are
-not ported yet and raise ``NotImplementedError`` (``ROADMAP.md``).
+segments, the same exports (the timeline's CSV with ``save_transcript``,
+ASS/SRT/VTT subtitles with ``subtitle_output_path`` or ``subtitle_format``,
+the request validated before any compute) and the same
+``InferenceExecution``.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from ser_tpu_torch._internal.runtime import phases
 from ser_tpu_torch._internal.runtime.backend_hooks import BackendHook, build_backend_hooks
 from ser_tpu_torch._internal.runtime.errors import UnsupportedProfileError
 from ser_tpu_torch._internal.transcript.extractor import extract_transcript
+from ser_tpu_torch._internal.utils import subtitles as subtitles_utils
 from ser_tpu_torch._internal.utils import timeline as timeline_utils
 from ser_tpu_torch.domain import EmotionSegment, TimelineEntry, TranscriptWord
 from ser_tpu_torch.profiles import ProfileName, require_ported, resolve_profile_name
@@ -27,22 +30,6 @@ from ser_tpu_torch.runtime.contracts import InferenceExecution, InferenceRequest
 from ser_tpu_torch.runtime.schema import InferenceResult, to_legacy_emotion_segments
 
 type TrainFn = Callable[[AppConfig], object]
-
-
-def _refuse_unported_outputs(request: InferenceRequest) -> None:
-    unported = [
-        name
-        for name, requested in (
-            ("save_transcript=True (CSV export)", request.save_transcript),
-            ("subtitle export", request.subtitle_output_path is not None or request.subtitle_format is not None),
-        )
-        if requested
-    ]
-    if unported:
-        raise NotImplementedError(
-            f"{', '.join(unported)} is not ported to ser_tpu_torch yet; see ROADMAP.md. "
-            "Use ser_tpu for it."
-        )
 
 
 @dataclass(frozen=True)
@@ -73,8 +60,13 @@ class RuntimePipeline:
 
     def run_inference(self, request: InferenceRequest) -> InferenceExecution:
         """Runs one inference workflow end to end."""
-        _refuse_unported_outputs(request)
         profile = self.active_profile
+        # Validate the subtitle request before any compute: a blank path or a
+        # format that cannot be derived is an input error, and surfacing it
+        # after inference and transcription would discard their results.
+        subtitles_utils.resolve_subtitle_export_request(
+            output_path=request.subtitle_output_path, subtitle_format=request.subtitle_format
+        )
         backend_id = require_ported(profile).backend_id
         timings: dict[str, float] = {}
         with phases.timed_phase(phases.PHASE_WORKFLOW_TOTAL, timings):
@@ -106,8 +98,26 @@ class RuntimePipeline:
                     )
             with phases.timed_phase(phases.PHASE_TIMELINE_BUILD, timings):
                 timeline = timeline_utils.build_timeline(transcript, emotions)
+            timeline_csv_path: str | None = None
+            subtitle_path: str | None = None
             with phases.timed_phase(phases.PHASE_TIMELINE_OUTPUT, timings):
                 self.print_timeline_fn(timeline)
+                if request.save_transcript:
+                    timeline_csv_path = timeline_utils.save_timeline_to_csv(
+                        timeline, request.file_path, timeline_config=self.settings.timeline
+                    )
+                export = subtitles_utils.resolve_subtitle_export_request(
+                    output_path=request.subtitle_output_path, subtitle_format=request.subtitle_format
+                )
+                if export is not None:
+                    subtitle_format, output_path = export
+                    subtitle_path = subtitles_utils.save_timeline_to_subtitles(
+                        timeline,
+                        request.file_path,
+                        subtitle_format=subtitle_format,
+                        output_path=output_path,
+                        timeline_config=self.settings.timeline,
+                    )
         return InferenceExecution(
             profile=profile,
             output_schema_version=detailed.schema_version,
@@ -116,6 +126,8 @@ class RuntimePipeline:
             transcript=transcript,
             timeline=timeline,
             used_backend_path=True,
+            timeline_csv_path=timeline_csv_path,
+            subtitle_path=subtitle_path,
             detailed_result=detailed,
             phase_timings_seconds=timings,
         )

@@ -5,7 +5,8 @@ keeps that backend's id, so one configuration selects it in both packages
 (``ROADMAP.md`` rule (b)). It resolves the staged HF-format checkpoint under
 the Whisper download root, loads ``WhisperForTranscription`` on the device it
 is given, and transcribes one file: read, resample to 16 kHz, with
-``use_demucs`` REPET-SIM vocal separation then the spectral gate, then the
+``use_demucs`` vocal separation (the staged htdemucs or U-Net checkpoint on
+the transcriber's device, else REPET-SIM) then the spectral gate, then the
 model's VAD and its decode: greedy, or beam search with ``beam_size`` and
 ``length_penalty`` (``decode_strategy="beam"``).
 
@@ -89,8 +90,9 @@ class WhisperTranscriber:
                 CompatibilityIssue(
                     kind="noise",
                     message=(
-                        "Separation runs the built-in REPET-SIM vocal separator + spectral gate; "
-                        "staged neural separator checkpoints are not ported to ser_tpu_torch yet."
+                        "Separation runs the staged neural separator (htdemucs or the U-Net) when "
+                        "SER_SEPARATION_MODEL_PATH points at a checkpoint; otherwise the built-in REPET-SIM "
+                        "separator + spectral gate take the lane."
                     ),
                 )
             )
@@ -140,7 +142,9 @@ class WhisperTranscriber:
             from ser_tpu_torch._internal.utils.source_separation import separate_vocals_auto
 
             audio16k = spectral_gate_denoise(
-                separate_vocals_auto(audio16k, 16000, model_path=self._separation_model_path)
+                separate_vocals_auto(
+                    audio16k, 16000, model_path=self._separation_model_path, device=self._device
+                )
             )
         return self._model.transcribe_words(audio16k, language=language, use_vad=self._use_vad)
 

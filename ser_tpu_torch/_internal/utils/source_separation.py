@@ -1,16 +1,22 @@
-"""REPET-SIM vocal separation: the weight-free lane of the transcript's ``use_demucs``.
+"""Vocal separation for the transcript's ``use_demucs`` lane: neural when staged, REPET-SIM else.
 
-Counterpart of ``ser_tpu/_internal/utils/source_separation.py`` for the lane
-that needs no checkpoint: REPET-SIM (Rafii & Pardo, "Music/Voice Separation
-Using the Similarity Matrix", ISMIR 2012). Musical accompaniment repeats and
-voice does not, so each frame's repeating background is the per-frequency
-median over its most similar frames, removed with a soft time-frequency mask.
-Host numpy, once per file before chunking, as in the JAX package; the
-similarity matmul runs through BLAS, segment by segment.
+Counterpart of ``ser_tpu/_internal/utils/source_separation.py``. A staged
+separator checkpoint (``model_path``, then
+``settings.transcription.separation_model_path``, then
+``SER_SEPARATION_MODEL_PATH``) takes the lane: a converted htdemucs ``.npz``
+runs ``models/demucs_v4.py``, any other ``.npz`` the spectrogram U-Net of
+``models/separation.py``, each on the device the caller gives (else the one
+the settings resolve: the card, unless ``SER_TORCH_DEVICE=cpu``; with no card
+a configured checkpoint raises). The weights load once per process and
+device, and stay there.
 
-A staged demucs or U-Net separator checkpoint (``SER_SEPARATION_MODEL_PATH``
-or ``settings.transcription.separation_model_path``) is not ported yet and
-raises ``NotImplementedError`` (``ROADMAP.md``, slice 6).
+With no checkpoint the lane is REPET-SIM (Rafii & Pardo, "Music/Voice
+Separation Using the Similarity Matrix", ISMIR 2012), which needs no weights:
+musical accompaniment repeats and voice does not, so each frame's repeating
+background is the per-frequency median over its most similar frames, removed
+with a soft time-frequency mask. Host numpy, once per file before chunking,
+as in the JAX package; the similarity matmul runs through BLAS, segment by
+segment. It is the lane without a checkpoint, not a fallback from the card.
 """
 
 from __future__ import annotations
@@ -19,6 +25,7 @@ import os
 from pathlib import Path
 
 import numpy as np
+import torch
 
 from ser_tpu_torch._internal.utils.logger import get_logger
 
@@ -137,18 +144,52 @@ def separate_vocals(
     return output.astype(np.float32)
 
 
+#: (resolved path, device) → ("demucs_v4", (tree, config)) or ("spec_unet", module), on that device:
+#: a checkpoint loads once per process and device.
+_NEURAL_PARAM_CACHE: dict[tuple[str, str], tuple[str, object]] = {}
+
 #: Missing-checkpoint paths already warned about (once per process per path).
 _MISSING_WARNED: set[str] = set()
 
 
-def separate_vocals_auto(audio: np.ndarray, sample_rate: int, *, settings=None, model_path=None) -> np.ndarray:
-    """Routes the ``use_demucs`` lane: REPET-SIM unless a separator checkpoint is configured.
+def _separation_device(settings) -> torch.device:
+    """The device the settings resolve (``SER_TORCH_DEVICE`` when there are none)."""
+    from ser_tpu_torch._internal.repr.runtime_policy import resolve_device
+
+    request = settings.torch_runtime.device if settings is not None else os.environ.get("SER_TORCH_DEVICE", "auto")
+    return resolve_device(request)
+
+
+def _load_neural(path: str, device: torch.device, sample_rate: int) -> tuple[str, object]:
+    """Sniffs the checkpoint's format once and places its weights on ``device``."""
+    from ser_tpu_torch.models.demucs_v4 import is_demucs_npz, load_demucs_npz
+
+    if is_demucs_npz(path):
+        from ser_tpu_torch.models.convert import demucs_params
+
+        params, config = load_demucs_npz(path)
+        return "demucs_v4", (demucs_params(params, device=device), config)
+    from ser_tpu_torch.models.separation import SeparatorConfig, build_separator, load_separator_params
+
+    params, config = load_separator_params(path)
+    return "spec_unet", build_separator(params, config or SeparatorConfig(sample_rate=sample_rate), device=device)
+
+
+def separate_vocals_auto(
+    audio: np.ndarray,
+    sample_rate: int,
+    *,
+    settings=None,
+    model_path=None,
+    device: torch.device | str | None = None,
+) -> np.ndarray:
+    """Routes the ``use_demucs`` lane: the staged neural separator, else REPET-SIM.
 
     The checkpoint comes from ``model_path``, then
     ``settings.transcription.separation_model_path``, then
     ``SER_SEPARATION_MODEL_PATH``, as in the JAX package. A configured path
-    that does not exist falls back to REPET-SIM with one warning; one that
-    exists raises, because the neural separators are not ported yet.
+    that does not exist falls back to REPET-SIM with one warning. A U-Net
+    checkpoint whose bundled sample rate is not the lane's raises.
     """
     path = Path(model_path) if model_path is not None else None
     if path is None and settings is not None:
@@ -166,12 +207,29 @@ def separate_vocals_auto(audio: np.ndarray, sample_rate: int, *, settings=None, 
                 path,
             )
         path = None
-    if path is not None:
-        raise NotImplementedError(
-            f"Neural vocal separation (checkpoint {path}) is not ported to ser_tpu_torch yet; see ROADMAP.md "
-            "(slice 6). Unset SER_SEPARATION_MODEL_PATH to use the REPET-SIM separator."
+    if path is None:
+        return separate_vocals(audio, sample_rate)
+
+    device = torch.device(device) if device is not None else _separation_device(settings)
+    key = (str(Path(path).resolve()), str(device))
+    cached = _NEURAL_PARAM_CACHE.get(key)
+    if cached is None:
+        cached = _NEURAL_PARAM_CACHE[key] = _load_neural(key[0], device, sample_rate)
+    kind, payload = cached
+    if kind == "demucs_v4":
+        from ser_tpu_torch.models.demucs_v4 import separate_vocals_demucs
+
+        params, config = payload
+        return separate_vocals_demucs(audio, sample_rate, params=params, config=config)
+
+    from ser_tpu_torch.models.separation import separate_vocals_neural
+
+    if payload.config.sample_rate != sample_rate:
+        raise ValueError(
+            f"Staged separator checkpoint expects {payload.config.sample_rate} Hz audio; the transcription "
+            f"lane provides {sample_rate} Hz."
         )
-    return separate_vocals(audio, sample_rate)
+    return separate_vocals_neural(audio, sample_rate, model=payload)
 
 
 __all__ = ["separate_vocals", "separate_vocals_auto"]

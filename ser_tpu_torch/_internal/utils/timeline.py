@@ -1,16 +1,22 @@
-"""Merge and render transcript-emotion timelines.
+"""Merge, render and persist transcript-emotion timelines.
 
-Copied from ``ser_tpu/_internal/utils/timeline.py`` (the merge and the
-terminal table; CSV export waits for a later slice): millisecond-resolution
-joins, the O(T+E) active-emotion lookup and the colorized table.
+Copied from ``ser_tpu/_internal/utils/timeline.py``: millisecond-resolution
+joins, the O(T+E) active-emotion lookup, CSV export with 2-decimal
+timestamps (byte-equal to the JAX package's), and the colorized table.
 """
 
 from __future__ import annotations
 
+import csv
 from collections import defaultdict
+from pathlib import Path
 
+from ser_tpu_torch._internal.config.schema import TimelineConfig
+from ser_tpu_torch._internal.utils.logger import get_logger
 from ser_tpu_torch._internal.utils.segment_canonicalization import canonicalize_segments
 from ser_tpu_torch.domain import EmotionSegment, TimelineEntry, TranscriptWord
+
+logger = get_logger(__name__)
 
 _ANSI_FG = {"black": 30}
 _ANSI_BG = {"green": 42, "yellow": 43, "blue": 44}
@@ -91,6 +97,25 @@ def build_timeline(
     ]
 
 
+def save_timeline_to_csv(
+    timeline: list[TimelineEntry],
+    file_name: str,
+    *,
+    timeline_config: TimelineConfig | None = None,
+) -> str:
+    """Saves timeline rows as CSV under the configured transcript folder."""
+    config = timeline_config if timeline_config is not None else TimelineConfig()
+    config.folder.mkdir(parents=True, exist_ok=True)
+    output_path = config.folder / f"{Path(file_name).stem}.csv"
+    with open(output_path, mode="w", newline="", encoding="utf-8") as handle:
+        writer = csv.writer(handle)
+        writer.writerow(["Time (s)", "Emotion", "Speech"])
+        for entry in timeline:
+            writer.writerow([round(float(entry.timestamp_seconds), 2), entry.emotion, entry.speech])
+    logger.info("Timeline saved to %s", output_path)
+    return str(output_path)
+
+
 def color_txt(string: str, fg_color: str, bg_color: str, padding: int = 0) -> str:
     """Applies foreground/background ANSI colors to terminal text."""
     if padding:
@@ -127,4 +152,4 @@ def print_timeline(timeline: list[TimelineEntry]) -> None:
         )
 
 
-__all__ = ["build_timeline", "print_timeline"]
+__all__ = ["build_timeline", "color_txt", "print_timeline", "save_timeline_to_csv"]

@@ -32,8 +32,12 @@ the head's fit, the grouped metrics, and the artifact and report under
 
 Each has the transcript lane (``include_transcript``, on by default as in
 the JAX package: it needs a staged HF Whisper checkpoint under the Whisper
-download root). CSV and subtitle export raise ``NotImplementedError``
-(``ROADMAP.md``).
+download root; with ``use_demucs``, on in the accurate profiles' catalog
+entries or by ``WHISPER_DEMUCS``, the staged htdemucs or U-Net checkpoint of
+``SER_SEPARATION_MODEL_PATH`` separates the vocals first, on the same device,
+else REPET-SIM). ``save_transcript`` writes the timeline as CSV under
+``SER_TRANSCRIPTS_FOLDER``, and ``subtitle_output_path`` / ``subtitle_format``
+write it as ASS, SRT or VTT subtitles, the files the JAX package writes.
 """
 
 from __future__ import annotations

@@ -28,6 +28,18 @@
 - ``flax_whisper_encoder_params`` and ``flax_head_params``: the inverses,
   port → flax layout as numpy float32, so that trained parameters and
   gradients can be held against the JAX package's leaf by leaf.
+- ``separator_state_dict``: the flax tree of ``ser_tpu.models.separation.
+  SpecUNetSeparator`` (``init_separator_params`` or ``load_separator_params``
+  of either package) → the ``state_dict`` of ``ser_tpu_torch.models.
+  separation.SpecUNetSeparator``, and ``flax_separator_params`` its inverse.
+  Conv kernels (kt, kf, in, out) become (out, in, kt, kf); the decoder's
+  transposed-conv kernels become (in, out, kt, kf) flipped on both spatial
+  axes (flax applies them unflipped, ``F.conv_transpose2d`` flipped);
+  attention's (D, H, hd) and (H, hd, D) kernels become (D, D) ``Linear``
+  weights; GroupNorm and LayerNorm ``scale`` becomes ``weight``.
+- ``demucs_params``: the htdemucs tree (``demucs_v4.convert_demucs_state_dict``
+  or ``load_demucs_npz`` of either package) as tensors on one device; it
+  keeps the published torch layouts, so nothing is transposed.
 
 Values are float32; the caller places and casts them (``build_whisper_encoder``).
 """
@@ -238,11 +250,122 @@ def flax_head_params(head: Mapping[str, torch.Tensor]) -> dict[str, np.ndarray]:
     return {name: _array(head[name]) for name in ("w1", "b1", "w2", "b2")}
 
 
+def separator_state_dict(params: Mapping, config) -> dict[str, torch.Tensor]:
+    """flax U-Net separator tree → port ``SpecUNetSeparator`` ``state_dict`` (float32 CPU tensors)."""
+    state: dict[str, torch.Tensor] = {}
+
+    def conv(prefix: str, leaf: Mapping) -> None:
+        state[f"{prefix}.weight"] = _tensor(np.asarray(leaf["kernel"]).transpose(3, 2, 0, 1))
+        state[f"{prefix}.bias"] = _tensor(leaf["bias"])
+
+    def norm(prefix: str, leaf: Mapping) -> None:
+        state.update(_layer_norm(prefix, leaf))
+
+    for index in range(len(config.channels)):
+        conv(f"enc.{index}.conv", params[f"enc{index}"]["conv"])
+        norm(f"enc.{index}.norm", params[f"enc{index}"]["norm"])
+        dec = params[f"dec{index}"]
+        # (kt, kf, in, out), applied unflipped → (in, out, kt, kf), flipped for F.conv_transpose2d.
+        kernel = np.asarray(dec["kernel"]).transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]
+        state[f"dec.{index}.weight"] = _tensor(kernel)
+        state[f"dec.{index}.bias"] = _tensor(dec["bias"])
+        if index > 0:
+            norm(f"dec_norm.{index}", params[f"dec{index}_norm"])
+    state.update(_dense("bottleneck_in", params["bottleneck_in"]))
+    state.update(_dense("bottleneck_out", params["bottleneck_out"]))
+    for index in range(config.bottleneck_layers):
+        layer, base = params[f"bottleneck{index}"], f"bottleneck.{index}"
+        norm(f"{base}.attn_norm", layer["attn_norm"])
+        norm(f"{base}.ffn_norm", layer["ffn_norm"])
+        state.update(_dense(f"{base}.ffn_up", layer["ffn_up"]))
+        state.update(_dense(f"{base}.ffn_down", layer["ffn_down"]))
+        for name in ("query", "key", "value"):
+            kernel = np.asarray(layer["attn"][name]["kernel"])
+            state[f"{base}.attn.{name}.weight"] = _tensor(kernel.reshape(kernel.shape[0], -1).T)
+            state[f"{base}.attn.{name}.bias"] = _tensor(np.asarray(layer["attn"][name]["bias"]).reshape(-1))
+        kernel = np.asarray(layer["attn"]["out"]["kernel"])
+        state[f"{base}.attn.out.weight"] = _tensor(kernel.reshape(-1, kernel.shape[-1]).T)
+        state[f"{base}.attn.out.bias"] = _tensor(layer["attn"]["out"]["bias"])
+    return state
+
+
+def flax_separator_params(state: Mapping[str, torch.Tensor], config) -> dict:
+    """Port ``SpecUNetSeparator`` ``state_dict`` (or its gradients) → flax tree of numpy float32."""
+
+    def dense(prefix: str) -> dict:
+        return {"kernel": np.ascontiguousarray(_array(state[f"{prefix}.weight"]).T), "bias": _array(state[f"{prefix}.bias"])}
+
+    def norm(prefix: str) -> dict:
+        return {"scale": _array(state[f"{prefix}.weight"]), "bias": _array(state[f"{prefix}.bias"])}
+
+    params: dict = {"bottleneck_in": dense("bottleneck_in"), "bottleneck_out": dense("bottleneck_out")}
+    for index in range(len(config.channels)):
+        conv = _array(state[f"enc.{index}.conv.weight"]).transpose(2, 3, 1, 0)
+        params[f"enc{index}"] = {
+            "conv": {"kernel": np.ascontiguousarray(conv), "bias": _array(state[f"enc.{index}.conv.bias"])},
+            "norm": norm(f"enc.{index}.norm"),
+        }
+        kernel = _array(state[f"dec.{index}.weight"])[:, :, ::-1, ::-1].transpose(2, 3, 0, 1)
+        params[f"dec{index}"] = {"kernel": np.ascontiguousarray(kernel), "bias": _array(state[f"dec.{index}.bias"])}
+        if index > 0:
+            params[f"dec{index}_norm"] = norm(f"dec_norm.{index}")
+    dim = config.channels[-1]
+    heads = config.bottleneck_heads
+    for index in range(config.bottleneck_layers):
+        base = f"bottleneck.{index}"
+        attn = {}
+        for name in ("query", "key", "value"):
+            weight = _array(state[f"{base}.attn.{name}.weight"])
+            attn[name] = {"kernel": np.ascontiguousarray(weight.T.reshape(dim, heads, dim // heads)),
+                          "bias": _array(state[f"{base}.attn.{name}.bias"]).reshape(heads, dim // heads)}
+        attn["out"] = {"kernel": np.ascontiguousarray(_array(state[f"{base}.attn.out.weight"]).T.reshape(heads, dim // heads, dim)),
+                       "bias": _array(state[f"{base}.attn.out.bias"])}
+        params[f"bottleneck{index}"] = {
+            "attn_norm": norm(f"{base}.attn_norm"),
+            "attn": attn,
+            "ffn_norm": norm(f"{base}.ffn_norm"),
+            "ffn_up": dense(f"{base}.ffn_up"),
+            "ffn_down": dense(f"{base}.ffn_down"),
+        }
+    return params
+
+
+def demucs_params(tree, *, device: torch.device | str | None = None, dtype: torch.dtype = torch.float32):
+    """The htdemucs tree as ``dtype`` tensors on ``device`` (no copy for leaves already there).
+
+    ``device`` None keeps tensor leaves where they are and places numpy
+    leaves on the device ``SER_TORCH_DEVICE`` names (the card unless the CPU
+    is asked for).
+    """
+    if device is None:
+        leaf = tree["freq_emb"]["weight"]
+        if isinstance(leaf, torch.Tensor):
+            device = leaf.device
+        else:
+            import os
+
+            from ser_tpu_torch._internal.repr.runtime_policy import resolve_device
+
+            device = resolve_device(os.environ.get("SER_TORCH_DEVICE", "auto"))
+
+    def place(node):
+        if isinstance(node, dict):
+            return {key: place(value) for key, value in node.items()}
+        if isinstance(node, list):
+            return [place(value) for value in node]
+        return torch.as_tensor(np.asarray(node) if not isinstance(node, torch.Tensor) else node).to(device, dtype)
+
+    return place(tree)
+
+
 __all__ = [
+    "demucs_params",
     "flax_head_params",
+    "flax_separator_params",
     "flax_wav2vec2_params",
     "flax_whisper_encoder_params",
     "mlp_head_layers",
+    "separator_state_dict",
     "train_head_params",
     "wav2vec2_state_dict",
     "whisper_decoder_state_dict",

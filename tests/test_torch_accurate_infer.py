@@ -26,7 +26,11 @@ from ser_tpu.models.mlp_head import JaxMLPClassifier
 import ser_tpu.profiles as jax_profiles
 from ser_tpu_torch import profiles
 from ser_tpu_torch._internal.config.bootstrap import build_settings
-from ser_tpu_torch._internal.runtime.errors import RuntimeDependencyError
+from ser_tpu_torch._internal.runtime.errors import (
+    ModelUnavailableError,
+    RuntimeDependencyError,
+    UnsupportedProfileError,
+)
 
 transformers = pytest.importorskip("transformers")
 torch = pytest.importorskip("torch")
@@ -185,11 +189,35 @@ def test_auto_device_raises_without_a_card(staged) -> None:
         {"profile": "accurate-research", "save_transcript": True},
     ],
 )
-def test_unported_options_raise(staged, options) -> None:
-    """CSV and subtitle export raise in every profile (the fast and accurate-research profiles run since they were ported)."""
+def test_unported_options_raise(staged, options, tmp_path) -> None:
+    """CSV and subtitle export, once refused in every profile, now write their files as ``ser_tpu``
+    does (``tests/test_torch_transcript_export.py`` holds their bytes to it). The fast profile (no
+    head staged here) and the accurate-research profile (gate shut) now fail on their own grounds,
+    and write nothing."""
     kwargs = {"profile": "accurate", **options}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        torch_api.infer(staged["clip"], settings=build_settings(staged["env"]), **kwargs)
+    if "subtitle_output_path" in kwargs:
+        kwargs["subtitle_output_path"] = str(tmp_path / kwargs["subtitle_output_path"])
+    settings = build_settings({**staged["env"], "SER_TRANSCRIPTS_FOLDER": str(tmp_path / "transcripts")})
+    if kwargs["profile"] == "accurate-research":
+        with pytest.raises(UnsupportedProfileError, match="restricted backend"):
+            torch_api.infer(staged["clip"], settings=settings, include_transcript=False, **kwargs)
+        assert not (tmp_path / "transcripts").exists()
+        return
+    if kwargs["profile"] == "fast":
+        with pytest.raises(ModelUnavailableError, match="Train it first"):
+            torch_api.infer(staged["clip"], settings=settings, include_transcript=False, **kwargs)
+        assert not (tmp_path / "transcripts").exists()
+        return
+    execution = torch_api.infer(staged["clip"], settings=settings, include_transcript=False, **kwargs)
+    written = execution.timeline_csv_path if options.get("save_transcript") else execution.subtitle_path
+    expected = {
+        "subtitle_format": tmp_path / "transcripts" / "clip.srt",
+        "save_transcript": tmp_path / "transcripts" / "clip.csv",
+        "subtitle_output_path": tmp_path / "out.srt",
+    }[next(iter(options))]
+    assert written == str(expected) and expected.is_file()
+    if options.get("save_transcript"):
+        assert expected.read_text(encoding="utf-8").splitlines()[0] == "Time (s),Emotion,Speech"
 
 
 def test_int8_dtype_is_not_ported(staged, executions) -> None:

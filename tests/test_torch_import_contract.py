@@ -243,3 +243,21 @@ DISTRIBUTED_MODULES = (
 @pytest.mark.parametrize("module", DISTRIBUTED_MODULES)
 def test_distributed_module_is_imported(fresh_import, module: str) -> None:
     assert module in fresh_import["imported"]
+
+
+#: Neural separation (htdemucs and the U-Net) and the timeline's CSV and subtitle export.
+SEPARATION_AND_EXPORT_MODULES = (
+    "ser_tpu_torch.models.demucs_v4",
+    "ser_tpu_torch.models._demucs_synthetic",
+    "ser_tpu_torch.models.separation",
+    "ser_tpu_torch.models.convert",
+    "ser_tpu_torch._internal.utils.source_separation",
+    "ser_tpu_torch._internal.utils.subtitles",
+    "ser_tpu_torch._internal.utils.timeline",
+    "ser_tpu_torch._internal.runtime.pipeline",
+)
+
+
+@pytest.mark.parametrize("module", SEPARATION_AND_EXPORT_MODULES)
+def test_separation_and_export_module_is_imported(fresh_import, module: str) -> None:
+    assert module in fresh_import["imported"]

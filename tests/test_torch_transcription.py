@@ -46,6 +46,7 @@ from ser_tpu.models.mlp_head import JaxMLPClassifier
 import ser_tpu.profiles as jax_profiles
 from ser_tpu_torch import profiles
 from ser_tpu_torch._internal.config.bootstrap import build_settings
+from ser_tpu_torch._internal.runtime.errors import RuntimeDependencyError
 from ser_tpu_torch._internal.transcript import extractor, hbm_admission, profiling
 from ser_tpu_torch._internal.utils import denoise, source_separation
 from ser_tpu_torch.models import convert
@@ -272,8 +273,11 @@ def test_spectral_gate_matches_jax() -> None:
 
 
 def test_separation_routing(tmp_path, monkeypatch) -> None:
+    """A missing checkpoint takes REPET-SIM; a staged one takes the neural lane, which with no card
+    raises unless the CPU is asked for (``tests/test_torch_separation.py`` holds the neural lane)."""
     audio = _music_and_voice(3.0)
     monkeypatch.delenv("SER_SEPARATION_MODEL_PATH", raising=False)
+    monkeypatch.delenv("SER_TORCH_DEVICE", raising=False)
     missing = tmp_path / "absent.npz"
     np.testing.assert_array_equal(
         source_separation.separate_vocals_auto(audio, 16000, model_path=missing),
@@ -282,7 +286,7 @@ def test_separation_routing(tmp_path, monkeypatch) -> None:
     staged = tmp_path / "demucs.npz"
     staged.write_bytes(b"not a checkpoint")
     monkeypatch.setenv("SER_SEPARATION_MODEL_PATH", str(staged))
-    with pytest.raises(NotImplementedError, match="slice 6"):
+    with pytest.raises(RuntimeDependencyError, match="SER_TORCH_DEVICE=cpu"):
         source_separation.separate_vocals_auto(audio, 16000)
 
 
