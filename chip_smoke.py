@@ -212,9 +212,25 @@ per source, in parallel), then, one phase per line:
     dispatches, the host's share, peak memory, K1-K5 launches of the cold
     call; and the timeline of the demucs run's words and a warm
     ``api.infer(profile="accurate")`` written as CSV, SRT, VTT and ASS and
-    read back.
+    read back;
+25. ``operator``: the operator's path with the card's settings
+    (``SER_TORCH_DEVICE`` at its default): the doctor (with its environment
+    findings) and ``api.run_startup_preflight`` (no blocking finding; the
+    accelerator finding names the card; the native audio library built and
+    taken by ``read_audio_file``); ``api.load_profile("accurate")`` passes and
+    ``load_profile("accurate-research")`` with its license gate shut raises
+    ``UnsupportedProfileError``, which the command runner maps to exit 2;
+    then, inside ``device_trace``, ``benchmark_fast_predict(runs=5)`` on a
+    10 s clip (mean, median, p95) and
+    ``run_quality_gate_workflow(candidate="accurate", folds=4)`` on 16
+    RAVDESS-named 3 s clips (4 classes, 4 speakers) with the full-width
+    large-v3 encoder (seeded random weights): exit 0, the report read back
+    with the decision's verdict, ``candidate_stability`` present (a swallowed
+    error of the stability pass fails the phase), K1 and K2 launched once and
+    32 times for each encoded window and stability request, and the trace
+    naming both kernels' symbols.
 
-Phases 5-24 set the launch counts of the kernels they run to 0 just before
+Phases 5-25 set the launch counts of the kernels they run to 0 just before
 their run and read them just after; K1's two forms count apart, and the
 main path must launch the fused form once per encode and the spectrum form
 never.
@@ -436,6 +452,12 @@ SEPARATE_DEMUCS_REL_L2_BOUND = 8e-4
 SEPARATE_UNET_REL_L2_BOUND = 1e-6
 # The transcribed clip of the separate phase: 60 s, two Whisper windows.
 SEPARATE_CLIP_SECONDS = 60.0
+# operator: the corpus of the quality gate (4 classes x 4 speakers of 3 s at 48 kHz, one 30 s Whisper window a
+# clip), the stability requests its workflow sends (its default: the first 6 clips), and the phase's limit.
+OPERATOR_CLASSES = 4
+OPERATOR_SPEAKERS = 4
+OPERATOR_STABILITY_REQUESTS = 6
+OPERATOR_WALL_LIMIT_S = 60.0
 
 
 def say(phase: str, **fields) -> None:
@@ -5116,6 +5138,152 @@ def phase_separate() -> dict:
             "checks": {k: v for k, v in checks.items() if k != "unet_path"}}
 
 
+def phase_operator() -> dict:
+    """The operator's path on the card: doctor and preflight, the profile checks, the fast latency benchmark
+    and the fast-against-accurate quality gate, the last two inside a device trace."""
+    import torch
+
+    import ser_tpu_torch.api as api
+    from ser_tpu_torch._internal.config.artifact_naming import profile_artifact_file_name
+    from ser_tpu_torch._internal.config.bootstrap import build_settings
+    from ser_tpu_torch._internal.diagnostics import service
+    from ser_tpu_torch._internal.runtime import commands, quality_gate_report, quality_gate_workflow
+    from ser_tpu_torch._internal.runtime.benchmarks import benchmark_fast_predict
+    from ser_tpu_torch._internal.runtime.errors import UnsupportedProfileError
+    from ser_tpu_torch._internal.utils import native_audio
+    from ser_tpu_torch._internal.utils.audio_io import read_audio_file
+    from ser_tpu_torch._internal.utils.profiling import TRACE_FILE_NAME, device_trace
+    from ser_tpu_torch.models import attention
+    from ser_tpu_torch.ops import log_mel
+
+    phase_started = time.perf_counter()
+    counters = (log_mel.FUSED_COUNTER, log_mel.COUNTER, attention.COUNTER, attention.F32_COUNTER)
+    scratch_root = REPO / "build"
+    scratch_root.mkdir(exist_ok=True)
+    os.environ.update({"SER_ALLOW_RANDOM_INIT": "1", "SER_RANDOM_INIT_SIZE": "full"})
+    with tempfile.TemporaryDirectory(dir=scratch_root, prefix="chip_smoke_operator_") as tmp:
+        root = Path(tmp)
+        files = _write_fast_corpus(root / "dataset", actors=OPERATOR_SPEAKERS, clips=1, seconds=3.0,
+                                   sample_rate=48000)
+        # The gate's corpus: the first four classes, and none of the planted corrupt files.
+        for path in (root / "dataset").rglob("*.wav"):
+            if path not in files or int(path.name.split("-")[2]) > OPERATOR_CLASSES:
+                path.unlink()
+        corpus = sorted((root / "dataset").rglob("*.wav"))
+        models = root / "models"
+        _write_head_envelope(models / "ser_model.pkl", feature_size=193, backend_id="handcrafted", profile="fast",
+                             model_id=None)
+        _write_head_envelope(models / profile_artifact_file_name(profile="accurate", model_id="openai/whisper-large-v3"),
+                             feature_size=2 * 1280)
+        clip = root / "clip_10s.wav"
+        _write_clip(clip, 10.0, 48000, seed=50)
+        settings = build_settings({"SER_DATASET_FOLDER": str(root / "dataset"), "SER_MODELS_FOLDER": str(models),
+                                   "SER_CACHE_DIR": str(root / "cache"), "SER_TMP_FOLDER": str(root / "tmp"),
+                                   "SER_ENABLE_ACCURATE_PROFILE": "1"})
+
+        # 1. Doctor and preflight.
+        started = time.perf_counter()
+        doctor = service.run_doctor_diagnostics(settings=settings, include_noise_findings=True)
+        preflight = api.run_startup_preflight(include_transcription_checks=True, settings=settings)
+        doctor_s = time.perf_counter() - started
+        findings = {f.code: f for f in doctor.findings}
+        card = torch.cuda.get_device_name(0)
+        say("operator-doctor", seconds=f"{doctor_s:.3f}",
+            codes=json.dumps([f"{f.code}:{f.severity.value}" for f in doctor.findings]),
+            preflight=json.dumps([f"{f.code}:{f.severity.value}" for f in preflight.findings]),
+            accelerator=json.dumps(findings["accelerator"].message),
+            native_audio=json.dumps(findings["environment.native_audio"].message))
+        if doctor.has_blocking_findings or preflight.has_blocking_findings:
+            raise AssertionError("blocking findings: " + service.render_report(doctor, style="brief"))
+        if card not in findings["accelerator"].message or card not in preflight.findings[0].message:
+            raise AssertionError(f"the accelerator finding does not name the card {card!r}")
+        if findings["environment.native_audio"].message != "native C++ audio decoder available":
+            raise AssertionError("the native audio library did not build on the card's machine")
+        samples, _ = read_audio_file(str(corpus[0]))
+        if samples.tobytes() != native_audio.decode_wav_mono_native(corpus[0].read_bytes())[0].tobytes():
+            raise AssertionError("read_audio_file did not take the native decoder")
+
+        # 2. Profile checks.
+        api.load_profile("accurate", settings=settings)
+        try:
+            api.load_profile("accurate-research", settings=settings)
+            raise AssertionError("load_profile passed a profile whose license gate is shut")
+        except UnsupportedProfileError:
+            pass
+        _, code = commands.run_command(lambda: api.load_profile("accurate-research", settings=settings),
+                                       label="load_profile", workflow="inference")
+        say("operator-profiles", accurate="ok", research_gate_shut="UnsupportedProfileError", exit_code=code)
+        if code != commands.EXIT_VALIDATION:
+            raise AssertionError(f"the command runner mapped UnsupportedProfileError to {code}")
+
+        # 3-5. The latency benchmark and the quality gate, inside a device trace.
+        decisions = []
+        evaluate = quality_gate_workflow.evaluate_candidate_gate
+
+        def recorded_evaluation(**options):
+            decisions.append(evaluate(**options))
+            return decisions[-1]
+
+        quality_gate_workflow.evaluate_candidate_gate = recorded_evaluation
+        # A trace stopped with TEARDOWN_CUPTI=1 (set above for the earlier phases' host timings) left the
+        # process hanging at exit on the card, 200 ops traced or 300000; with 0 it exits. Nothing is
+        # timed after this phase, so this trace leaves CUPTI attached.
+        os.environ["TEARDOWN_CUPTI"] = "0"
+        try:
+            with device_trace(root / "trace"):
+                latency = benchmark_fast_predict(str(clip), runs=5, settings=settings)
+                for counter in counters:
+                    counter.launches = 0
+                started = time.perf_counter()
+                exit_code = quality_gate_workflow.run_quality_gate_workflow(settings=settings, candidate="accurate",
+                                                                            folds=4)
+                torch.cuda.synchronize()
+                gate_s = time.perf_counter() - started
+                launches = {counter.name: counter.launches for counter in counters}
+        finally:
+            quality_gate_workflow.evaluate_candidate_gate = evaluate
+        say("operator-latency", card=json.dumps(nvidia_smi_line()), clip="clip_10s", runs=latency.runs,
+            mean_s=f"{latency.mean_seconds:.4f}", median_s=f"{latency.median_seconds:.4f}",
+            p95_s=f"{latency.p95_seconds:.4f}", min_s=f"{latency.min_seconds:.4f}",
+            max_s=f"{latency.max_seconds:.4f}")
+        if not 0.0 < latency.min_seconds <= latency.median_seconds <= latency.p95_seconds <= latency.max_seconds:
+            raise AssertionError(f"latency statistics out of order: {latency}")
+
+        payload = quality_gate_report.load_gate_report(models / quality_gate_report.DEFAULT_REPORT_FILE_NAME)
+        decision = decisions[0] if len(decisions) == 1 else None
+        windows = len(corpus) + OPERATOR_STABILITY_REQUESTS  # one 30 s window a 3 s clip
+        expected = {"stft_power_mel_log": windows, "power_mel_log": 0, "flash_attention_fwd": 32 * windows,
+                    "flash_attention_f32": 0}
+        say("operator-gate", seconds=f"{gate_s:.3f}", exit_code=exit_code, clips=len(corpus),
+            promote=None if decision is None else decision.promote,
+            baseline=json.dumps(None if decision is None else vars(decision.baseline)),
+            candidate=json.dumps(None if decision is None else vars(decision.candidate)),
+            stability=json.dumps(None if decision is None or decision.candidate_stability is None
+                                 else vars(decision.candidate_stability)),
+            launches=json.dumps(launches), expected=json.dumps(expected))
+        if exit_code != 0 or decision is None:
+            raise AssertionError(f"the quality gate exited {exit_code} after {len(decisions)} evaluations")
+        if decision.candidate_stability is None:
+            raise AssertionError("the gate's stability pass failed (candidate_stability is None)")
+        if payload is None or (payload["promote"], payload["reasons"], payload["candidate_stability"]) != (
+                decision.promote, list(decision.reasons), vars(decision.candidate_stability)):
+            raise AssertionError(f"the report read back {payload} against the decision {decision}")
+        if launches != expected:
+            raise AssertionError(f"the gate launched {launches}, expected {expected}")
+
+        trace_path = root / "trace" / TRACE_FILE_NAME
+        trace = trace_path.read_text(encoding="utf-8")
+        symbols = {name: trace.count(name) for name in ("stft_power_mel_log_kernel", "flash_attention_fwd_kernel")}
+        say("operator-trace", megabytes=f"{trace_path.stat().st_size / 1e6:.1f}", symbol_mentions=json.dumps(symbols))
+        if not all(symbols.values()):
+            raise AssertionError(f"the device trace does not name both kernels: {symbols}")
+    wall_s = time.perf_counter() - phase_started
+    say("operator-wall", wall_s=f"{wall_s:.1f}", limit_s=OPERATOR_WALL_LIMIT_S)
+    if wall_s > OPERATOR_WALL_LIMIT_S:
+        raise AssertionError(f"the operator phase took {wall_s:.1f} s, over its {OPERATOR_WALL_LIMIT_S} s")
+    return {"launches": launches, "latency": vars(latency), "wall_s": wall_s}
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for value in tree.values():
@@ -5222,6 +5390,8 @@ def main() -> int:
         batch_infer = phase_batch_infer()
         phase = mark("separate")
         separate = phase_separate()
+        phase = mark("operator")
+        operator = phase_operator()
     except Exception:
         traceback.print_exc()
         say_phase_walls()
@@ -5304,6 +5474,9 @@ def main() -> int:
     for kernel in (k1["fused"], k1["spectrum"], k2, k2_f32, k2_bwd, k3, k4, k5):
         kernel.update(separate_launches=separate["launches"].get(kernel["name"], 0),
                       separate_unet_launches=separate["unet_launches"].get(kernel["name"], 0))
+    # The operator's path: launches of the quality gate's workflow (its encodes and stability requests).
+    for kernel in (k1["fused"], k1["spectrum"], k2, k2_f32, k2_bwd, k3, k4, k5):
+        kernel.update(operator_launches=operator["launches"].get(kernel["name"], 0))
     say("run", wall_s=f"{time.perf_counter() - run_started:.1f}")
     print(json.dumps({"kernels": [k1["fused"], k1["spectrum"], k2, k2_f32, k2_bwd, k3, k4, k5]}))
     print(env["smi"])

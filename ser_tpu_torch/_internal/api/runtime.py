@@ -1,19 +1,33 @@
-"""Internal runtime API: profile override, the inference and the training workflows.
+"""Internal runtime API: the profile registry, the profile override, the inference and the training workflows.
 
-Counterpart of ``ser_tpu/_internal/api/runtime.py`` (``apply_cli_profile_override``,
-``infer`` and ``train``), for the four profiles.
+Counterpart of ``ser_tpu/_internal/api/runtime.py`` (``list_profiles``,
+``apply_cli_profile_override``, ``load_profile``, ``run_inference_workflow``,
+``infer`` and ``train``), for the four profiles. A workflow builds its pipeline
+and runs under ``settings_override`` of its settings, so ``get_settings`` inside
+it returns them; ``pipeline_builder`` replaces the runtime pipeline.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from collections.abc import Callable
 from pathlib import Path
 
+from ser_tpu_torch._internal.config.bootstrap import settings_override
 from ser_tpu_torch._internal.config.schema import AppConfig
 from ser_tpu_torch._internal.repr.runtime_policy import resolve_device
 from ser_tpu_torch._internal.runtime.pipeline import create_runtime_pipeline
+from ser_tpu_torch._internal.runtime.registry import ensure_profile_supported, resolve_runtime_capability
 from ser_tpu_torch.profiles import PROFILE_NAMES, ProfileName, require_ported
 from ser_tpu_torch.runtime.contracts import InferenceExecution, InferenceRequest, SubtitleFormat
+
+type PipelineBuilder = Callable[[AppConfig], object]
+
+
+def list_profiles() -> tuple[ProfileName, ...]:
+    """All registered runtime profile names."""
+    return PROFILE_NAMES
+
 
 def apply_cli_profile_override(settings: AppConfig, profile: ProfileName | None) -> AppConfig:
     """Projects one requested profile into the settings' runtime flags and transcription defaults."""
@@ -38,6 +52,33 @@ def apply_cli_profile_override(settings: AppConfig, profile: ProfileName | None)
     return dataclasses.replace(settings, runtime_flags=flags, transcription=transcription)
 
 
+def load_profile(profile: ProfileName, *, settings: AppConfig) -> None:
+    """Validates that one profile can run under the given settings; raises ``UnsupportedProfileError`` if not.
+
+    Builds the backend hooks, which loads no weights: a hook builds its
+    backend at its first request.
+    """
+    resolved = apply_cli_profile_override(settings, profile)
+    from ser_tpu_torch._internal.runtime.backend_hooks import build_backend_hooks
+
+    hooks = build_backend_hooks(resolved)
+    capability = resolve_runtime_capability(profile, settings=resolved, available_hooks=frozenset(hooks))
+    ensure_profile_supported(capability)
+
+
+def run_inference_workflow(
+    request: InferenceRequest,
+    *,
+    settings: AppConfig,
+    pipeline_builder: PipelineBuilder | None = None,
+) -> InferenceExecution:
+    """Builds the pipeline under scoped settings and runs one request."""
+    builder = pipeline_builder if pipeline_builder is not None else create_runtime_pipeline
+    with settings_override(settings):
+        pipeline = builder(settings)
+        return pipeline.run_inference(request)  # type: ignore[attr-defined]
+
+
 def infer(
     file_path: str | Path,
     *,
@@ -48,6 +89,7 @@ def infer(
     subtitle_output_path: str | None = None,
     subtitle_format: SubtitleFormat | None = None,
     settings: AppConfig,
+    pipeline_builder: PipelineBuilder | None = None,
 ) -> InferenceExecution:
     """Library inference entry point: one request through the runtime pipeline.
 
@@ -64,10 +106,15 @@ def infer(
         subtitle_output_path=subtitle_output_path,
         subtitle_format=subtitle_format,
     )
-    return create_runtime_pipeline(resolved).run_inference(request)
+    return run_inference_workflow(request, settings=resolved, pipeline_builder=pipeline_builder)
 
 
-def train(*, profile: ProfileName | None = None, settings: AppConfig) -> None:
+def train(
+    *,
+    profile: ProfileName | None = None,
+    settings: AppConfig,
+    pipeline_builder: PipelineBuilder | None = None,
+) -> None:
     """Library training entry point: the active profile's training through the runtime pipeline.
 
     The device is resolved first: with no card and no request for the CPU it
@@ -75,7 +122,16 @@ def train(*, profile: ProfileName | None = None, settings: AppConfig) -> None:
     """
     resolved = apply_cli_profile_override(settings, profile)
     resolve_device(resolved.torch_runtime.device)
-    create_runtime_pipeline(resolved).run_training()
+    builder = pipeline_builder if pipeline_builder is not None else create_runtime_pipeline
+    with settings_override(resolved):
+        builder(resolved).run_training()  # type: ignore[attr-defined]
 
 
-__all__ = ["apply_cli_profile_override", "infer", "train"]
+__all__ = [
+    "apply_cli_profile_override",
+    "infer",
+    "list_profiles",
+    "load_profile",
+    "run_inference_workflow",
+    "train",
+]

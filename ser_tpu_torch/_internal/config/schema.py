@@ -1,12 +1,12 @@
-"""Frozen settings snapshot of the PyTorch port (the fields its path reads).
+"""Frozen settings snapshot of the PyTorch port.
 
-Counterpart of ``ser_tpu/_internal/config/schema.py``. Field names, defaults
-and the platform cache/data directories are the JAX package's, so one
-environment configures both packages alike. Only the sections the four
-profiles' inference paths, their transcript lane and its timeline export,
-the restricted-backend gate, the data layer, the training entry points and
-the mesh read are here; the full
-settings builder is later work (``ROADMAP.md``).
+Counterpart of ``ser_tpu/_internal/config/schema.py``: every section and
+field of the JAX package's ``AppConfig``, with its names and defaults and the
+same platform cache/data directories, so one environment configures both
+packages alike (``settings_inputs.py`` and ``settings_builder.py`` read it).
+The port's own: ``TorchRuntimeConfig`` selects the torch device and dtype
+(``SER_TORCH_DEVICE``, ``SER_TORCH_DTYPE``; no MPS fallback), and
+``AppConfig.emotions`` defaults to the RAVDESS map.
 """
 
 from __future__ import annotations
@@ -14,18 +14,21 @@ from __future__ import annotations
 import os
 import sys
 from collections.abc import Mapping
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, fields
 from pathlib import Path
 from typing import Literal
 
-from ser_tpu_torch._internal.config.artifact_naming import FAST_MODEL_FILE_NAME, FAST_TRAINING_REPORT_FILE_NAME
+from ser_tpu_torch._internal.config import artifact_naming
 from ser_tpu_torch._internal.data.ravdess import RAVDESS_EMOTIONS
-from ser_tpu_torch.profiles import ProfileName, ProfileRuntimeDefaults, require_ported
+from ser_tpu_torch.profiles import ProfileName, require_ported
 from ser_tpu_torch.runtime.schema import OUTPUT_SCHEMA_VERSION
 
 APP_NAME = "ser"
-#: The fast profile's head artifact.
-DEFAULT_FAST_MODEL_FILE_NAME = FAST_MODEL_FILE_NAME
+DEFAULT_FAST_MODEL_FILE_NAME = artifact_naming.FAST_MODEL_FILE_NAME
+DEFAULT_FAST_SECURE_MODEL_FILE_NAME = artifact_naming.FAST_SECURE_MODEL_FILE_NAME
+DEFAULT_FAST_TRAINING_REPORT_FILE_NAME = artifact_naming.FAST_TRAINING_REPORT_FILE_NAME
+
+type ArtifactProfileName = ProfileName
 
 
 def _platform_cache_base_dir() -> Path:
@@ -52,9 +55,32 @@ def default_data_root() -> Path:
     return _platform_data_base_dir() / APP_NAME
 
 
-def default_profile_model_id(profile: ProfileName) -> str | None:
-    """The catalog's default model id for one profile (None for the fast profile)."""
-    return require_ported(profile).default_model_id
+def default_profile_model_id(profile: ArtifactProfileName) -> str:
+    """The catalog's default model id for one model-backed profile (the fast profile has none)."""
+    model_id = require_ported(profile).default_model_id
+    if isinstance(model_id, str) and model_id.strip():
+        return model_id.strip()
+    raise RuntimeError(f"Profile {profile!r} does not define a default model id.")
+
+
+def profile_artifact_file_names(
+    *,
+    profile: ArtifactProfileName,
+    medium_model_id: str | None = None,
+    accurate_model_id: str | None = None,
+    accurate_research_model_id: str | None = None,
+) -> tuple[str, str, str]:
+    """``(model, secure_model, training_report)`` filenames for one profile (catalog model ids by default)."""
+    if profile == "fast":
+        return artifact_naming.profile_artifact_file_names(profile="fast", model_id=None)
+    model_id = {
+        "medium": medium_model_id,
+        "accurate": accurate_model_id,
+        "accurate-research": accurate_research_model_id,
+    }[profile]
+    return artifact_naming.profile_artifact_file_names(
+        profile=profile, model_id=model_id or default_profile_model_id(profile)
+    )
 
 
 @dataclass(frozen=True)
@@ -175,7 +201,10 @@ class ModelsConfig:
     accurate_research_model_id: str = field(
         default_factory=lambda: default_profile_model_id("accurate-research")
     )
+    num_cores: int = 1
     model_file_name: str = DEFAULT_FAST_MODEL_FILE_NAME
+    secure_model_file_name: str = DEFAULT_FAST_SECURE_MODEL_FILE_NAME
+    training_report_file_name: str = DEFAULT_FAST_TRAINING_REPORT_FILE_NAME
     whisper_model: WhisperModelConfig = field(default_factory=WhisperModelConfig)
 
     @property
@@ -184,9 +213,13 @@ class ModelsConfig:
         return self.folder / self.model_file_name
 
     @property
+    def secure_model_file(self) -> Path:
+        return self.folder / self.secure_model_file_name
+
+    @property
     def training_report_file(self) -> Path:
         """The fast profile's training report."""
-        return self.folder / FAST_TRAINING_REPORT_FILE_NAME
+        return self.folder / self.training_report_file_name
 
     @property
     def huggingface_cache_root(self) -> Path:
@@ -250,13 +283,69 @@ class RuntimeFlags:
     restricted_backends: bool = False
     #: ``SER_ALLOWED_RESTRICTED_BACKENDS``: an env allowlist honoured in place of recorded consent.
     allowed_restricted_backends: tuple[str, ...] = ()
+    new_output_schema: bool = False
+
+
+@dataclass(frozen=True)
+class ProfileRuntimeConfig:
+    """Execution budgets and postprocessing controls for one runtime profile.
+
+    The boundaries' retry policy reads the budgets (``_internal/runtime/
+    policy.py``); the windowed profiles read the pooling and postprocessing
+    fields.
+    """
+
+    timeout_seconds: float
+    max_timeout_retries: int
+    max_transient_retries: int
+    retry_backoff_seconds: float
+    pool_window_size_seconds: float
+    pool_window_stride_seconds: float
+    post_smoothing_window_frames: int
+    post_hysteresis_enter_confidence: float
+    post_hysteresis_exit_confidence: float
+    post_min_segment_duration_seconds: float
+    process_isolation: bool
+
+
+def _make_profile_runtime_config_class(profile: ProfileName, class_name: str):
+    """A ``ProfileRuntimeConfig`` subclass whose field defaults are the catalog's for ``profile``."""
+    namespace = {
+        "__doc__": f"Execution budgets and retry controls for the {profile} profile.",
+        "__annotations__": {f.name: f.type for f in fields(ProfileRuntimeConfig)},
+        "__module__": __name__,
+    }
+    for f in fields(ProfileRuntimeConfig):
+        namespace[f.name] = field(
+            default_factory=(lambda n=f.name: getattr(require_ported(profile).runtime_defaults, n))
+        )
+    return dataclass(frozen=True)(type(class_name, (ProfileRuntimeConfig,), namespace))
+
+
+FastRuntimeConfig = _make_profile_runtime_config_class("fast", "FastRuntimeConfig")
+MediumRuntimeConfig = _make_profile_runtime_config_class("medium", "MediumRuntimeConfig")
+AccurateRuntimeConfig = _make_profile_runtime_config_class("accurate", "AccurateRuntimeConfig")
+AccurateResearchRuntimeConfig = _make_profile_runtime_config_class(
+    "accurate-research", "AccurateResearchRuntimeConfig"
+)
+
+
+@dataclass(frozen=True)
+class QualityGateConfig:
+    """Promotion thresholds of the fast-versus-candidate quality gate."""
+
+    min_uar_delta: float = 0.0025
+    min_macro_f1_delta: float = 0.0025
+    max_medium_segments_per_minute: float = 25.0
+    min_medium_median_segment_duration_seconds: float = 2.5
 
 
 @dataclass(frozen=True)
 class SchemaConfig:
-    """Output schema version."""
+    """Output and artifact schema versions."""
 
     output_schema_version: str = OUTPUT_SCHEMA_VERSION
+    artifact_schema_version: str = "v2"
 
 
 @dataclass(frozen=True)
@@ -269,6 +358,35 @@ class TorchRuntimeConfig:
 
     device: str = "auto"
     dtype: str = "auto"
+
+
+#: The JAX package's alias of the accelerator selector.
+AcceleratorRuntimeConfig = TorchRuntimeConfig
+
+
+@dataclass(frozen=True)
+class FeatureRuntimeBackendOverride:
+    """Backend-scoped device/dtype override used by feature policy resolution."""
+
+    device: str | None = None
+    dtype: str | None = None
+
+
+@dataclass(frozen=True)
+class FeatureRuntimePolicyConfig:
+    """Optional backend-specific runtime selector overrides."""
+
+    backend_overrides: tuple[tuple[str, FeatureRuntimeBackendOverride], ...] = ()
+
+    def for_backend(self, backend_id: str) -> FeatureRuntimeBackendOverride | None:
+        """Returns one backend override when present."""
+        normalized = backend_id.strip().lower()
+        if not normalized:
+            return None
+        for candidate, override in self.backend_overrides:
+            if candidate == normalized:
+                return override
+        return None
 
 
 @dataclass(frozen=True)
@@ -299,23 +417,23 @@ class AppConfig:
     models: ModelsConfig = field(default_factory=ModelsConfig)
     runtime_flags: RuntimeFlags = field(default_factory=RuntimeFlags)
     feature_flags: FeatureFlags = field(default_factory=FeatureFlags)
-    fast_runtime: ProfileRuntimeDefaults = field(default_factory=lambda: require_ported("fast").runtime_defaults)
-    medium_runtime: ProfileRuntimeDefaults = field(default_factory=lambda: require_ported("medium").runtime_defaults)
-    accurate_runtime: ProfileRuntimeDefaults = field(
-        default_factory=lambda: require_ported("accurate").runtime_defaults
+    fast_runtime: FastRuntimeConfig = field(default_factory=FastRuntimeConfig)
+    medium_runtime: MediumRuntimeConfig = field(default_factory=MediumRuntimeConfig)
+    accurate_runtime: AccurateRuntimeConfig = field(default_factory=AccurateRuntimeConfig)
+    accurate_research_runtime: AccurateResearchRuntimeConfig = field(
+        default_factory=AccurateResearchRuntimeConfig
     )
-    accurate_research_runtime: ProfileRuntimeDefaults = field(
-        default_factory=lambda: require_ported("accurate-research").runtime_defaults
-    )
+    quality_gate: QualityGateConfig = field(default_factory=QualityGateConfig)
     schema: SchemaConfig = field(default_factory=SchemaConfig)
     torch_runtime: TorchRuntimeConfig = field(default_factory=TorchRuntimeConfig)
+    feature_runtime_policy: FeatureRuntimePolicyConfig = field(default_factory=FeatureRuntimePolicyConfig)
     transcription: TranscriptionConfig = field(default_factory=TranscriptionConfig)
     timeline: TimelineConfig = field(default_factory=TimelineConfig)
     mesh: MeshConfig = field(default_factory=MeshConfig)
     tmp_folder: Path = field(default_factory=lambda: default_cache_root() / "tmp")
     default_language: str = "en"
 
-    def profile_runtime(self, profile: ProfileName) -> ProfileRuntimeDefaults:
+    def profile_runtime(self, profile: ProfileName) -> ProfileRuntimeConfig:
         require_ported(profile)
         return {
             "fast": self.fast_runtime,
@@ -336,17 +454,30 @@ class AppConfig:
 
 
 __all__ = [
-    "AppConfig",
-    "AudioReadConfig",
+    "APP_NAME",
     "DEFAULT_FAST_MODEL_FILE_NAME",
+    "DEFAULT_FAST_SECURE_MODEL_FILE_NAME",
+    "DEFAULT_FAST_TRAINING_REPORT_FILE_NAME",
+    "AcceleratorRuntimeConfig",
+    "AccurateResearchRuntimeConfig",
+    "AccurateRuntimeConfig",
+    "AppConfig",
+    "ArtifactProfileName",
+    "AudioReadConfig",
     "DataLoaderConfig",
     "DatasetConfig",
+    "FastRuntimeConfig",
     "FeatureFlags",
+    "FeatureRuntimeBackendOverride",
+    "FeatureRuntimePolicyConfig",
+    "MediumRuntimeConfig",
     "MediumTrainingConfig",
     "MeshConfig",
     "ModelsConfig",
     "NeuralNetConfig",
     "OntologyConfig",
+    "ProfileRuntimeConfig",
+    "QualityGateConfig",
     "RuntimeFlags",
     "SchemaConfig",
     "TimelineConfig",
@@ -357,4 +488,5 @@ __all__ = [
     "default_cache_root",
     "default_data_root",
     "default_profile_model_id",
+    "profile_artifact_file_names",
 ]

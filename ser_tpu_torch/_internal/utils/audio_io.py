@@ -7,8 +7,10 @@ parser (PCM 8/16/24/32-bit, IEEE float 32/64, WAVE_FORMAT_EXTENSIBLE) because
 neither librosa nor soundfile is a dependency; other containers raise
 ``AudioDecodeError``.
 
-Copied from ``ser_tpu/_internal/utils/audio_io.py`` without the native C++
-decoder (not a TPU kernel; its output matches this python path to 1e-6).
+Copied from ``ser_tpu/_internal/utils/audio_io.py``: a whole-file read takes
+the native C++ decoder (``native_audio.py``: decode, mixdown and
+normalization in one pass, the JAX package's bits) when it builds, else this
+Python decoder, which lands within 1 ulp of it.
 """
 
 from __future__ import annotations
@@ -174,6 +176,13 @@ def read_audio_file(
     for attempt in range(config.max_retries):
         try:
             raw_bytes = path.read_bytes()
+            from ser_tpu_torch._internal.utils import native_audio
+
+            if native_audio.native_decoder_available():
+                try:
+                    return native_audio.decode_wav_mono_native(raw_bytes)
+                except native_audio.NativeDecodeError as err:
+                    raise AudioDecodeError(str(err)) from err
             frames, sample_rate = _decode_wav_bytes(raw_bytes)
             return _prepare_audio_buffer(frames), sample_rate
         except (AudioDecodeError, OSError, ValueError) as err:

@@ -12,6 +12,7 @@ from collections import defaultdict
 from pathlib import Path
 
 from ser_tpu_torch._internal.config.schema import TimelineConfig
+from ser_tpu_torch._internal.utils.common import display_elapsed_time
 from ser_tpu_torch._internal.utils.logger import get_logger
 from ser_tpu_torch._internal.utils.segment_canonicalization import canonicalize_segments
 from ser_tpu_torch.domain import EmotionSegment, TimelineEntry, TranscriptWord
@@ -20,14 +21,6 @@ logger = get_logger(__name__)
 
 _ANSI_FG = {"black": 30}
 _ANSI_BG = {"green": 42, "yellow": 43, "blue": 44}
-
-
-def display_elapsed_time(elapsed_time: float, _format: str = "long") -> str:
-    """Formats elapsed seconds as verbose ("long") or compact ("short") text."""
-    minutes, seconds = divmod(int(elapsed_time), 60)
-    if _format == "long":
-        return f"{minutes} min {seconds} seconds" if minutes else f"{elapsed_time:.2f} seconds"
-    return f"{minutes}m{seconds}s" if minutes else f"{elapsed_time:.2f}s"
 
 
 def _to_milliseconds(seconds: float) -> int:

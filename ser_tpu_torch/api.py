@@ -1,4 +1,5 @@
-"""Public API of the PyTorch port: ``infer`` and ``train`` for the four emotion profiles.
+"""Public API of the PyTorch port: ``infer`` and ``train`` for the four emotion profiles,
+``list_profiles``, ``load_profile`` and ``run_startup_preflight``.
 
 Counterparts of ``ser_tpu.api.infer``, returning the same ``InferenceExecution``,
 and ``ser_tpu.api.train``, which writes the same head artifact and training
@@ -38,17 +39,67 @@ entries or by ``WHISPER_DEMUCS``, the staged htdemucs or U-Net checkpoint of
 else REPET-SIM). ``save_transcript`` writes the timeline as CSV under
 ``SER_TRANSCRIPTS_FOLDER``, and ``subtitle_output_path`` / ``subtitle_format``
 write it as ASS, SRT or VTT subtitles, the files the JAX package writes.
+
+``load_profile(profile)`` checks that a profile can run under the settings
+(its flag on, its license gate open, its modules importable) and raises
+``UnsupportedProfileError`` otherwise, loading no weights;
+``run_startup_preflight`` returns the structured startup diagnostics
+(``DiagnosticReport``: the CUDA devices against the settings' device, each
+profile's availability, the transcription assets and the fast artifact). The
+dataset functions of ``ser_tpu.api`` are not ported yet.
 """
 
 from __future__ import annotations
 
+from collections.abc import Callable
 from pathlib import Path
+from typing import Protocol
 
+import ser_tpu_torch._internal.api.diagnostics as _diagnostics_api
 import ser_tpu_torch._internal.api.runtime as _runtime_api
-from ser_tpu_torch._internal.config.bootstrap import reload_settings
-from ser_tpu_torch._internal.config.schema import AppConfig
+from ser_tpu_torch.config import (
+    AccurateResearchRuntimeConfig, AccurateRuntimeConfig, AppConfig, AudioReadConfig,
+    DataLoaderConfig, DatasetConfig, FastRuntimeConfig, FeatureFlags,
+    FeatureRuntimeBackendOverride, FeatureRuntimePolicyConfig, MediumRuntimeConfig,
+    MediumTrainingConfig, ModelsConfig, NeuralNetConfig, QualityGateConfig,
+    RuntimeFlags, SchemaConfig, TimelineConfig, TorchRuntimeConfig, TrainingConfig,
+    TranscriptionConfig, WhisperModelConfig, reload_settings,
+)
+from ser_tpu_torch.diagnostics.domain import DiagnosticFinding, DiagnosticReport, DiagnosticSeverity
+from ser_tpu_torch.domain import EmotionSegment, TimelineEntry, TranscriptWord
 from ser_tpu_torch.profiles import ProfileName
-from ser_tpu_torch.runtime.contracts import InferenceExecution, SubtitleFormat
+from ser_tpu_torch.runtime.contracts import InferenceExecution, InferenceRequest, SubtitleFormat
+from ser_tpu_torch.runtime.schema import FramePrediction, InferenceResult, SegmentPrediction
+
+
+class RuntimePipeline(Protocol):
+    """Minimal runtime pipeline contract exposed at the public API facade."""
+
+    def run_training(self) -> None:
+        """Runs training for the active profile."""
+        ...
+
+    def run_inference(self, request: InferenceRequest) -> InferenceExecution:
+        """Runs inference for one audio request."""
+        ...
+
+
+type RuntimePipelineBuilder = Callable[[AppConfig], RuntimePipeline]
+
+
+def _resolve_boundary_settings(settings: AppConfig | None) -> AppConfig:
+    """Explicit settings or a fresh snapshot of the environment."""
+    return settings if settings is not None else reload_settings()
+
+
+def list_profiles() -> tuple[ProfileName, ...]:
+    """Returns all registered runtime profile names."""
+    return _runtime_api.list_profiles()
+
+
+def load_profile(profile: ProfileName, *, settings: AppConfig | None = None) -> None:
+    """Validates one runtime profile."""
+    return _runtime_api.load_profile(profile, settings=_resolve_boundary_settings(settings))
 
 
 def infer(
@@ -61,6 +112,7 @@ def infer(
     subtitle_output_path: str | None = None,
     subtitle_format: SubtitleFormat | None = None,
     settings: AppConfig | None = None,
+    pipeline_builder: RuntimePipelineBuilder | None = None,
 ) -> InferenceExecution:
     """Runs inference for one audio file (settings default: a fresh env snapshot)."""
     return _runtime_api.infer(
@@ -71,13 +123,45 @@ def infer(
         include_transcript=include_transcript,
         subtitle_output_path=subtitle_output_path,
         subtitle_format=subtitle_format,
-        settings=settings if settings is not None else reload_settings(),
+        settings=_resolve_boundary_settings(settings),
+        pipeline_builder=pipeline_builder,
     )
 
 
-def train(*, profile: ProfileName | None = None, settings: AppConfig | None = None) -> None:
+def train(
+    *,
+    profile: ProfileName | None = None,
+    settings: AppConfig | None = None,
+    pipeline_builder: RuntimePipelineBuilder | None = None,
+) -> None:
     """Trains the profile's head end to end (settings default: a fresh env snapshot)."""
-    _runtime_api.train(profile=profile, settings=settings if settings is not None else reload_settings())
+    _runtime_api.train(
+        profile=profile, settings=_resolve_boundary_settings(settings), pipeline_builder=pipeline_builder
+    )
 
 
-__all__ = ["AppConfig", "InferenceExecution", "infer", "train"]
+def run_startup_preflight(
+    *,
+    include_transcription_checks: bool,
+    settings: AppConfig | None = None,
+) -> DiagnosticReport:
+    """Runs structured startup diagnostics."""
+    return _diagnostics_api.run_startup_preflight(
+        settings=_resolve_boundary_settings(settings),
+        include_transcription_checks=include_transcription_checks,
+    )
+
+
+__all__ = [
+    "AccurateResearchRuntimeConfig", "AccurateRuntimeConfig", "AppConfig", "AudioReadConfig",
+    "DataLoaderConfig", "DatasetConfig", "DiagnosticFinding", "DiagnosticReport",
+    "DiagnosticSeverity", "EmotionSegment", "FastRuntimeConfig", "FeatureFlags",
+    "FeatureRuntimeBackendOverride", "FeatureRuntimePolicyConfig", "FramePrediction",
+    "InferenceExecution", "InferenceRequest", "InferenceResult", "MediumRuntimeConfig",
+    "MediumTrainingConfig", "ModelsConfig", "NeuralNetConfig", "ProfileName",
+    "QualityGateConfig", "RuntimeFlags", "RuntimePipeline", "RuntimePipelineBuilder",
+    "SchemaConfig", "SegmentPrediction", "SubtitleFormat", "TimelineConfig",
+    "TimelineEntry", "TorchRuntimeConfig", "TrainingConfig", "TranscriptWord",
+    "TranscriptionConfig", "WhisperModelConfig", "infer", "list_profiles", "load_profile",
+    "run_startup_preflight", "train",
+]

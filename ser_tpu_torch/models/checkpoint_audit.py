@@ -1,28 +1,37 @@
-"""Consumed-key audit for checkpoint conversion, and the wav2vec2 manifest.
+"""Consumed-key audit for checkpoint conversion, expected-tensor manifests, staged-checkpoint shapes.
 
-Copied from ``ser_tpu/models/checkpoint_audit.py`` (the parts the Whisper and
-wav2vec2 loaders use): converters read tensors through :class:`AuditedState`,
-and any in-scope tensor the conversion never consumed refuses the load, so a
-layout variant cannot convert into a model that silently drops weights.
-:func:`wav2vec2_manifest` is the expected name → shape table of the published
-HF wav2vec2 layout, and :data:`WAV2VEC2_IGNORED` the pretraining and task
-heads outside the encoder that the wav2vec2 loader recognizes and skips.
+Copied from ``ser_tpu/models/checkpoint_audit.py``: converters read tensors
+through :class:`AuditedState`, and any in-scope tensor the conversion never
+consumed refuses the load, so a layout variant cannot convert into a model
+that silently drops weights. :func:`wav2vec2_manifest`,
+:func:`whisper_manifest` and :func:`demucs_manifest` are the expected name →
+shape tables of the published HF wav2vec2 and Whisper layouts and of htdemucs,
+from config arithmetic alone; :data:`WAV2VEC2_IGNORED` and
+:data:`WHISPER_IGNORED` the tensors outside the forward that the loaders
+recognize and skip. :func:`read_checkpoint_shapes` reads a staged HF
+checkpoint's tensor names and shapes (safetensors headers only, no tensor
+data), which the doctor validates against a manifest.
 """
 
 from __future__ import annotations
 
 from collections.abc import Mapping
 from dataclasses import dataclass
+from pathlib import Path
 
 import numpy as np
 
 __all__ = [
     "WAV2VEC2_IGNORED",
+    "WHISPER_IGNORED",
     "AuditedState",
     "CheckpointValidation",
     "TensorManifest",
+    "demucs_manifest",
+    "read_checkpoint_shapes",
     "unconsumed_key_error",
     "wav2vec2_manifest",
+    "whisper_manifest",
 ]
 
 
@@ -95,6 +104,21 @@ class CheckpointValidation:
     @property
     def ok(self) -> bool:
         return not (self.missing or self.unexpected or self.shape_mismatches)
+
+    def summary(self) -> str:
+        if self.ok:
+            return "checkpoint layout matches the expected manifest"
+        parts = []
+        if self.missing:
+            parts.append(f"{len(self.missing)} missing (e.g. {', '.join(self.missing[:4])})")
+        if self.unexpected:
+            parts.append(f"{len(self.unexpected)} unexpected (e.g. {', '.join(self.unexpected[:4])})")
+        if self.shape_mismatches:
+            name, actual, expected = self.shape_mismatches[0]
+            parts.append(
+                f"{len(self.shape_mismatches)} shape mismatch(es) (e.g. {name}: {actual} != expected {expected})"
+            )
+        return "; ".join(parts)
 
 
 @dataclass(frozen=True)
@@ -220,3 +244,115 @@ def wav2vec2_manifest(config) -> TensorManifest:
         ignored=WAV2VEC2_IGNORED,
         strip_prefixes=("wav2vec2.",),
     )
+
+
+#: Fixed sinusoidal table the repo recomputes (`whisper._sinusoids`) plus the
+#: output projection HF ties to the token embedding — both recognized, never
+#: loaded.
+WHISPER_IGNORED: tuple[str, ...] = (
+    "encoder.embed_positions.weight",
+    "proj_out.weight",
+)
+
+
+def whisper_manifest(config, *, component: str = "model") -> TensorManifest:
+    """HF ``WhisperModel`` layout (``openai/whisper-large-v3`` class).
+
+    ``component`` scopes the manifest: ``"encoder"`` / ``"decoder"`` validate
+    one subtree (what the split loaders consume), ``"model"`` the full
+    checkpoint.
+    """
+    if component not in ("model", "encoder", "decoder"):
+        raise ValueError(f"Unknown whisper manifest component {component!r}.")
+    d = config.d_model
+    required: dict[str, tuple[int, ...]] = {}
+
+    def attention(base: str) -> None:
+        for proj in ("q_proj", "v_proj", "out_proj"):
+            required[f"{base}.{proj}.weight"] = (d, d)
+            required[f"{base}.{proj}.bias"] = (d,)
+        required[f"{base}.k_proj.weight"] = (d, d)  # no bias in whisper K
+
+    def block(base: str, *, cross: bool) -> None:
+        attention(f"{base}.self_attn")
+        required[f"{base}.self_attn_layer_norm.weight"] = (d,)
+        required[f"{base}.self_attn_layer_norm.bias"] = (d,)
+        if cross:
+            attention(f"{base}.encoder_attn")
+            required[f"{base}.encoder_attn_layer_norm.weight"] = (d,)
+            required[f"{base}.encoder_attn_layer_norm.bias"] = (d,)
+        required[f"{base}.final_layer_norm.weight"] = (d,)
+        required[f"{base}.final_layer_norm.bias"] = (d,)
+        required[f"{base}.fc1.weight"] = (4 * d, d)
+        required[f"{base}.fc1.bias"] = (4 * d,)
+        required[f"{base}.fc2.weight"] = (d, 4 * d)
+        required[f"{base}.fc2.bias"] = (d,)
+
+    if component in ("model", "encoder"):
+        required["encoder.conv1.weight"] = (d, config.n_mels, 3)
+        required["encoder.conv1.bias"] = (d,)
+        required["encoder.conv2.weight"] = (d, d, 3)
+        required["encoder.conv2.bias"] = (d,)
+        required["encoder.layer_norm.weight"] = (d,)
+        required["encoder.layer_norm.bias"] = (d,)
+        for i in range(config.encoder_layers):
+            block(f"encoder.layers.{i}", cross=False)
+    if component in ("model", "decoder"):
+        required["decoder.embed_tokens.weight"] = (config.vocab_size, d)
+        required["decoder.embed_positions.weight"] = (
+            config.max_target_positions,
+            d,
+        )
+        required["decoder.layer_norm.weight"] = (d,)
+        required["decoder.layer_norm.bias"] = (d,)
+        for i in range(config.decoder_layers):
+            block(f"decoder.layers.{i}", cross=True)
+
+    ignored = list(WHISPER_IGNORED)
+    if component == "encoder":
+        ignored.append("decoder.")
+    elif component == "decoder":
+        ignored.append("encoder.")
+    return TensorManifest(
+        model=f"whisper-{component}",
+        required=required,
+        ignored=tuple(ignored),
+        strip_prefixes=("model.",),
+    )
+
+
+def demucs_manifest(config) -> TensorManifest:
+    """Published htdemucs ``state_dict`` layout, shapes from config arithmetic
+    (``_demucs_synthetic._shapes``, the one table of the demucs weight names and shapes)."""
+    from ser_tpu_torch.models._demucs_synthetic import _shapes
+
+    return TensorManifest(model="demucs_v4", required=dict(_shapes(config)))
+
+
+def _safetensors_header(path: Path) -> dict[str, tuple[int, ...]]:
+    """Tensor names/shapes from a safetensors file's JSON header only."""
+    import json
+    import struct
+
+    with path.open("rb") as handle:
+        (header_len,) = struct.unpack("<Q", handle.read(8))
+        header = json.loads(handle.read(header_len))
+    return {name: tuple(entry["shape"]) for name, entry in header.items() if name != "__metadata__"}
+
+
+def read_checkpoint_shapes(model_dir) -> dict[str, tuple[int, ...]]:
+    """Tensor names/shapes of a staged HF checkpoint dir.
+
+    safetensors checkpoints are read from headers alone (bytes, not
+    gigabytes); ``pytorch_model*.bin`` fall back to a full (weights-only) load.
+    """
+    model_dir = Path(model_dir)
+    safetensor_files = sorted(model_dir.glob("*.safetensors"))
+    if safetensor_files:
+        shapes: dict[str, tuple[int, ...]] = {}
+        for file in safetensor_files:
+            shapes.update(_safetensors_header(file))
+        return shapes
+    from ser_tpu_torch.models.hf_checkpoint import read_hf_tensors
+
+    return {name: tuple(tensor.shape) for name, tensor in read_hf_tensors(model_dir).items()}

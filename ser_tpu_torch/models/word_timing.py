@@ -4,9 +4,9 @@ Counterpart of ``ser_tpu/models/word_timing.py``: turns the alignment-head
 attention captured during the KV-cache decode into per-word start/end seconds
 (normalize → standardize across tokens → median filter → head average → DTW
 over the audio axis → token jump times → BPE-token → word merge, with the
-published punctuation merge). The DTW is the numpy dynamic program only; the
-JAX package's native C++ DTW belongs with the native audio library, which is
-not ported yet (``ROADMAP.md``). Both compute the same path.
+published punctuation merge). The DTW runs in the port's native C++ library
+(``_internal/utils/native_audio.py``) when it builds, else in numpy; both
+compute the same path.
 """
 
 from __future__ import annotations
@@ -44,9 +44,15 @@ def dtw_path(cost: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     Moves: diagonal, down (next row, same col), right (same row, next col).
     Returns (row_indices, col_indices) from (0, 0) to (N-1, M-1).
 
-    The dynamic program is vectorized over anti-diagonals (cells on diagonal
-    ``i+j`` depend only on the two previous diagonals).
+    Dispatches to the native C++ dynamic program (one row-major pass,
+    ``ser_tpu_torch/native/seraudio.cpp::ser_dtw_path``) when the library is
+    available; the numpy fallback below is vectorized over anti-diagonals
+    (cells on diagonal ``i+j`` depend only on the two previous diagonals) and
+    computes the identical path.
     """
+    native = _native_dtw_path(cost)
+    if native is not None:
+        return native
     n_rows, n_cols = cost.shape
     total = np.full((n_rows + 1, n_cols + 1), np.inf, dtype=np.float64)
     total[0, 0] = 0.0
@@ -81,6 +87,34 @@ def dtw_path(cost: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
         else:
             j -= 1
     return np.asarray(rows[::-1]), np.asarray(cols[::-1])
+
+
+def _native_dtw_path(cost: np.ndarray) -> tuple[np.ndarray, np.ndarray] | None:
+    """C++ DTW via ctypes; None when the native library is unavailable."""
+    from ser_tpu_torch._internal.utils.native_audio import get_native_library
+
+    library = get_native_library()
+    if library is None:
+        return None
+    import ctypes
+
+    matrix = np.ascontiguousarray(cost, dtype=np.float64)
+    n_rows, n_cols = matrix.shape
+    out_rows = np.empty(n_rows + n_cols, dtype=np.int32)
+    out_cols = np.empty(n_rows + n_cols, dtype=np.int32)
+    out_len = ctypes.c_int64()
+    code = library.ser_dtw_path(
+        matrix.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+        n_rows,
+        n_cols,
+        out_rows.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        out_cols.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        ctypes.byref(out_len),
+    )
+    if code != 0:
+        return None
+    length = out_len.value
+    return out_rows[:length].astype(np.int64), out_cols[:length].astype(np.int64)
 
 
 @dataclass(frozen=True)

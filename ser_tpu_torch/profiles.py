@@ -13,7 +13,7 @@ in either package: the runtime policy resolves the device and dtype
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, fields
 from typing import Literal
 
 type ProfileName = Literal["fast", "medium", "accurate", "accurate-research"]
@@ -60,13 +60,24 @@ class ProfileTranscriptionDefaults:
 
 @dataclass(frozen=True)
 class ProfileSpec:
-    """One catalog entry: the fields the port reads."""
+    """One catalog entry: the fields the port reads.
+
+    ``required_modules`` are the Python packages the profile's backend
+    imports (the runtime registry reports a missing one); ``runtime_env``
+    maps each runtime knob to its ``SER_<PROFILE>_<KNOB>`` variable.
+    """
 
     name: ProfileName
     backend_id: str
     default_model_id: str | None
     runtime_defaults: ProfileRuntimeDefaults
     transcription_defaults: ProfileTranscriptionDefaults
+    required_modules: tuple[str, ...] = ("torch",)
+
+    @property
+    def runtime_env(self) -> dict[str, str]:
+        prefix = "SER_" + self.name.upper().replace("-", "_")
+        return {knob.name: f"{prefix}_{knob.name.upper()}" for knob in fields(ProfileRuntimeDefaults)}
 
 
 #: The postprocessing defaults every profile shares (``_shared_postproc``).
@@ -95,6 +106,7 @@ _CATALOG: dict[ProfileName, ProfileSpec] = {
         transcription_defaults=ProfileTranscriptionDefaults(
             backend_id="jax_whisper", model_name="distil-large-v3", use_demucs=False, use_vad=True
         ),
+        required_modules=(),
     ),
     "medium": ProfileSpec(
         name="medium",

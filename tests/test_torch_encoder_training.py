@@ -67,13 +67,17 @@ ROW_ATOL = 1e-4
 
 
 @pytest.fixture(scope="module", autouse=True)
-def _python_wav_decoder_in_ser_tpu():
-    """``ser_tpu`` reads WAVs through its Python decoder, the one the port copied: the samples, and so
-    the embedding cache's content keys, are then the same bits."""
-    from ser_tpu._internal.utils import native_audio
+def _same_wav_decoder_in_both():
+    """Both packages read WAVs through the same decoder: the native one when both libraries build (one
+    C++ source, so the samples, and so the digests and the embedding cache's content keys, are the same
+    bits), else both the Python one."""
+    from ser_tpu._internal.utils import native_audio as jax_native_audio
+    from ser_tpu_torch._internal.utils import native_audio
 
     with pytest.MonkeyPatch.context() as patch:
-        patch.setattr(native_audio, "native_decoder_available", lambda: False)
+        if not (native_audio.native_decoder_available() and jax_native_audio.native_decoder_available()):
+            patch.setattr(jax_native_audio, "native_decoder_available", lambda: False)
+            patch.setattr(native_audio, "native_decoder_available", lambda: False)
         yield
 
 

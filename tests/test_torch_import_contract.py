@@ -261,3 +261,36 @@ SEPARATION_AND_EXPORT_MODULES = (
 @pytest.mark.parametrize("module", SEPARATION_AND_EXPORT_MODULES)
 def test_separation_and_export_module_is_imported(fresh_import, module: str) -> None:
     assert module in fresh_import["imported"]
+
+
+#: The settings layer, the profile registry, doctor and preflight, the latency benchmark, the quality gate
+#: and the native audio library.
+SETTINGS_OPERATOR_AND_NATIVE_MODULES = (
+    "ser_tpu_torch._internal.config.schema",
+    "ser_tpu_torch._internal.config.settings_inputs",
+    "ser_tpu_torch._internal.config.settings_builder",
+    "ser_tpu_torch._internal.config.bootstrap",
+    "ser_tpu_torch.config",
+    "ser_tpu_torch._internal.utils.common",
+    "ser_tpu_torch.utils",
+    "ser_tpu_torch._internal.runtime.registry",
+    "ser_tpu_torch._internal.runtime.environment_plan",
+    "ser_tpu_torch._internal.runtime.commands",
+    "ser_tpu_torch._internal.api.runtime",
+    "ser_tpu_torch.api",
+    "ser_tpu_torch._internal.utils.profiling",
+    "ser_tpu_torch._internal.runtime.benchmarks",
+    "ser_tpu_torch.diagnostics",
+    "ser_tpu_torch.diagnostics.domain",
+    "ser_tpu_torch._internal.diagnostics.service",
+    "ser_tpu_torch._internal.api.diagnostics",
+    "ser_tpu_torch._internal.runtime.quality_gate",
+    "ser_tpu_torch._internal.runtime.quality_gate_report",
+    "ser_tpu_torch._internal.runtime.quality_gate_workflow",
+    "ser_tpu_torch._internal.utils.native_audio",
+)
+
+
+@pytest.mark.parametrize("module", SETTINGS_OPERATOR_AND_NATIVE_MODULES)
+def test_settings_operator_and_native_module_is_imported(fresh_import, module: str) -> None:
+    assert module in fresh_import["imported"]

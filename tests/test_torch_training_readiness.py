@@ -9,9 +9,9 @@ split, quarantine-ledger and recipe digests; the smoke's findings (the fast
 backend; an injected hung backend under a 1 s deadline; invalid deadlines);
 the stratified smoke sample. A prepared plan and a quarantine ledger written
 by either package load in the other, and ``train_from_prepared`` fits from
-the other's plan. ``ser_tpu`` reads the WAVs through its Python decoder here
-(its native decoder, which the port has not copied, normalizes by a float32
-reciprocal and lands 1 ulp away, so the normalized-PCM digests would differ).
+the other's plan. Both packages read the WAVs through the same decoder (the
+native one, built from one C++ source, when both build), so the normalized-PCM
+digests are the same bits.
 The settings the slice reads keep ``ser_tpu``'s names and
 defaults, and the readiness gate, the bounded retry and the mid-training
 quarantine follow ``ser_tpu``'s ``training_orchestration``.
@@ -66,11 +66,17 @@ PLANTED = {
 
 
 @pytest.fixture(scope="module", autouse=True)
-def _python_wav_decoder_in_ser_tpu():
-    from ser_tpu._internal.utils import native_audio
+def _same_wav_decoder_in_both():
+    """Both packages read WAVs through the same decoder: the native one when both libraries build (one
+    C++ source, so the samples, and so the digests and the embedding cache's content keys, are the same
+    bits), else both the Python one."""
+    from ser_tpu._internal.utils import native_audio as jax_native_audio
+    from ser_tpu_torch._internal.utils import native_audio
 
     with pytest.MonkeyPatch.context() as patch:
-        patch.setattr(native_audio, "native_decoder_available", lambda: False)
+        if not (native_audio.native_decoder_available() and jax_native_audio.native_decoder_available()):
+            patch.setattr(jax_native_audio, "native_decoder_available", lambda: False)
+            patch.setattr(native_audio, "native_decoder_available", lambda: False)
         yield
 
 
