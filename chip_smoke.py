@@ -213,7 +213,21 @@ per source, in parallel), then, one phase per line:
     call; and the timeline of the demucs run's words and a warm
     ``api.infer(profile="accurate")`` written as CSV, SRT, VTT and ASS and
     read back;
-25. ``operator``: the operator's path with the card's settings
+25. ``cli``: the command line, ``ser_tpu_torch.__main__.main(argv)`` in this process, at large-v3's full
+    width (seeded random weights, bf16, the card's default settings): ``configure`` and ``data consents``;
+    ``data prepare ravdess --skip-download`` on 32 RAVDESS-named 3 s clips (4 actors x 8 emotions), then
+    ``data registry --show --format json``, ``data health``, ``data catalog --format json`` and ``data
+    audit --lenient`` (the manifest read back); ``--train --profile accurate --dry-run`` (no launch), then
+    ``--train --profile accurate`` (K1 once and K2 32 times for each of the smoke's 16 and the 32 training
+    encodes); ``--file`` on a 45 s clip with the trained head, cold, then warm with ``--save_transcript``
+    and ``--subtitle-output`` (K1 1 and K2 32 each; the segments checked, the ``Timeline CSV:`` and
+    ``Subtitles:`` files read back); ``--train --repair`` with network repairs off (the smoke's 16
+    encodes) and ``doctor --format json`` (no blocking finding, the card named); then ``python -m
+    ser_tpu_torch --file ...`` in a subprocess (exit 0, the timeline printed). Every exit code must be 0,
+    and the phase must end within ``CLI_WALL_LIMIT_S``. The transcript-on request is left out: the
+    transcriber loads a staged HF checkpoint and its tokenizer through ``transformers``, which the card's
+    machine lacks, so phase ``transcribe``'s synthetic tokenizer cannot be reached through settings;
+26. ``operator``: the operator's path with the card's settings
     (``SER_TORCH_DEVICE`` at its default): the doctor (with its environment
     findings) and ``api.run_startup_preflight`` (no blocking finding; the
     accelerator finding names the card; the native audio library built and
@@ -230,7 +244,7 @@ per source, in parallel), then, one phase per line:
     32 times for each encoded window and stability request, and the trace
     naming both kernels' symbols.
 
-Phases 5-25 set the launch counts of the kernels they run to 0 just before
+Phases 5-26 set the launch counts of the kernels they run to 0 just before
 their run and read them just after; K1's two forms count apart, and the
 main path must launch the fused form once per encode and the spectrum form
 never.
@@ -458,6 +472,13 @@ OPERATOR_CLASSES = 4
 OPERATOR_SPEAKERS = 4
 OPERATOR_STABILITY_REQUESTS = 6
 OPERATOR_WALL_LIMIT_S = 60.0
+# cli: the command line's corpus (RAVDESS's 24 actors x 8 emotions x 2 statements x 2 repetitions cut to
+# 4 actors x 8 emotions x 1 clip of 3 s at 48 kHz: one 30 s Whisper window a clip), its --file clip (45 s:
+# two windows, one encode), phase infer's warm 45 s request to compare with (PR 9), and the phase's limit.
+CLI_ACTORS = 4
+CLI_FILE_SECONDS = 45.0
+INFER_45S_WARM_S = 0.1154
+CLI_WALL_LIMIT_S = 60.0
 
 
 def say(phase: str, **fields) -> None:
@@ -5284,6 +5305,181 @@ def phase_operator() -> dict:
     return {"launches": launches, "latency": vars(latency), "wall_s": wall_s}
 
 
+def _cli_environment(root: Path) -> dict[str, str]:
+    """The command line's variables: every folder under ``root``, seeded full-width weights, the card by default."""
+    return {
+        "SER_ALLOW_RANDOM_INIT": "1", "SER_RANDOM_INIT_SIZE": "full", "SER_ENABLE_ACCURATE_PROFILE": "1",
+        "SER_DATA_DIR": str(root / "data"), "SER_MODELS_FOLDER": str(root / "models"),
+        "SER_TMP_FOLDER": str(root / "tmp"), "SER_CACHE_DIR": str(root / "cache"),
+        "SER_DATASET_FOLDER": str(root / "dataset"), "SER_DATASET_REGISTRY_ROOT": str(root / "registry"),
+        "SER_DATASET_CONSENTS_FILE": str(root / "consents.json"),
+        "SER_RESTRICTED_BACKENDS_CONSENT_FILE": str(root / "restricted.json"),
+        "SER_TRANSCRIPTS_FOLDER": str(root / "transcripts"), "LOG_LEVEL": "WARNING",
+    }
+
+
+def phase_cli() -> dict:
+    """The command line, ``ser_tpu_torch.__main__.main(argv)`` in this process (so that the launch counters
+    read its kernels), at large-v3's full width with seeded random weights: consents, the data subcommands
+    on a RAVDESS-named corpus, ``--train --profile accurate`` (dry run, then the head), ``--file`` with the
+    trained head (cold, then warm with the timeline's CSV and subtitles), ``--train --repair`` and
+    ``doctor``; then ``python -m ser_tpu_torch --file ...`` in a subprocess. Every exit code must be 0."""
+    import io
+
+    import torch
+
+    import ser_tpu_torch.__main__ as cli
+    import ser_tpu_torch.api as api
+    from ser_tpu_torch._internal.data.manifest import read_manifest_jsonl
+    from ser_tpu_torch.models import attention
+    from ser_tpu_torch.ops import decode_step_kernels as dsk
+    from ser_tpu_torch.ops import log_mel
+
+    phase_started = time.perf_counter()
+    counters = (log_mel.FUSED_COUNTER, log_mel.COUNTER, attention.COUNTER, attention.F32_COUNTER,
+                attention.BWD_COUNTER, *dsk.COUNTERS)
+    steps: dict[str, dict] = {}
+    scratch_root = REPO / "build"
+    scratch_root.mkdir(exist_ok=True)
+    saved_env = dict(os.environ)
+    executions = []
+    infer = api.infer
+
+    def recorded_infer(*args, **kwargs):
+        executions.append(infer(*args, **kwargs))
+        return executions[-1]
+
+    def run(step: str, argv: list[str]) -> str:
+        """One ``main(argv)``: its launches, wall seconds and standard output; a non-zero exit fails the phase."""
+        for counter in counters:
+            counter.launches = 0
+        out = io.StringIO()
+        started = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            code = cli.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - started
+        launches = {counter.name: counter.launches for counter in counters if counter.launches}
+        steps[step] = {"seconds": round(seconds, 4), "launches": launches}
+        say("cli-step", step=step, exit_code=code, seconds=f"{seconds:.4f}", launches=json.dumps(launches))
+        if code != 0:
+            raise AssertionError(f"`{' '.join(argv)}` exited {code}: {out.getvalue()[-2000:]}")
+        return out.getvalue()
+
+    with tempfile.TemporaryDirectory(dir=scratch_root, prefix="chip_smoke_cli_") as tmp:
+        root = Path(tmp)
+        files = _write_fast_corpus(root / "dataset", actors=CLI_ACTORS, clips=1, seconds=3.0, sample_rate=48000)
+        for path in (root / "dataset").rglob("*.wav"):
+            if path not in files:  # the corrupt headers: their retry sleeps are not the command line's cost
+                path.unlink()
+        clip = root / "clip_45s.wav"
+        _write_clip(clip, CLI_FILE_SECONDS, 48000, seed=60)
+        os.environ.pop("SER_TRAINING_REPAIR_ALLOW_NETWORK", None)
+        os.environ.pop("SER_TORCH_DEVICE", None)
+        os.environ.update(_cli_environment(root))
+        api.infer = recorded_infer
+        try:
+            # 1-2. Consents and the data subcommands.
+            run("configure", ["configure", "--accept-dataset-license", "cc-by-nc-sa-4.0", "--persist"])
+            consents = run("consents", ["data", "consents"])
+            prepared = run("prepare", ["data", "prepare", "ravdess", "--dataset-root", str(root / "dataset"),
+                                       "--skip-download"])
+            entries = json.loads(run("registry", ["data", "registry", "--show", "--format", "json"]))["entries"]
+            health = run("health", ["data", "health"])
+            catalog = json.loads(run("catalog", ["data", "catalog", "--format", "json"]))
+            audit = run("audit", ["data", "audit", "--lenient"])
+            manifest = read_manifest_jsonl(Path(entries[0]["manifest_path"]))
+            say("cli-data", consents=json.dumps(consents.splitlines()), prepared=json.dumps(prepared.strip()),
+                registry=json.dumps([(e["dataset_id"], e["utterance_count"]) for e in entries]),
+                manifest_rows=len(manifest), health=json.dumps(health.strip()),
+                catalog_installed=json.dumps([e["dataset_id"] for e in catalog["entries"] if e["installed"]]),
+                audit=json.dumps(audit.splitlines()[0]))
+            if "cc-by-nc-sa-4.0" not in consents or [(e["dataset_id"], e["utterance_count"]) for e in entries] != [
+                    ("ravdess", len(files))] or len(manifest) != len(files) or "Registry healthy." not in health:
+                raise AssertionError(f"the data subcommands: {consents!r}, {entries}, {len(manifest)} rows, {health!r}")
+
+            # 3. Training: readiness alone, then the head (the smoke's encodes and one window a clip).
+            dry = run("train-dry-run", ["--train", "--profile", "accurate", "--dry-run"])
+            run("train", ["--train", "--profile", "accurate"])
+            smoke = min(16, len(files))
+            expected_train = {"stft_power_mel_log": smoke + len(files), "flash_attention_fwd": 32 * (smoke + len(files))}
+            say("cli-train", dry_run=json.dumps(dry.strip().splitlines()[-1]), clips=len(files), smoke_probes=smoke,
+                launches=json.dumps(steps["train"]["launches"]), predicted=json.dumps(expected_train),
+                artifacts=json.dumps(sorted(p.name for p in (root / "models").glob("*.pkl"))))
+            if steps["train-dry-run"]["launches"] or steps["train"]["launches"] != expected_train:
+                raise AssertionError(f"training launched {steps['train']['launches']} (dry run "
+                                     f"{steps['train-dry-run']['launches']}), predicted {expected_train}")
+
+            # 4. --file with the trained head, cold, then warm with the timeline's CSV and SRT subtitles.
+            request = ["--file", str(clip), "--profile", "accurate", "--no-transcript"]
+            timeline = run("file-cold", request)
+            subtitles = root / "clip_45s.srt"
+            exported = run("file-warm", request + ["--save_transcript", "--subtitle-output", str(subtitles)])
+            for execution in executions:
+                _check_segments(execution, clip, CLI_FILE_SECONDS, "jax_whisper_encoder")
+            expected_file = {"stft_power_mel_log": 1, "flash_attention_fwd": 32}
+            csv_line = next(line for line in exported.splitlines() if line.startswith("Timeline CSV: "))
+            srt = subtitles.read_text(encoding="utf-8")
+            say("cli-file", clip=clip.name, segments=len(executions[0].detailed_result.segments),
+                cold_s=steps["file-cold"]["seconds"], warm_s=steps["file-warm"]["seconds"],
+                infer_phase_warm_45s_s=INFER_45S_WARM_S, launches=json.dumps(steps["file-cold"]["launches"]),
+                predicted=json.dumps(expected_file), csv=json.dumps(csv_line), srt_cues=srt.count(" --> "),
+                srt_bytes=len(srt.encode()))
+            if len(executions) != 2 or any(steps[s]["launches"] != expected_file for s in ("file-cold", "file-warm")):
+                raise AssertionError(f"--file launched {steps['file-cold']['launches']} and "
+                                     f"{steps['file-warm']['launches']}, predicted {expected_file} each")
+            if not Path(csv_line.removeprefix("Timeline CSV: ")).is_file() or f"Subtitles: {subtitles}" not in exported \
+                    or srt.count(" --> ") != sum(1 for entry in executions[1].timeline if entry.speech.strip()) \
+                    or not exported.startswith(timeline):
+                raise AssertionError(f"the exports of --file, or its timeline: {exported[-600:]!r}")
+
+            # 6. The repair (network repairs off) and the doctor.
+            repaired = run("train-repair", ["--train", "--profile", "accurate", "--repair"])
+            doctor = json.loads(run("doctor", ["doctor", "--format", "json", "--profile", "accurate"]))
+            card = torch.cuda.get_device_name(0)
+            accelerator = next(f for f in doctor["findings"] if f["code"] == "accelerator")
+            say("cli-repair-doctor", repair=json.dumps(repaired.strip().splitlines()[-1]),
+                network_repair=json.dumps(next(line for line in repaired.splitlines() if "redownload" in line)),
+                doctor_codes=json.dumps([f"{f['code']}:{f['severity']}" for f in doctor["findings"]]),
+                accelerator=json.dumps(accelerator["message"]))
+            expected_repair = {"stft_power_mel_log": smoke, "flash_attention_fwd": 32 * smoke}
+            if steps["train-repair"]["launches"] != expected_repair or steps["doctor"]["launches"]:
+                raise AssertionError(f"the repair's smoke launched {steps['train-repair']['launches']}, predicted "
+                                     f"{expected_repair}; the doctor {steps['doctor']['launches']}")
+            if f"usable={len(files)} quarantined=0 blocking=False" not in repaired or "repair[FAILED] " \
+                    "redownload_pinned_model" not in repaired or card not in accelerator["message"] or any(
+                        f["blocking"] for f in doctor["findings"]):
+                raise AssertionError(f"repair {repaired[-800:]!r}; doctor {doctor}")
+        finally:
+            api.infer = infer
+            env_for_subprocess = dict(os.environ)
+            os.environ.clear()
+            os.environ.update(saved_env)
+
+        # 7. The module entry point in its own process, on the card.
+        env_for_subprocess["PYTHONPATH"] = os.pathsep.join(
+            [str(REPO)] + ([saved_env["PYTHONPATH"]] if saved_env.get("PYTHONPATH") else []))
+        started = time.perf_counter()
+        completed = subprocess.run([sys.executable, "-m", "ser_tpu_torch", *request], cwd=REPO,
+                                   env=env_for_subprocess, capture_output=True, text=True, timeout=180)
+        subprocess_s = time.perf_counter() - started
+        rows = completed.stdout.strip().splitlines()
+        say("cli-subprocess", exit_code=completed.returncode, seconds=f"{subprocess_s:.3f}", timeline_rows=len(rows) - 1,
+            same_timeline_as_in_process=rows == timeline.strip().splitlines())
+        if completed.returncode != 0 or len(rows) < 2 or "Emotion" not in rows[0]:
+            raise AssertionError(f"python -m ser_tpu_torch exited {completed.returncode}: "
+                                 f"{completed.stdout[-1000:]} {completed.stderr[-2000:]}")
+    wall_s = time.perf_counter() - phase_started
+    say("cli-wall", wall_s=f"{wall_s:.1f}", limit_s=CLI_WALL_LIMIT_S,
+        steps_s=json.dumps({step: reading["seconds"] for step, reading in steps.items()}),
+        subprocess_s=f"{subprocess_s:.3f}")
+    if wall_s > CLI_WALL_LIMIT_S:
+        raise AssertionError(f"the cli phase took {wall_s:.1f} s, over its {CLI_WALL_LIMIT_S} s")
+    launches = {counter.name: sum(reading["launches"].get(counter.name, 0) for reading in steps.values())
+                for counter in counters}
+    return {"launches": launches, "steps": steps, "wall_s": wall_s, "subprocess_s": subprocess_s}
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for value in tree.values():
@@ -5390,6 +5586,8 @@ def main() -> int:
         batch_infer = phase_batch_infer()
         phase = mark("separate")
         separate = phase_separate()
+        phase = mark("cli")
+        cli = phase_cli()
         phase = mark("operator")
         operator = phase_operator()
     except Exception:
@@ -5474,6 +5672,10 @@ def main() -> int:
     for kernel in (k1["fused"], k1["spectrum"], k2, k2_f32, k2_bwd, k3, k4, k5):
         kernel.update(separate_launches=separate["launches"].get(kernel["name"], 0),
                       separate_unet_launches=separate["unet_launches"].get(kernel["name"], 0))
+    # The command line: launches of every in-process main(argv) of phase cli (the training and the two --file
+    # requests; the subprocess's are not counted).
+    for kernel in (k1["fused"], k1["spectrum"], k2, k2_f32, k2_bwd, k3, k4, k5):
+        kernel.update(cli_launches=cli["launches"].get(kernel["name"], 0))
     # The operator's path: launches of the quality gate's workflow (its encodes and stability requests).
     for kernel in (k1["fused"], k1["spectrum"], k2, k2_f32, k2_bwd, k3, k4, k5):
         kernel.update(operator_launches=operator["launches"].get(kernel["name"], 0))

@@ -8,8 +8,8 @@ and nothing of JAX or of ``ser_tpu``. Entry points run on the CUDA card unless
 the caller asks for the CPU (``SER_TORCH_DEVICE=cpu``).
 """
 
-from ser_tpu_torch.domain import EmotionSegment, TimelineEntry, TranscriptWord
+from ser_tpu_torch.domain import DatasetConsents, EmotionSegment, TimelineEntry, TranscriptWord
 
 __version__ = "0.1.0"
 
-__all__ = ["EmotionSegment", "TimelineEntry", "TranscriptWord", "__version__"]
+__all__ = ["DatasetConsents", "EmotionSegment", "TimelineEntry", "TranscriptWord", "__version__"]

@@ -8,10 +8,29 @@ from __future__ import annotations
 
 import re
 from hashlib import sha1
+from typing import Literal
+
+type ArtifactProfileName = Literal["fast", "medium", "accurate", "accurate-research"]
 
 FAST_MODEL_FILE_NAME = "ser_model.pkl"
 FAST_SECURE_MODEL_FILE_NAME = "ser_model.skops"
 FAST_TRAINING_REPORT_FILE_NAME = "training_report.json"
+
+
+def artifact_profile_from_runtime_flags(
+    *,
+    medium_profile: bool,
+    accurate_profile: bool,
+    accurate_research_profile: bool,
+) -> ArtifactProfileName:
+    """The artifact profile of the runtime flags, by the runtime's precedence."""
+    if accurate_research_profile:
+        return "accurate-research"
+    if accurate_profile:
+        return "accurate"
+    if medium_profile:
+        return "medium"
+    return "fast"
 
 
 def artifact_model_id_suffix(model_id: str) -> str:
@@ -46,10 +65,12 @@ def profile_artifact_file_names(*, profile: str, model_id: str | None) -> tuple[
 
 
 __all__ = [
+    "ArtifactProfileName",
     "FAST_MODEL_FILE_NAME",
     "FAST_SECURE_MODEL_FILE_NAME",
     "FAST_TRAINING_REPORT_FILE_NAME",
     "artifact_model_id_suffix",
+    "artifact_profile_from_runtime_flags",
     "profile_artifact_file_name",
     "profile_artifact_file_names",
 ]

@@ -14,7 +14,15 @@ the given device.
 
 Unpickling goes through a restricted ``Unpickler`` that resolves numpy's own
 array and dtype reconstructors and nothing else, so no ``ser_tpu`` (or any
-other) class is imported or run. Legacy sklearn pickles wait for a later slice.
+other) class is imported or run. Legacy scikit-learn pickles (a bare
+``MLPClassifier``, or one inside an envelope, which the JAX package loads with
+``pickle.load``) load too, without scikit-learn: each ``sklearn.*`` or
+``numpy.random.*`` global the pickle names becomes an inert stand-in that only
+records its arguments and its ``__setstate__`` dict, and a ReLU
+``MLPClassifier``'s ``coefs_``, ``intercepts_`` and ``classes_`` become a
+``TorchMLPClassifier`` (a binary head's single logistic output as the second
+of two softmax logits beside a zero one). Any other estimator is refused with
+``ArtifactError``.
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ from datetime import UTC, datetime
 from pathlib import Path
 from typing import Any, NamedTuple
 
+import numpy as np
 import torch
 
 from ser_tpu_torch._internal.utils.logger import get_logger
@@ -156,20 +165,83 @@ _NUMPY_MODULES = frozenset(
 )
 
 
-class _NumpyOnlyUnpickler(pickle.Unpickler):
-    """Resolves numpy's array, dtype and scalar reconstructors and nothing else."""
+class _PickledGlobal:
+    """Inert stand-in for a class or function a legacy pickle names: records, runs nothing."""
+
+    origin = ""
+
+    def __init__(self, *args: Any, **kwargs: Any) -> None:
+        self.args = args
+
+    def __setstate__(self, state: Any) -> None:
+        self.state = state
+
+
+#: Module prefixes whose globals become inert stand-ins (a fitted estimator and its random state).
+_STAND_IN_PREFIXES = ("sklearn.", "numpy.random.")
+_SKLEARN_MLP = "sklearn.neural_network._multilayer_perceptron.MLPClassifier"
+
+
+class _RestrictedUnpickler(pickle.Unpickler):
+    """Resolves numpy's array, dtype and scalar reconstructors; scikit-learn's globals become stand-ins."""
 
     def find_class(self, module: str, name: str) -> Any:
         if module in _NUMPY_MODULES and name in _NUMPY_RECONSTRUCTORS:
             return super().find_class(module, name)
+        if (module, name) == ("_codecs", "encode"):  # bytes in protocol-2 pickles
+            return super().find_class(module, name)
+        if module.startswith(_STAND_IN_PREFIXES):
+            return type(name, (_PickledGlobal,), {"origin": f"{module}.{name}"})
         raise ArtifactError(
             f"Artifact references {module}.{name}; ser_tpu_torch loads only "
-            "ser_tpu_mlp envelopes of plain data and numpy arrays."
+            "ser_tpu_mlp envelopes of plain data and numpy arrays, and scikit-learn MLPClassifier heads."
         )
 
 
 def _unpickle(data: bytes) -> Any:
-    return _NumpyOnlyUnpickler(io.BytesIO(data)).load()
+    return _RestrictedUnpickler(io.BytesIO(data)).load()
+
+
+def _head_from_payload(payload: Any, device: torch.device | str) -> TorchMLPClassifier:
+    """The head of a ``ser_tpu_mlp`` state or of a pickled scikit-learn ``MLPClassifier``."""
+    if isinstance(payload, dict) and payload.get("kind") == "ser_tpu_mlp":
+        return TorchMLPClassifier.from_state(payload, device=device)
+    origin = getattr(payload, "origin", None)
+    state = getattr(payload, "state", None)
+    if origin != _SKLEARN_MLP or not isinstance(state, dict):
+        raise ArtifactError(
+            f"The artifact holds {origin or type(payload).__name__}, not a ser_tpu_mlp head or a "
+            "scikit-learn MLPClassifier; ser_tpu_torch loads no other estimator."
+        )
+    if state.get("activation") != "relu":
+        raise ArtifactError(f"MLPClassifier activation {state.get('activation')!r} is not supported (relu only).")
+    weights = [np.asarray(w, dtype=np.float64) for w in state["coefs_"]]
+    biases = [np.asarray(b, dtype=np.float64) for b in state["intercepts_"]]
+    classes = np.asarray(state["classes_"])
+    out = state.get("out_activation_")
+    if out == "logistic" and len(classes) == 2 and weights[-1].shape[1] == 1:
+        # sigmoid(z) is the second of softmax([0, z]).
+        weights[-1] = np.concatenate([np.zeros_like(weights[-1]), weights[-1]], axis=1)
+        biases[-1] = np.concatenate([np.zeros_like(biases[-1]), biases[-1]])
+    elif out != "softmax":
+        raise ArtifactError(f"MLPClassifier output {out!r} with {len(classes)} classes is not supported.")
+    return TorchMLPClassifier.from_state(
+        {
+            "kind": "ser_tpu_mlp",
+            "hidden_layer_sizes": [w.shape[1] for w in weights[:-1]],
+            "alpha": state.get("alpha", 0.0001),
+            "batch_size": state.get("batch_size", "auto"),
+            "epsilon": state.get("epsilon", 1e-8),
+            "max_iter": state.get("max_iter", 200),
+            "random_state": state.get("random_state"),
+            "classes": classes.tolist(),
+            "weights": weights,
+            "biases": biases,
+            "n_iter": state.get("n_iter_", 0),
+            "loss": state.get("loss_", float("inf")),
+        },
+        device=device,
+    )
 
 
 def load_model_artifact(
@@ -186,10 +258,24 @@ def load_model_artifact(
         raise FileNotFoundError(f"Model artifact not found: {path}")
     raw = _unpickle(target.read_bytes())
     if not isinstance(raw, dict) or "model" not in raw:
-        raise ArtifactError(
-            f"{target} is not a v2/v3 artifact envelope; legacy pickles are not "
-            "supported by ser_tpu_torch yet (see ROADMAP.md)."
-        )
+        # A bare legacy estimator carries no metadata to check.
+        unverifiable = [
+            name
+            for name, value in (
+                ("backend", expected_backend_id),
+                ("profile", expected_profile),
+                ("model-id", expected_model_id),
+            )
+            if value is not None
+        ]
+        if unverifiable:
+            logger.warning(
+                "Legacy artifact %s carries no metadata; %s compatibility cannot be verified. "
+                "Re-train to produce an envelope-v3 artifact.",
+                target,
+                "/".join(unverifiable),
+            )
+        return LoadedModel(model=_head_from_payload(raw, device), expected_feature_size=None)
 
     metadata = raw.get("metadata") or {}
     version = metadata.get("artifact_version")
@@ -231,17 +317,19 @@ def load_model_artifact(
             f"({feature_dim} vs {expected_size})."
         )
 
-    payload = raw["model"]
-    if not (isinstance(payload, dict) and payload.get("kind") == "ser_tpu_mlp"):
-        raise ArtifactError(
-            f"{target} holds no ser_tpu_mlp head; other payloads (sklearn estimators) "
-            "are not supported by ser_tpu_torch yet (see ROADMAP.md)."
-        )
     return LoadedModel(
-        model=TorchMLPClassifier.from_state(payload, device=device),
+        model=_head_from_payload(raw["model"], device),
         expected_feature_size=expected_size,
         artifact_metadata=metadata,
     )
+
+
+def discover_artifact_candidates(folder: str | Path, stem_prefix: str = "ser_model") -> list[Path]:
+    """The ``<stem_prefix>*.pkl`` artifacts of a models folder, newest first."""
+    root = Path(folder)
+    if not root.is_dir():
+        return []
+    return sorted(root.glob(f"{stem_prefix}*.pkl"), key=lambda p: p.stat().st_mtime, reverse=True)
 
 
 __all__ = [
@@ -253,6 +341,7 @@ __all__ = [
     "SUPPORTED_MODEL_ARTIFACT_VERSIONS",
     "build_artifact_metadata",
     "build_model_artifact",
+    "discover_artifact_candidates",
     "load_model_artifact",
     "save_model_artifact",
 ]

@@ -1,8 +1,8 @@
 """Emotion model facade: train the fast head, load it, predict a file.
 
 Counterpart of ``ser_tpu/_internal/models/emotion_model.py`` (``train_model``,
-``load_model``, ``predict_emotions_detailed`` and the fast profile's framing
-constants). The head and the feature program run on the settings' torch
+``load_model``, ``predict_emotions_detailed``, the legacy segment-only
+``predict_emotions`` and the per-profile framing constants). The head and the feature program run on the settings' torch
 device (the card unless ``SER_TORCH_DEVICE=cpu``).
 """
 
@@ -17,13 +17,17 @@ from ser_tpu_torch._internal.models import artifacts, fast_path
 from ser_tpu_torch._internal.models.fast_training import train_fast_model
 from ser_tpu_torch._internal.repr.runtime_policy import resolve_device
 from ser_tpu_torch._internal.utils.logger import get_logger
-from ser_tpu_torch.runtime.schema import InferenceResult
+from ser_tpu_torch.domain import EmotionSegment
+from ser_tpu_torch.runtime.schema import InferenceResult, to_legacy_emotion_segments
 
 logger = get_logger(__name__)
 
-#: The fast profile's encode framing.
+#: Per-profile encode framing.
 FAST_FRAME_SIZE_SECONDS = 3.0
 FAST_FRAME_STRIDE_SECONDS = 1.0
+MEDIUM_FRAME_SIZE_SECONDS = 1.0
+MEDIUM_FRAME_STRIDE_SECONDS = 1.0
+MEDIUM_POOLING_STRATEGY = "mean_std"
 
 
 def train_model(*, settings: AppConfig | None = None) -> dict[str, Any]:
@@ -71,10 +75,24 @@ def predict_emotions_detailed(
     )
 
 
+def predict_emotions(
+    file: str,
+    *,
+    settings: AppConfig | None = None,
+    loaded: artifacts.LoadedModel | None = None,
+) -> list[EmotionSegment]:
+    """Legacy segment-only inference."""
+    return to_legacy_emotion_segments(predict_emotions_detailed(file, settings=settings, loaded=loaded))
+
+
 __all__ = [
     "FAST_FRAME_SIZE_SECONDS",
     "FAST_FRAME_STRIDE_SECONDS",
+    "MEDIUM_FRAME_SIZE_SECONDS",
+    "MEDIUM_FRAME_STRIDE_SECONDS",
+    "MEDIUM_POOLING_STRATEGY",
     "load_model",
+    "predict_emotions",
     "predict_emotions_detailed",
     "train_model",
 ]

@@ -4,6 +4,7 @@ from ser_tpu_torch._internal.repr.backend import (
     EncodedSequence,
     FeatureBackend,
     PoolingWindow,
+    VectorFeatureBackend,
     overlap_frame_mask,
 )
 
@@ -11,5 +12,6 @@ __all__ = [
     "EncodedSequence",
     "FeatureBackend",
     "PoolingWindow",
+    "VectorFeatureBackend",
     "overlap_frame_mask",
 ]

@@ -143,6 +143,15 @@ class FeatureBackend(Protocol):
         ...
 
 
+@runtime_checkable
+class VectorFeatureBackend(FeatureBackend, Protocol):
+    """Optional convenience protocol for direct whole-clip vector extraction."""
+
+    def extract_vector(self, audio: NDArray[np.float32], sample_rate: int) -> FeatureVector:
+        """Extracts one feature vector from a full clip or window."""
+        ...
+
+
 __all__ = [
     "window_mean_pool",
     "EmbeddingMatrix",
@@ -152,6 +161,7 @@ __all__ = [
     "FeatureVector",
     "PoolingWindow",
     "TimeVector",
+    "VectorFeatureBackend",
     "WindowMask",
     "overlap_frame_mask",
 ]

@@ -77,11 +77,11 @@ def benchmark_fast_predict(
     file_path: str, *, runs: int = 5, settings=None
 ) -> LatencyReport:
     """Benchmarks fast-profile prediction latency on one file (the head loaded once, outside the timing)."""
-    from ser_tpu_torch._internal.models.emotion_model import load_model, predict_emotions_detailed
+    from ser_tpu_torch._internal.models.emotion_model import load_model, predict_emotions
 
     loaded = load_model(settings=settings, profile="fast")
     return run_latency_benchmark(
-        lambda: predict_emotions_detailed(file_path, settings=settings, loaded=loaded),
+        lambda: predict_emotions(file_path, settings=settings, loaded=loaded),
         runs=runs,
     )
 

@@ -24,6 +24,34 @@ PHASE_TRANSCRIPTION = "transcription"
 PHASE_TIMELINE_BUILD = "timeline_build"
 PHASE_TIMELINE_OUTPUT = "timeline_output"
 
+ALL_PHASES: tuple[str, ...] = (
+    PHASE_WORKFLOW_TOTAL,
+    PHASE_EMOTION_SETUP,
+    PHASE_EMOTION_INFERENCE,
+    PHASE_TRANSCRIPTION_SETUP,
+    PHASE_TRANSCRIPTION_MODEL_LOAD,
+    PHASE_TRANSCRIPTION,
+    PHASE_TIMELINE_BUILD,
+    PHASE_TIMELINE_OUTPUT,
+)
+
+#: Human-readable labels of the phases.
+PHASE_LABELS: dict[str, str] = {
+    PHASE_WORKFLOW_TOTAL: "SER workflow",
+    PHASE_EMOTION_SETUP: "Emotion setup",
+    PHASE_EMOTION_INFERENCE: "Emotion inference",
+    PHASE_TRANSCRIPTION_SETUP: "Transcription setup",
+    PHASE_TRANSCRIPTION_MODEL_LOAD: "Transcription model load",
+    PHASE_TRANSCRIPTION: "Transcription",
+    PHASE_TIMELINE_BUILD: "Timeline build",
+    PHASE_TIMELINE_OUTPUT: "Timeline output",
+}
+
+
+def phase_label(phase_name: str) -> str:
+    """Human-readable label for one phase id (falls back to the id)."""
+    return PHASE_LABELS.get(phase_name, phase_name)
+
 
 @contextmanager
 def timed_phase(phase: str, timings: dict[str, float]) -> Iterator[None]:
@@ -39,13 +67,16 @@ def timed_phase(phase: str, timings: dict[str, float]) -> Iterator[None]:
 
 
 __all__ = [
+    "ALL_PHASES",
     "PHASE_EMOTION_INFERENCE",
     "PHASE_EMOTION_SETUP",
+    "PHASE_LABELS",
     "PHASE_TIMELINE_BUILD",
     "PHASE_TIMELINE_OUTPUT",
     "PHASE_TRANSCRIPTION",
     "PHASE_TRANSCRIPTION_MODEL_LOAD",
     "PHASE_TRANSCRIPTION_SETUP",
     "PHASE_WORKFLOW_TOTAL",
+    "phase_label",
     "timed_phase",
 ]

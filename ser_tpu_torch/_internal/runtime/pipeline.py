@@ -29,7 +29,18 @@ from ser_tpu_torch.profiles import ProfileName, require_ported, resolve_profile_
 from ser_tpu_torch.runtime.contracts import InferenceExecution, InferenceRequest
 from ser_tpu_torch.runtime.schema import InferenceResult, to_legacy_emotion_segments
 
+type TranscriptFn = Callable[..., list[TranscriptWord]]
 type TrainFn = Callable[[AppConfig], object]
+
+
+def _default_transcript_fn(
+    file_path: str,
+    language: str,
+    profile: ProfileName,
+    settings: AppConfig,
+    timings: dict[str, float] | None = None,
+) -> list[TranscriptWord]:
+    return extract_transcript(file_path, language=language, profile=profile, settings=settings, timings=timings)
 
 
 @dataclass(frozen=True)
@@ -38,6 +49,7 @@ class RuntimePipeline:
 
     settings: AppConfig
     backend_hooks: dict[str, BackendHook]
+    transcript_fn: TranscriptFn = _default_transcript_fn
     train_fns: dict[ProfileName, TrainFn] = field(default_factory=dict)
     print_timeline_fn: Callable[[list[TimelineEntry]], None] = timeline_utils.print_timeline
 
@@ -89,12 +101,8 @@ class RuntimePipeline:
                 # transcription_model_load into the same dict; this phase
                 # covers the whole lane.
                 with phases.timed_phase(phases.PHASE_TRANSCRIPTION, timings):
-                    transcript = extract_transcript(
-                        request.file_path,
-                        language=request.language,
-                        profile=profile,
-                        settings=self.settings,
-                        timings=timings,
+                    transcript = self.transcript_fn(
+                        request.file_path, request.language, profile, self.settings, timings
                     )
             with phases.timed_phase(phases.PHASE_TIMELINE_BUILD, timings):
                 timeline = timeline_utils.build_timeline(transcript, emotions)

@@ -45,8 +45,15 @@ write it as ASS, SRT or VTT subtitles, the files the JAX package writes.
 ``UnsupportedProfileError`` otherwise, loading no weights;
 ``run_startup_preflight`` returns the structured startup diagnostics
 (``DiagnosticReport``: the CUDA devices against the settings' device, each
-profile's availability, the transcription assets and the fast artifact). The
-dataset functions of ``ser_tpu.api`` are not ported yet.
+profile's availability, the transcription assets and the fast artifact).
+
+The dataset functions are ``ser_tpu.api``'s: ``list_datasets`` (the 16
+catalog ids), ``list_registered_datasets`` and
+``list_dataset_registry_health_issues`` (the registry both packages share),
+``show_dataset_consents`` and ``configure_dataset_consents`` (the consent
+store both share) and ``prepare_dataset`` (a staged corpus, or one the
+provider workflows download, to a manifest and a registry record). They run
+on the host only.
 """
 
 from __future__ import annotations
@@ -55,6 +62,7 @@ from collections.abc import Callable
 from pathlib import Path
 from typing import Protocol
 
+import ser_tpu_torch._internal.api.data as _data_api
 import ser_tpu_torch._internal.api.diagnostics as _diagnostics_api
 import ser_tpu_torch._internal.api.runtime as _runtime_api
 from ser_tpu_torch.config import (
@@ -66,10 +74,15 @@ from ser_tpu_torch.config import (
     TranscriptionConfig, WhisperModelConfig, reload_settings,
 )
 from ser_tpu_torch.diagnostics.domain import DiagnosticFinding, DiagnosticReport, DiagnosticSeverity
-from ser_tpu_torch.domain import EmotionSegment, TimelineEntry, TranscriptWord
+from ser_tpu_torch.domain import DatasetConsents, EmotionSegment, TimelineEntry, TranscriptWord
 from ser_tpu_torch.profiles import ProfileName
 from ser_tpu_torch.runtime.contracts import InferenceExecution, InferenceRequest, SubtitleFormat
 from ser_tpu_torch.runtime.schema import FramePrediction, InferenceResult, SegmentPrediction
+
+ComplianceMode = _data_api.ComplianceMode
+DatasetPrepareResult = _data_api.DatasetPrepareResult
+DatasetRegistryHealthIssueRecord = _data_api.DatasetRegistryHealthIssueRecord
+DatasetRegistryRecord = _data_api.DatasetRegistryRecord
 
 
 class RuntimePipeline(Protocol):
@@ -90,6 +103,76 @@ type RuntimePipelineBuilder = Callable[[AppConfig], RuntimePipeline]
 def _resolve_boundary_settings(settings: AppConfig | None) -> AppConfig:
     """Explicit settings or a fresh snapshot of the environment."""
     return settings if settings is not None else reload_settings()
+
+
+def list_datasets() -> tuple[str, ...]:
+    """Returns all supported dataset identifiers in deterministic order."""
+    return _data_api.list_datasets()
+
+
+def list_registered_datasets(*, settings: AppConfig | None = None) -> tuple[DatasetRegistryRecord, ...]:
+    """Returns registered dataset records."""
+    return _data_api.list_registered_datasets(settings=_resolve_boundary_settings(settings))
+
+
+def list_dataset_registry_health_issues(
+    *, settings: AppConfig | None = None
+) -> tuple[DatasetRegistryHealthIssueRecord, ...]:
+    """Returns dataset registry health issues."""
+    return _data_api.list_dataset_registry_health_issues(settings=_resolve_boundary_settings(settings))
+
+
+def show_dataset_consents(*, settings: AppConfig | None = None) -> DatasetConsents:
+    """Returns persisted dataset consents."""
+    return _data_api.show_dataset_consents(settings=_resolve_boundary_settings(settings))
+
+
+def configure_dataset_consents(
+    *,
+    accept_policy_ids: tuple[str, ...] = (),
+    accept_license_ids: tuple[str, ...] = (),
+    settings: AppConfig | None = None,
+    source: str = "ser_tpu_torch.api.configure_dataset_consents",
+) -> DatasetConsents:
+    """Persists dataset consents."""
+    return _data_api.configure_dataset_consents(
+        accept_policy_ids=accept_policy_ids,
+        accept_license_ids=accept_license_ids,
+        settings=_resolve_boundary_settings(settings),
+        source=source,
+    )
+
+
+def prepare_dataset(
+    *,
+    dataset_id: str,
+    dataset_root: Path | None = None,
+    manifest_path: Path | None = None,
+    labels_csv_path: Path | None = None,
+    audio_base_dir: Path | None = None,
+    source_repo_id: str | None = None,
+    source_revision: str | None = None,
+    default_language: str | None = None,
+    skip_download: bool = False,
+    accept_license: bool = False,
+    compliance_mode: ComplianceMode = "advisory",
+    settings: AppConfig | None = None,
+) -> DatasetPrepareResult:
+    """Runs programmatic dataset preparation."""
+    return _data_api.prepare_dataset(
+        dataset_id=dataset_id,
+        dataset_root=dataset_root,
+        manifest_path=manifest_path,
+        labels_csv_path=labels_csv_path,
+        audio_base_dir=audio_base_dir,
+        source_repo_id=source_repo_id,
+        source_revision=source_revision,
+        default_language=default_language,
+        skip_download=skip_download,
+        accept_license=accept_license,
+        compliance_mode=compliance_mode,
+        settings=_resolve_boundary_settings(settings),
+    )
 
 
 def list_profiles() -> tuple[ProfileName, ...]:
@@ -154,14 +237,17 @@ def run_startup_preflight(
 
 __all__ = [
     "AccurateResearchRuntimeConfig", "AccurateRuntimeConfig", "AppConfig", "AudioReadConfig",
-    "DataLoaderConfig", "DatasetConfig", "DiagnosticFinding", "DiagnosticReport",
-    "DiagnosticSeverity", "EmotionSegment", "FastRuntimeConfig", "FeatureFlags",
-    "FeatureRuntimeBackendOverride", "FeatureRuntimePolicyConfig", "FramePrediction",
+    "ComplianceMode", "DataLoaderConfig", "DatasetConfig", "DatasetConsents",
+    "DatasetPrepareResult", "DatasetRegistryHealthIssueRecord", "DatasetRegistryRecord", "DiagnosticFinding",
+    "DiagnosticReport", "DiagnosticSeverity", "EmotionSegment", "FastRuntimeConfig",
+    "FeatureFlags", "FeatureRuntimeBackendOverride", "FeatureRuntimePolicyConfig", "FramePrediction",
     "InferenceExecution", "InferenceRequest", "InferenceResult", "MediumRuntimeConfig",
     "MediumTrainingConfig", "ModelsConfig", "NeuralNetConfig", "ProfileName",
     "QualityGateConfig", "RuntimeFlags", "RuntimePipeline", "RuntimePipelineBuilder",
     "SchemaConfig", "SegmentPrediction", "SubtitleFormat", "TimelineConfig",
     "TimelineEntry", "TorchRuntimeConfig", "TrainingConfig", "TranscriptWord",
-    "TranscriptionConfig", "WhisperModelConfig", "infer", "list_profiles", "load_profile",
-    "run_startup_preflight", "train",
+    "TranscriptionConfig", "WhisperModelConfig", "configure_dataset_consents", "infer",
+    "list_dataset_registry_health_issues", "list_datasets", "list_profiles", "list_registered_datasets",
+    "load_profile", "prepare_dataset", "run_startup_preflight", "show_dataset_consents",
+    "train",
 ]

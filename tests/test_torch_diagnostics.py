@@ -231,12 +231,14 @@ def test_public_surfaces_match() -> None:
     assert diagnostics.__all__ == jax_diagnostics.__all__
     assert [member.value for member in domain.DiagnosticSeverity] == [
         member.value for member in jax_domain.DiagnosticSeverity]
-    for name in ("list_profiles", "load_profile", "run_startup_preflight"):
+    for name in ("list_profiles", "load_profile", "run_startup_preflight", "list_datasets",
+                 "list_registered_datasets", "list_dataset_registry_health_issues", "show_dataset_consents",
+                 "prepare_dataset"):
         assert str(inspect.signature(getattr(api, name))) == str(inspect.signature(getattr(jax_api, name)))
-    left_out = {"ComplianceMode", "DatasetConsents", "DatasetPrepareResult", "DatasetRegistryHealthIssueRecord",
-                "DatasetRegistryRecord", "configure_dataset_consents", "list_dataset_registry_health_issues",
-                "list_datasets", "list_registered_datasets", "prepare_dataset", "show_dataset_consents"}
-    assert set(api.__all__) == set(jax_api.__all__) - left_out
+    # The consents' default source names each package's own function.
+    ours, theirs = (inspect.signature(module.configure_dataset_consents).parameters for module in (api, jax_api))
+    assert list(ours) == list(theirs) and ours["source"].default == "ser_tpu_torch.api.configure_dataset_consents"
+    assert set(api.__all__) == set(jax_api.__all__)
 
 
 def test_api_diagnostics_match(tmp_path: Path) -> None:

@@ -294,3 +294,62 @@ SETTINGS_OPERATOR_AND_NATIVE_MODULES = (
 @pytest.mark.parametrize("module", SETTINGS_OPERATOR_AND_NATIVE_MODULES)
 def test_settings_operator_and_native_module_is_imported(fresh_import, module: str) -> None:
     assert module in fresh_import["imported"]
+
+
+#: The command line, the dataset-provider half of the data layer, the training repair and the device check.
+CLI_AND_PROVIDER_MODULES = (
+    "ser_tpu_torch.__main__",
+    "ser_tpu_torch._internal.data.catalog",
+    "ser_tpu_torch._internal.data.consents",
+    "ser_tpu_torch._internal.data.capabilities",
+    "ser_tpu_torch._internal.data.adapters",
+    "ser_tpu_torch._internal.data.strategies",
+    "ser_tpu_torch._internal.data.provider_transport",
+    "ser_tpu_torch._internal.data.provider_resolution",
+    "ser_tpu_torch._internal.data.downloads",
+    "ser_tpu_torch._internal.data.provider_prepare",
+    "ser_tpu_torch._internal.data.prepare",
+    "ser_tpu_torch._internal.api.data",
+    "ser_tpu_torch._internal.models.training_repair",
+    "ser_tpu_torch._internal.utils.torch_runtime",
+)
+
+
+@pytest.mark.parametrize("module", CLI_AND_PROVIDER_MODULES)
+def test_cli_and_provider_module_is_imported(fresh_import, module: str) -> None:
+    assert module in fresh_import["imported"]
+
+
+@pytest.mark.parametrize("module", CLI_AND_PROVIDER_MODULES)
+def test_cli_and_provider_module_is_scanned(module: str) -> None:
+    parts = module.split(".")
+    path = REPO_ROOT.joinpath(*parts).with_suffix(".py")
+    assert path in _scanned_sources()
+    assert not [name for name in _imported_modules(path) if _forbidden(name)]
+
+
+_HELP_PROBE = r"""
+import json, runpy, sys
+before = set(sys.modules)
+sys.argv = ["ser-torch", "--help"]
+try:
+    runpy.run_module("ser_tpu_torch", run_name="__main__")
+except SystemExit as exit_:
+    code = exit_.code
+print(json.dumps({"code": code, "added": sorted(set(sys.modules) - before)}))
+"""
+
+
+def test_module_entry_point_help_loads_no_jax() -> None:
+    """``python -m ser_tpu_torch --help`` prints the parser's help, exits 0 and imports no JAX."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join([str(REPO_ROOT)] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+    completed = subprocess.run(
+        [sys.executable, "-c", _HELP_PROBE], cwd=REPO_ROOT, env=env, capture_output=True, text=True, timeout=240
+    )
+    assert completed.returncode == 0, completed.stderr[-3000:]
+    assert "usage: ser" in completed.stdout
+    result = json.loads(completed.stdout.strip().splitlines()[-1])
+    assert result["code"] == 0
+    assert "ser_tpu_torch.api" in result["added"] and "torch" in result["added"]
+    assert [name for name in result["added"] if _forbidden(name)] == []
