@@ -4,14 +4,18 @@ Counterpart of ``ser_tpu/_internal/transcript/jax_whisper_backend.py``. It
 keeps that backend's id, so one configuration selects it in both packages
 (``ROADMAP.md`` rule (b)). It resolves the staged HF-format checkpoint under
 the Whisper download root, loads ``WhisperForTranscription`` on the device it
-is given, and transcribes one file: read, resample to 16 kHz, with
+is given (None: the device ``SER_TORCH_DEVICE`` names, through
+``honor_platform_env``: the card, the CPU only when asked for, and raises with
+neither), and transcribes one file: read, resample to 16 kHz, with
 ``use_demucs`` vocal separation (the staged htdemucs or U-Net checkpoint on
 the transcriber's device, else REPET-SIM) then the spectral gate, then the
 model's VAD and its decode: greedy, or beam search with ``beam_size`` and
 ``length_penalty`` (``decode_strategy="beam"``).
 
 Nothing is downloaded: without staged weights the backend reports a blocking
-compatibility issue and ``load_model`` raises ``TranscriptionUnavailableError``.
+compatibility issue and ``load_model`` raises ``TranscriptionUnavailableError``,
+as it does, naming the file, when a tokenizer file is missing from the staged
+checkpoint.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ from ser_tpu_torch._internal.transcript.base import (
     CompatibilityIssue,
     CompatibilityReport,
 )
+from ser_tpu_torch._internal.utils.torch_runtime import honor_platform_env
 from ser_tpu_torch.domain import TranscriptWord
 
 BACKEND_ID = "jax_whisper"
@@ -38,7 +43,7 @@ class WhisperTranscriber:
         *,
         model_name: str,
         cache_root: Path,
-        device: torch.device | str = "cpu",
+        device: torch.device | str | None = None,
         use_vad: bool = True,
         use_demucs: bool = False,
         decode_strategy: str = "greedy",
@@ -48,7 +53,7 @@ class WhisperTranscriber:
     ) -> None:
         self._model_name = model_name
         self._cache_root = Path(cache_root)
-        self._device = torch.device(device)
+        self._device = honor_platform_env() if device is None else torch.device(device)
         self._use_vad = use_vad
         self._use_demucs = use_demucs
         self._decode_strategy = decode_strategy
@@ -119,15 +124,21 @@ class WhisperTranscriber:
         if self._model is None:
             from ser_tpu_torch.models.whisper import WhisperForTranscription
 
-            dtype = "bfloat16" if request is None else request.precision_candidates[0]
-            self._model = WhisperForTranscription.from_pretrained_dir(
-                assets,
-                device=self._device,
-                compute_dtype=dtype if dtype in ("bfloat16", "float32") else "float32",
-                decode_strategy=self._decode_strategy,
-                beam_size=self._beam_size,
-                length_penalty=self._length_penalty,
-            )
+            # With no request the model's own default: bf16 on the card, float32 on the CPU.
+            dtype = None if request is None else request.precision_candidates[0]
+            try:
+                self._model = WhisperForTranscription.from_pretrained_dir(
+                    assets,
+                    device=self._device,
+                    compute_dtype=dtype if dtype in (None, "bfloat16", "float32") else "float32",
+                    decode_strategy=self._decode_strategy,
+                    beam_size=self._beam_size,
+                    length_penalty=self._length_penalty,
+                )
+            except FileNotFoundError as err:  # a tokenizer file missing from the staged assets
+                from ser_tpu_torch._internal.transcript.extractor import TranscriptionUnavailableError
+
+                raise TranscriptionUnavailableError(str(err)) from err
 
     def transcribe(self, file_path: str, *, language: str = "en") -> list[TranscriptWord]:
         """Transcribes one audio file to word-level timestamps."""

@@ -64,6 +64,7 @@ from torch.utils.checkpoint import (
 
 from ser_tpu_torch.domain import TranscriptWord
 from ser_tpu_torch._internal.repr.runtime_policy import refuse_float32_decode_on_card
+from ser_tpu_torch._internal.utils.torch_runtime import honor_platform_env
 from ser_tpu_torch.models import whisper_decode
 from ser_tpu_torch.models.attention import multi_head_attention
 from ser_tpu_torch.models.checkpoint_audit import AuditedState, unconsumed_key_error
@@ -800,7 +801,10 @@ class WhisperForTranscription:
     refuses ``fused`` with int8). On a CUDA device the model is checked
     before any weight is built: float32 raises the runtime policy's
     ``NotImplementedError`` (K3-K5 take bf16 only), and a shape that K3-K5
-    refuse raises ``ValueError`` naming the rule.
+    refuse raises ``ValueError`` naming the rule. ``device`` None is the
+    device ``SER_TORCH_DEVICE`` names (``honor_platform_env``: the card, the
+    CPU only when asked for, and raises with neither); ``compute_dtype`` None
+    is bf16 on the card and float32 on the CPU, as ``"auto"`` resolves.
     """
 
     PREFIX_LEN = 3  # <|startoftranscript|> <|lang|> <|transcribe|>
@@ -815,8 +819,8 @@ class WhisperForTranscription:
         decoder_state: dict[str, torch.Tensor],
         tokenizer,
         *,
-        device: torch.device | str = "cpu",
-        compute_dtype: str = "float32",
+        device: torch.device | str | None = None,
+        compute_dtype: str | None = None,
         alignment_heads: tuple[tuple[int, int], ...] | None = None,
         word_timestamps: str = "align",
         suppress_tokens: tuple[int, ...] = (),
@@ -831,9 +835,11 @@ class WhisperForTranscription:
         if decode_int8 is None:
             decode_int8 = os.environ.get("SER_DECODE_INT8", "") == "1"
         self.decode_int8 = bool(decode_int8)
+        self.device = honor_platform_env() if device is None else torch.device(device)
+        if compute_dtype is None:
+            compute_dtype = "bfloat16" if self.device.type == "cuda" else "float32"
         if compute_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"Unknown compute dtype {compute_dtype!r}")
-        self.device = torch.device(device)
         if self.device.type == "cuda":
             if compute_dtype == "float32":
                 refuse_float32_decode_on_card(self.device)
@@ -885,23 +891,30 @@ class WhisperForTranscription:
         cls,
         model_dir,
         *,
-        device: torch.device | str = "cpu",
-        compute_dtype: str = "float32",
+        device: torch.device | str | None = None,
+        compute_dtype: str | None = None,
         decode_strategy: str = "greedy",
         beam_size: int = 5,
         length_penalty: float = 1.0,
     ):
-        """Loads config, weights and tokenizer from a local HF checkpoint directory."""
-        from transformers import WhisperTokenizer
+        """Loads config, weights and tokenizer from a local HF checkpoint directory.
 
+        The tokenizer is the port's own (``whisper_tokenizer.py``); a missing
+        ``vocab.json`` or ``merges.txt`` raises ``FileNotFoundError`` naming it
+        before any weight is read. ``device`` and ``compute_dtype`` default as
+        the constructor's do, resolved before the load.
+        """
         from ser_tpu_torch.models.convert import whisper_decoder_state_dict, whisper_encoder_state_dict
+        from ser_tpu_torch.models.whisper_tokenizer import WhisperTokenizer
 
+        device = honor_platform_env() if device is None else torch.device(device)
+        tokenizer = WhisperTokenizer.from_pretrained(model_dir)
         config = whisper_config_from_hf_dir(model_dir)
         return cls(
             config,
             whisper_encoder_state_dict(load_hf_whisper_encoder_params(model_dir, config)),
             whisper_decoder_state_dict(load_hf_whisper_decoder_params(model_dir, config)),
-            WhisperTokenizer.from_pretrained(str(model_dir)),
+            tokenizer,
             device=device,
             compute_dtype=compute_dtype,
             alignment_heads=alignment_heads_from_hf_dir(model_dir),

@@ -225,7 +225,7 @@ def beam_models():
     )
     ported = torch_whisper.WhisperForTranscription(
         TORCH_CONFIG, convert.whisper_encoder_state_dict(encoder_params),
-        convert.whisper_decoder_state_dict(decoder_params), TinyTokenizer(), **options
+        convert.whisper_decoder_state_dict(decoder_params), TinyTokenizer(), device="cpu", **options
     )
     reference.RETRY_TEMPERATURES = ported.RETRY_TEMPERATURES = ()
     return reference, ported

@@ -220,7 +220,8 @@ def test_transcription_int8_lane_quantizes_once_and_skips_the_kernels(setup, mon
     monkeypatch.setenv("SER_DECODE_INT8", "1")
     encoder_state = torch_whisper.random_whisper_encoder_state(TORCH_CONFIG, seed=0)
     model = torch_whisper.WhisperForTranscription(
-        TORCH_CONFIG, encoder_state, decoder.state_dict(), _Tokenizer(), decode_strategy=strategy, beam_size=2
+        TORCH_CONFIG, encoder_state, decoder.state_dict(), _Tokenizer(), device="cpu", decode_strategy=strategy,
+        beam_size=2,
     )
     assert model.decode_int8
     weights = model.decode_weights()

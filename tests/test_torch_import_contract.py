@@ -1,4 +1,4 @@
-"""The PyTorch port imports nothing of JAX, nothing of ser_tpu and no scikit-learn.
+"""The PyTorch port imports nothing of JAX, nothing of ser_tpu, no scikit-learn and no transformers.
 
 Two checks: a fresh interpreter imports every ``ser_tpu_torch`` module and
 reports which modules that import added to ``sys.modules`` (a difference, so a
@@ -21,8 +21,9 @@ import pytest
 REPO_ROOT = Path(__file__).resolve().parents[1]
 PORT_ROOT = REPO_ROOT / "ser_tpu_torch"
 _FORBIDDEN_ROOTS = ("jax", "jaxlib", "flax", "optax", "orbax")
-#: The card's machine has no scikit-learn: the port draws its split itself (``_internal/data/split.py``).
-_FORBIDDEN_PACKAGES = ("sklearn",)
+#: The card's machine has no scikit-learn and no transformers: the port draws its split itself
+#: (``_internal/data/split.py``) and reads Whisper's tokenizer files itself (``models/whisper_tokenizer.py``).
+_FORBIDDEN_PACKAGES = ("sklearn", "transformers", "tokenizers")
 
 
 def _forbidden(module: str) -> bool:
@@ -190,14 +191,17 @@ def test_boundary_data_and_training_module_is_imported(fresh_import, module: str
 
 
 def test_port_import_loads_no_tokenizer_library(fresh_import) -> None:
-    """``transformers`` is imported only inside ``from_pretrained_dir``."""
-    assert not [name for name in fresh_import["added"] if name.split(".")[0] == "transformers"]
+    """No module of the port loads ``transformers`` or ``tokenizers``; ``from_pretrained_dir`` reads the
+    tokenizer files with the port's own ``models/whisper_tokenizer.py`` (the AST scan below checks the
+    imports inside functions too)."""
+    assert not [name for name in fresh_import["added"] if name.split(".")[0] in ("transformers", "tokenizers")]
 
 
 def test_forbidden_name_rule() -> None:
     assert _forbidden("ser_tpu") and _forbidden("ser_tpu.models.whisper") and _forbidden("ser.api")
     assert _forbidden("jax.numpy") and _forbidden("flax.linen") and _forbidden("orbax.checkpoint")
     assert _forbidden("sklearn.model_selection") and not _forbidden("sklearnish")
+    assert _forbidden("transformers") and _forbidden("transformers.models.whisper") and _forbidden("tokenizers")
     assert not _forbidden("ser_tpu_torch.models.whisper") and not _forbidden("torch")
 
 
@@ -353,3 +357,20 @@ def test_module_entry_point_help_loads_no_jax() -> None:
     assert result["code"] == 0
     assert "ser_tpu_torch.api" in result["added"] and "torch" in result["added"]
     assert [name for name in result["added"] if _forbidden(name)] == []
+
+
+#: The transcript lane's model loading without ``transformers``: the port's own tokenizer and its loaders.
+TOKENIZER_AND_LOADER_MODULES = (
+    "ser_tpu_torch.models.whisper_tokenizer",
+    "ser_tpu_torch.models.whisper",
+    "ser_tpu_torch.models.hf_checkpoint",
+    "ser_tpu_torch._internal.transcript.whisper_backend",
+)
+
+
+@pytest.mark.parametrize("module", TOKENIZER_AND_LOADER_MODULES)
+def test_tokenizer_and_loader_module_imports_no_transformers(fresh_import, module: str) -> None:
+    assert module in fresh_import["imported"]
+    path = REPO_ROOT.joinpath(*module.split(".")).with_suffix(".py")
+    assert path in _scanned_sources()
+    assert not [name for name in _imported_modules(path) if name.split(".")[0] in ("transformers", "tokenizers")]

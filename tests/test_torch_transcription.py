@@ -21,6 +21,11 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
 
 import jax
 import numpy as np
@@ -48,10 +53,13 @@ from ser_tpu_torch import profiles
 from ser_tpu_torch._internal.config.bootstrap import build_settings
 from ser_tpu_torch._internal.runtime.errors import RuntimeDependencyError
 from ser_tpu_torch._internal.transcript import extractor, hbm_admission, profiling
+from ser_tpu_torch._internal.transcript.whisper_backend import WhisperTranscriber
 from ser_tpu_torch._internal.utils import denoise, source_separation
 from ser_tpu_torch.models import convert
 from ser_tpu_torch.models import whisper as torch_whisper
 from ser_tpu_torch.models import word_timing
+from ser_tpu_torch.domain import TranscriptWord
+from ser_tpu_torch.models.whisper_tokenizer import WhisperTokenizer
 
 transformers = pytest.importorskip("transformers")
 
@@ -132,6 +140,7 @@ def tiny_models():
         convert.whisper_encoder_state_dict(encoder_params),
         convert.whisper_decoder_state_dict(decoder_params),
         TinyTokenizer(),
+        device="cpu",
     )
     reference.RETRY_TEMPERATURES = ()
     ported.RETRY_TEMPERATURES = ()
@@ -236,14 +245,14 @@ def test_unported_decode_options_raise() -> None:
     state = torch_whisper.random_whisper_encoder_state(TINY, seed=0)
     dec = torch_whisper.random_whisper_decoder_state(TINY, seed=0)
     beam = torch_whisper.WhisperForTranscription(
-        TINY, state, dec, TinyTokenizer(), decode_strategy="beam", beam_size=4, length_penalty=0.5
+        TINY, state, dec, TinyTokenizer(), device="cpu", decode_strategy="beam", beam_size=4, length_penalty=0.5
     )
     assert (beam.decode_strategy, beam.beam_size, beam.length_penalty, beam.decode_int8) == ("beam", 4, 0.5, False)
     assert beam.decode_weights().fused is not None and beam.decode_weights().quant is None
-    quantized = torch_whisper.WhisperForTranscription(TINY, state, dec, TinyTokenizer(), decode_int8=True)
+    quantized = torch_whisper.WhisperForTranscription(TINY, state, dec, TinyTokenizer(), device="cpu", decode_int8=True)
     assert quantized.decode_int8 and quantized.decode_weights().quant is not None
     with pytest.raises(ValueError, match="decode strategy"):
-        torch_whisper.WhisperForTranscription(TINY, state, dec, TinyTokenizer(), decode_strategy="mcts")
+        torch_whisper.WhisperForTranscription(TINY, state, dec, TinyTokenizer(), device="cpu", decode_strategy="mcts")
 
 
 # --------------------------------------------------------------------------- #
@@ -537,6 +546,97 @@ def test_transcript_phases_are_recorded(transcript_runs) -> None:
     assert {"transcription", "transcription_setup", "transcription_model_load", "timeline_build"} <= set(
         ported.phase_timings_seconds
     )
+
+
+_BLOCKED_TRANSFORMERS_PROBE = r"""
+import importlib.abc, json, sys
+
+
+class RefuseTokenizerLibraries(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("transformers", "tokenizers"):
+            raise ImportError(f"{name} is blocked")
+        return None
+
+
+sys.meta_path.insert(0, RefuseTokenizerLibraries())
+try:
+    import transformers  # noqa: F401
+    blocked = False
+except ImportError:
+    blocked = True
+import ser_tpu_torch.api as api
+from ser_tpu_torch._internal.config.bootstrap import build_settings
+
+execution = api.infer(sys.argv[2], profile="accurate", include_transcript=True, settings=build_settings(json.loads(sys.argv[1])))
+print(json.dumps({
+    "blocked": blocked,
+    "loaded": sorted(name for name in sys.modules if name.split(".")[0] in ("transformers", "tokenizers")),
+    "words": [[w.word, w.start_seconds, w.end_seconds] for w in execution.transcript],
+}))
+"""
+
+
+def test_infer_with_transcript_runs_with_transformers_blocked(staged, transcript_runs) -> None:
+    """A fresh interpreter that refuses ``transformers`` runs the port's ``api.infer(include_transcript=True)``
+    on the staged checkpoint and gives ``ser_tpu``'s words (read through ``transformers``)."""
+    reference, _ = transcript_runs
+    repo_root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join([str(repo_root)] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+    completed = subprocess.run(
+        [sys.executable, "-c", _BLOCKED_TRANSFORMERS_PROBE, json.dumps(staged["env"]), str(staged["clip"])],
+        cwd=repo_root, env=env, capture_output=True, text=True, timeout=240,
+    )
+    assert completed.returncode == 0, completed.stderr[-3000:]
+    result = json.loads(completed.stdout.strip().splitlines()[-1])
+    assert result["blocked"] and result["loaded"] == []
+    words = [TranscriptWord(word=w, start_seconds=a, end_seconds=b) for w, a, b in result["words"]]
+    assert len(words) > 5
+    _assert_same_words(words, reference.transcript)
+
+
+@pytest.mark.parametrize("entry", ["from_pretrained_dir", "WhisperTranscriber"])
+def test_transcript_entry_points_default_to_the_card(staged, monkeypatch, entry: str) -> None:
+    """With ``SER_TORCH_DEVICE`` unset and no card, the model loader and the transcriber raise (no silent
+    CPU); with the CPU asked for, they run there, in float32."""
+    model_dir = Path(staged["env"]["SER_CACHE_DIR"]) / "model-cache" / "OpenAI" / "whisper" / "large"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+    def build():
+        if entry == "from_pretrained_dir":
+            return torch_whisper.WhisperForTranscription.from_pretrained_dir(model_dir)
+        transcriber = WhisperTranscriber(model_name="large", cache_root=model_dir.parent)
+        transcriber.load_model()
+        return transcriber._model
+
+    monkeypatch.delenv("SER_TORCH_DEVICE", raising=False)
+    with pytest.raises(RuntimeDependencyError, match="SER_TORCH_DEVICE=cpu"):
+        build()
+    monkeypatch.setenv("SER_TORCH_DEVICE", "cpu")
+    model = build()
+    assert model.device == torch.device("cpu") and model.compute_dtype == torch.float32
+    assert next(model.decoder.parameters()).dtype == torch.float32
+
+
+def test_from_pretrained_dir_reads_the_ports_tokenizer(staged, tmp_path) -> None:
+    """The loader's tokenizer is the port's own, equal to ``transformers``'s on the staged files; a missing
+    ``vocab.json`` raises ``FileNotFoundError`` naming it, which the transcriber's ``load_model`` reports as
+    ``TranscriptionUnavailableError``."""
+    model_dir = Path(staged["env"]["SER_CACHE_DIR"]) / "model-cache" / "OpenAI" / "whisper" / "large"
+    model = torch_whisper.WhisperForTranscription.from_pretrained_dir(model_dir, device="cpu")
+    assert isinstance(model.tokenizer, WhisperTokenizer)
+    reference = transformers.WhisperTokenizer.from_pretrained(str(model_dir))
+    ids = list(range(0, 1700, 7))
+    assert model.tokenizer.decode(ids) == reference.decode(ids)
+    broken = tmp_path / "large"
+    shutil.copytree(model_dir, broken)
+    (broken / "vocab.json").unlink()
+    with pytest.raises(FileNotFoundError, match=str(broken / "vocab.json")):
+        torch_whisper.WhisperForTranscription.from_pretrained_dir(broken, device="cpu")
+    transcriber = WhisperTranscriber(model_name="large", cache_root=tmp_path, device="cpu")
+    with pytest.raises(extractor.TranscriptionUnavailableError, match=str(broken / "vocab.json")):
+        transcriber.load_model()
 
 
 def test_missing_assets_and_isolation_raise(staged, tmp_path) -> None:
