@@ -242,7 +242,15 @@ per source, in parallel), then, one phase per line:
     Each request prints its wall seconds, the pipeline's phase timings, its decodes per window, K1-K5
     launches and peak memory beside the card's name and power limit; K3 = K4 = K5 = 32 per decode step,
     every word in its window's decode, and the phase within ``TRANSCRIPT_INFER_WALL_LIMIT_S``;
-27. ``operator``: the operator's path with the card's settings
+27. ``device-defaults``: with ``SER_TORCH_DEVICE`` unset for the phase, each
+    of the eight public constructors that took a CPU default before (the
+    head's ``TorchMLPClassifier(...)`` and ``from_state``,
+    ``load_model_artifact``, the three ``random_*_state``,
+    ``restore_train_state`` with and without a 1×1 mesh,
+    ``init_multitask_loss_params``) called with no ``device`` or
+    ``map_location`` at tiny configs: every tensor on the card, and each
+    seeded default draw the same bits as its ``device=cuda`` draw;
+28. ``operator``: the operator's path with the card's settings
     (``SER_TORCH_DEVICE`` at its default): the doctor (with its environment
     findings) and ``api.run_startup_preflight`` (no blocking finding; the
     accelerator finding names the card; the native audio library built and
@@ -259,7 +267,7 @@ per source, in parallel), then, one phase per line:
     32 times for each encoded window and stability request, and the trace
     naming both kernels' symbols.
 
-Phases 5-27 set the launch counts of the kernels they run to 0 just before
+Phases 5-28 set the launch counts of the kernels they run to 0 just before
 their run and read them just after; K1's two forms count apart, and the
 main path must launch the fused form once per encode and the spectrum form
 never.
@@ -488,6 +496,7 @@ OPERATOR_CLASSES = 4
 OPERATOR_SPEAKERS = 4
 OPERATOR_STABILITY_REQUESTS = 6
 OPERATOR_WALL_LIMIT_S = 60.0
+DEVICE_DEFAULTS_WALL_LIMIT_S = 30.0
 # cli: the command line's corpus (RAVDESS's 24 actors x 8 emotions x 2 statements x 2 repetitions cut to
 # 4 actors x 8 emotions x 1 clip of 3 s at 48 kHz: one 30 s Whisper window a clip), its --file clip (45 s:
 # two windows, one encode), phase infer's warm 45 s request to compare with (PR 9), and the phase's limit.
@@ -5298,6 +5307,117 @@ def phase_separate() -> dict:
             "checks": {k: v for k, v in checks.items() if k != "unet_path"}}
 
 
+# --------------------------------------------------------------------------- #
+# The public constructors' default device
+# --------------------------------------------------------------------------- #
+
+
+def _tensor_devices(value) -> list[str]:
+    """The device of every tensor in a result: nested containers, a loaded artifact's head, a head's layers."""
+    import torch
+
+    from ser_tpu_torch._internal.models.artifacts import LoadedModel
+    from ser_tpu_torch.models.mlp_head import TorchMLPClassifier
+
+    if isinstance(value, torch.Tensor):
+        return [value.device.type]
+    if isinstance(value, LoadedModel):
+        return _tensor_devices(value.model)
+    if isinstance(value, TorchMLPClassifier):
+        return [value.device.type, *_tensor_devices(value._layers)]
+    if isinstance(value, dict):
+        return [device for item in value.values() for device in _tensor_devices(item)]
+    if isinstance(value, (list, tuple)):
+        return [device for item in value for device in _tensor_devices(item)]
+    return []
+
+
+def phase_device_defaults() -> dict:
+    """The eight public constructors that defaulted to the CPU, called with no ``device``/``map_location``
+    and ``SER_TORCH_DEVICE`` unset (restored after): every tensor on the card, each seeded default draw the
+    same bits as its ``device=cuda`` draw. No kernel runs here; the launch counts are read all the same."""
+    import numpy as np
+    import torch
+
+    from ser_tpu_torch._internal.models import artifacts
+    from ser_tpu_torch.models import attention, multitask_loss, wav2vec2
+    from ser_tpu_torch.models import whisper as wm
+    from ser_tpu_torch.models.mlp_head import TorchMLPClassifier
+    from ser_tpu_torch.ops import decode_step_kernels as dsk
+    from ser_tpu_torch.ops import log_mel
+    from ser_tpu_torch.parallel import checkpoint
+    from ser_tpu_torch.parallel.mesh import build_mesh
+
+    phase_started = time.perf_counter()
+    cuda = torch.device("cuda")
+    counters = (log_mel.FUSED_COUNTER, log_mel.COUNTER, attention.COUNTER, attention.F32_COUNTER,
+                attention.BWD_COUNTER, *dsk.COUNTERS)
+    requested = os.environ.pop("SER_TORCH_DEVICE", None)
+    whisper_config, w2v_config = wm.WhisperConfig.tiny(), wav2vec2.Wav2Vec2Config.tiny()
+    rng = np.random.default_rng(18)
+    features = rng.standard_normal((32, 24)).astype(np.float32)
+    labels = np.asarray(RAVDESS_LABELS[:4])[np.arange(32) % 4]
+    (REPO / "build").mkdir(exist_ok=True)
+    for counter in counters:
+        counter.launches = 0
+    try:
+        with tempfile.TemporaryDirectory(dir=REPO / "build", prefix="chip_smoke_device_defaults_") as tmp:
+            results = {
+                "random_whisper_encoder_state": wm.random_whisper_encoder_state(whisper_config, seed=0),
+                "random_whisper_decoder_state": wm.random_whisper_decoder_state(whisper_config, seed=0),
+                "random_wav2vec2_state": wav2vec2.random_wav2vec2_state(w2v_config, seed=0),
+                "init_multitask_loss_params": multitask_loss.init_multitask_loss_params(["primary_emotion", "vad"]),
+            }
+            head = TorchMLPClassifier(hidden_layer_sizes=(16,), max_iter=3, batch_size=8).fit(features, labels)
+            results["TorchMLPClassifier"] = head
+            results["TorchMLPClassifier.from_state"] = TorchMLPClassifier.from_state(head.get_state())
+            artifact = Path(tmp) / "head.pkl"
+            metadata = artifacts.build_artifact_metadata(feature_vector_size=features.shape[1],
+                                                         training_samples=len(features), labels=list(head.classes_))
+            artifacts.save_model_artifact(artifacts.build_model_artifact(head, metadata), artifact)
+            results["load_model_artifact"] = artifacts.load_model_artifact(artifact)
+            train_state = Path(tmp) / "train_state"
+            encoder_state = results["random_whisper_encoder_state"]
+            checkpoint.save_train_state(train_state, encoder_params=encoder_state,
+                                        head_params={"w": torch.zeros(2 * whisper_config.d_model, 8)},
+                                        opt_state={"mu": {n: torch.zeros_like(t) for n, t in encoder_state.items()},
+                                                   "count": torch.zeros((), dtype=torch.int32)},
+                                        step=3)
+            results["restore_train_state"] = checkpoint.restore_train_state(train_state)
+            results["restore_train_state(mesh)"] = checkpoint.restore_train_state(train_state, mesh=build_mesh())
+        torch.cuda.synchronize()
+    finally:
+        if requested is not None:
+            os.environ["SER_TORCH_DEVICE"] = requested
+    launches = {c.name: c.launches for c in counters}
+    devices = {site: _tensor_devices(value) for site, value in results.items()}
+    misses = {site: sorted(set(found)) for site, found in devices.items() if set(found) != {"cuda"}}
+    draws = {
+        "random_whisper_encoder_state": wm.random_whisper_encoder_state(whisper_config, seed=0, device=cuda),
+        "random_whisper_decoder_state": wm.random_whisper_decoder_state(whisper_config, seed=0, device=cuda),
+        "random_wav2vec2_state": wav2vec2.random_wav2vec2_state(w2v_config, seed=0, device=cuda),
+    }
+    unequal = [site for site, explicit in draws.items()
+               if results[site].keys() != explicit.keys()
+               or not all(torch.equal(results[site][name], explicit[name]) for name in explicit)]
+    restored_step = [results[site][3] for site in ("restore_train_state", "restore_train_state(mesh)")]
+    wall_s = time.perf_counter() - phase_started
+    sites = {site.split("(")[0] for site in results}
+    say("device-defaults", seconds=f"{wall_s:.2f}", sites_checked=len(sites), calls=len(results),
+        limit_s=DEVICE_DEFAULTS_WALL_LIMIT_S, tensors=sum(map(len, devices.values())), misses=json.dumps(misses),
+        same_bits_as_device_cuda=json.dumps({site: site not in unequal for site in draws}),
+        restored_steps=json.dumps(restored_step), launches=json.dumps(launches))
+    if misses:
+        raise AssertionError(f"a default device left tensors off the card: {misses}")
+    if unequal:
+        raise AssertionError(f"default draws differ from their device=cuda draws: {unequal}")
+    if restored_step != [3, 3]:
+        raise AssertionError(f"restored steps {restored_step}, expected [3, 3]")
+    if wall_s > DEVICE_DEFAULTS_WALL_LIMIT_S:
+        raise AssertionError(f"the device-defaults phase took {wall_s:.1f} s, over its {DEVICE_DEFAULTS_WALL_LIMIT_S} s")
+    return {"launches": launches, "sites": len(sites), "wall_s": wall_s}
+
+
 def phase_operator() -> dict:
     """The operator's path on the card: doctor and preflight, the profile checks, the fast latency benchmark
     and the fast-against-accurate quality gate, the last two inside a device trace."""
@@ -6168,6 +6288,8 @@ def main() -> int:
         cli = phase_cli()
         phase = mark("transcript-infer")
         transcript_infer = phase_transcript_infer()
+        phase = mark("device-defaults")
+        device_defaults = phase_device_defaults()
         phase = mark("operator")
         operator = phase_operator()
     except Exception:
@@ -6260,6 +6382,9 @@ def main() -> int:
     # in-process --file and the separated request (four requests, each one window through the retry ladder).
     for kernel in (k1["fused"], k1["spectrum"], k2, k2_f32, k2_bwd, k3, k4, k5):
         kernel.update(transcript_infer_launches=transcript_infer["launches"].get(kernel["name"], 0))
+    # The public constructors' defaults: launches of phase device-defaults (it runs no kernel).
+    for kernel in (k1["fused"], k1["spectrum"], k2, k2_f32, k2_bwd, k3, k4, k5):
+        kernel.update(device_defaults_launches=device_defaults["launches"].get(kernel["name"], 0))
     # The operator's path: launches of the quality gate's workflow (its encodes and stability requests).
     for kernel in (k1["fused"], k1["spectrum"], k2, k2_f32, k2_bwd, k3, k4, k5):
         kernel.update(operator_launches=operator["launches"].get(kernel["name"], 0))

@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from ser_tpu_torch._internal.utils.logger import get_logger
+from ser_tpu_torch._internal.utils.torch_runtime import honor_platform_env
 from ser_tpu_torch.models.mlp_head import TorchMLPClassifier
 from ser_tpu_torch.runtime.schema import ARTIFACT_SCHEMA_VERSION
 
@@ -250,9 +251,14 @@ def load_model_artifact(
     expected_backend_id: str | None = None,
     expected_profile: str | None = None,
     expected_model_id: str | None = None,
-    device: torch.device | str = "cpu",
+    device: torch.device | str | None = None,
 ) -> LoadedModel:
-    """Loads one envelope artifact, checks compatibility, and places its head."""
+    """Loads one envelope artifact, checks compatibility, and places its head on ``device``.
+
+    ``device`` None is the device ``SER_TORCH_DEVICE`` names: the card, the
+    CPU only when asked for; with neither, it raises before reading the file.
+    """
+    device = honor_platform_env() if device is None else torch.device(device)
     target = Path(path)
     if not target.exists():
         raise FileNotFoundError(f"Model artifact not found: {path}")

@@ -34,6 +34,7 @@ import torch
 
 from ser_tpu_torch._internal.config.bootstrap import reload_settings
 from ser_tpu_torch._internal.repr.runtime_policy import resolve_device
+from ser_tpu_torch._internal.utils.torch_runtime import honor_platform_env
 from ser_tpu_torch.models.convert import mlp_head_layers
 from ser_tpu_torch.ops.dsp import _float32_products
 from ser_tpu_torch.parallel import optim
@@ -73,8 +74,9 @@ class TorchMLPClassifier:
         tol: float = 1e-4,
         n_iter_no_change: int = 10,
         random_state: int = 42,
-        device: torch.device | str = "cpu",
+        device: torch.device | str | None = None,
     ) -> None:
+        """``device`` None is the device ``SER_TORCH_DEVICE`` names (``honor_platform_env``)."""
         self.hidden_layer_sizes = tuple(hidden_layer_sizes)
         self.alpha = alpha
         self.batch_size = batch_size
@@ -84,7 +86,7 @@ class TorchMLPClassifier:
         self.tol = tol
         self.n_iter_no_change = n_iter_no_change
         self.random_state = random_state
-        self.device = torch.device(device)
+        self.device = honor_platform_env() if device is None else torch.device(device)
         self.classes_: np.ndarray | None = None
         self._layers: Layers | None = None
         self.n_iter_ = 0
@@ -114,8 +116,12 @@ class TorchMLPClassifier:
         )
 
     @classmethod
-    def from_state(cls, state: Mapping, *, device: torch.device | str = "cpu") -> "TorchMLPClassifier":
-        """A fitted head from a ``ser_tpu_mlp`` state (``get_state()`` of either package)."""
+    def from_state(cls, state: Mapping, *, device: torch.device | str | None = None) -> "TorchMLPClassifier":
+        """A fitted head from a ``ser_tpu_mlp`` state (``get_state()`` of either package).
+
+        ``device`` None is the device ``SER_TORCH_DEVICE`` names: the card,
+        the CPU only when asked for; with neither, it raises.
+        """
         layers = mlp_head_layers(state)
         model = cls(
             hidden_layer_sizes=tuple(state["hidden_layer_sizes"]),

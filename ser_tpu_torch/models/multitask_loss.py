@@ -16,6 +16,8 @@ from collections.abc import Mapping, Sequence
 
 import torch
 
+from ser_tpu_torch._internal.utils.torch_runtime import honor_platform_env
+
 PRIMARY_TASK = "primary_emotion"
 
 
@@ -29,8 +31,13 @@ def normalize_task_names(tasks: Sequence[str]) -> tuple[str, ...]:
     return normalized
 
 
-def init_multitask_loss_params(tasks: Sequence[str], *, device: torch.device | str = "cpu") -> dict:
-    """Zero-initialized log variances (weight 1.0) per task."""
+def init_multitask_loss_params(tasks: Sequence[str], *, device: torch.device | str | None = None) -> dict:
+    """Zero-initialized log variances (weight 1.0) per task, on ``device``.
+
+    ``device`` None is the device ``SER_TORCH_DEVICE`` names: the card, the
+    CPU only when asked for; with neither, it raises.
+    """
+    device = honor_platform_env() if device is None else torch.device(device)
     return {
         "log_variances": {
             task: torch.zeros((), dtype=torch.float32, device=device) for task in normalize_task_names(tasks)

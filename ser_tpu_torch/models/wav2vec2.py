@@ -38,6 +38,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ser_tpu_torch._internal.utils.torch_runtime import honor_platform_env
 from ser_tpu_torch.models.attention import multi_head_attention
 from ser_tpu_torch.models.checkpoint_audit import WAV2VEC2_IGNORED, AuditedState, unconsumed_key_error
 from ser_tpu_torch.models.hf_checkpoint import read_hf_tensors
@@ -319,14 +320,18 @@ def build_wav2vec2_encoder(
 
 
 def random_wav2vec2_state(
-    config: Wav2Vec2Config, *, seed: int, device: torch.device | str = "cpu"
+    config: Wav2Vec2Config, *, seed: int, device: torch.device | str | None = None
 ) -> dict[str, torch.Tensor]:
     """Seeded float32 weights: normal of std 1/√fan_in for conv and dense weights, zero biases, unit LayerNorms.
 
     The port's own ``torch.Generator`` draws them (``jax.random`` bits cannot
     be reproduced), so the parity tests carry the JAX package's weights across
-    with ``convert.py`` instead.
+    with ``convert.py`` instead. The generator lives on ``device``, so the
+    values depend on the device the draw runs on: a CPU draw and a card draw
+    of one seed differ. ``device`` None is the device ``SER_TORCH_DEVICE``
+    names (the card, the CPU only when asked for; with neither, it raises).
     """
+    device = honor_platform_env() if device is None else torch.device(device)
     with torch.device("meta"):
         shapes = {name: tensor.shape for name, tensor in Wav2Vec2Encoder(config).state_dict().items()}
     generator = torch.Generator(device=device).manual_seed(seed)

@@ -569,16 +569,19 @@ def build_whisper_decoder(
 
 
 def random_whisper_encoder_state(
-    config: WhisperConfig, *, seed: int, device: torch.device | str = "cpu"
+    config: WhisperConfig, *, seed: int, device: torch.device | str | None = None
 ) -> dict[str, torch.Tensor]:
     """Seeded random float32 weights, drawn by a ``torch.Generator`` on ``device``.
 
     flax's default init shapes: truncated-normal kernels with std 1/√fan_in,
     zero biases, unit LayerNorm scales. The values differ from
     ``ser_tpu.models.whisper.init_whisper_encoder_params`` for the same seed;
-    tests carry JAX's weights across with ``convert.py`` instead.
+    tests carry JAX's weights across with ``convert.py`` instead. They also
+    depend on the device the draw runs on: a CPU draw and a card draw of one
+    seed differ. ``device`` None is the device ``SER_TORCH_DEVICE`` names (the
+    card, the CPU only when asked for; with neither, it raises).
     """
-    device = torch.device(device)
+    device = honor_platform_env() if device is None else torch.device(device)
     generator = torch.Generator(device=device).manual_seed(seed)
     with torch.device("meta"):
         shapes = {name: tensor.shape for name, tensor in WhisperEncoder(config).state_dict().items()}
@@ -598,16 +601,17 @@ def random_whisper_encoder_state(
 
 
 def random_whisper_decoder_state(
-    config: WhisperConfig, *, seed: int, device: torch.device | str = "cpu"
+    config: WhisperConfig, *, seed: int, device: torch.device | str | None = None
 ) -> dict[str, torch.Tensor]:
     """Seeded random float32 decoder weights, drawn by a ``torch.Generator`` on ``device``.
 
     flax's init shapes and kinds (``WhisperDecoder.init``): truncated-normal
     Dense kernels with std 1/√fan_in, zero biases, unit LayerNorm scales,
     ``tok_embed`` normal with std 0.02 and a zero position table. The values
-    differ from JAX's for the same seed.
+    differ from JAX's for the same seed, and with the device the draw runs on.
+    ``device`` None is the device ``SER_TORCH_DEVICE`` names, as for the encoder.
     """
-    device = torch.device(device)
+    device = honor_platform_env() if device is None else torch.device(device)
     generator = torch.Generator(device=device).manual_seed(seed)
     with torch.device("meta"):
         shapes = {name: tensor.shape for name, tensor in WhisperDecoder(config).state_dict().items()}

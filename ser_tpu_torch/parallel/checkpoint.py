@@ -32,6 +32,7 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
+from ser_tpu_torch._internal.utils.torch_runtime import honor_platform_env
 from ser_tpu_torch.parallel.sharding import gather_state_dict, shard_state_dict
 
 logger = logging.getLogger(__name__)
@@ -109,7 +110,7 @@ def _write(target: Path, encoder_params, head_params, opt_state, step: int) -> N
 
 
 def restore_train_state(
-    path: str | Path, *, map_location: torch.device | str = "cpu", mesh: DeviceMesh | None = None
+    path: str | Path, *, map_location: torch.device | str | None = None, mesh: DeviceMesh | None = None
 ) -> tuple[dict[str, torch.Tensor], dict[str, torch.Tensor], Any, int]:
     """Restores ``(encoder_params, head_params, opt_state, step)``, tensors on ``map_location``.
 
@@ -117,7 +118,14 @@ def restore_train_state(
     (the crash window of an interrupted overwrite). With a ``mesh``, the
     encoder parameters and the optimizer state are this rank's shards, cut
     from the file's full tensors whatever mesh wrote it.
+
+    ``map_location`` None is the mesh's own device (this rank's card, or the
+    CPU on a gloo mesh), as the JAX package restores onto its mesh; with no
+    mesh, the device ``SER_TORCH_DEVICE`` names (the card, the CPU only when
+    asked for; with neither, it raises).
     """
+    if map_location is None:
+        map_location = _mesh_device(mesh) if mesh is not None else honor_platform_env()
     target = Path(path).absolute()
     if mesh is None:
         _recover(target)
@@ -134,6 +142,13 @@ def restore_train_state(
         _moved(opt_state, map_location),
         int(state["step"]),
     )
+
+
+def _mesh_device(mesh: DeviceMesh) -> torch.device:
+    """This rank's device of ``mesh``: the current card (``init_group`` set it), or the CPU."""
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
 
 
 def _load(target: Path, map_location) -> dict:

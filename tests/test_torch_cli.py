@@ -26,9 +26,12 @@ from __future__ import annotations
 
 import argparse
 import json
+import logging
 import os
 import subprocess
 import sys
+from collections.abc import Iterator
+from contextlib import contextmanager
 from pathlib import Path
 
 import numpy as np
@@ -36,7 +39,9 @@ import pytest
 
 import ser_tpu.__main__ as jax_main
 import ser_tpu_torch.__main__ as torch_main
+from ser_tpu._internal.utils import logger as jax_logger
 from ser_tpu._internal.utils.audio_io import write_wav
+from ser_tpu_torch._internal.utils import logger as torch_logger
 
 REPO_ROOT = Path(__file__).resolve().parents[1]
 _JAX_DESCRIPTION = "TPU-native speech emotion recognition."
@@ -109,17 +114,47 @@ def _environment(root: Path) -> dict[str, str]:
     }
 
 
+@contextmanager
+def _package_logging_kept() -> Iterator[None]:
+    """Saves each package's root logger (propagate, handlers, level) and ``_configured``; restores them.
+
+    ``main`` calls ``configure_logging``, which gives the package's root logger
+    a handler of its own and stops it propagating, once per process. Left so,
+    every later test in this process would lose the package's records to
+    ``caplog``, which listens on the root logger.
+    """
+    saved = []
+    for module in (torch_logger, jax_logger):
+        root = logging.getLogger(module._ROOT_NAME)
+        saved.append((module, root, root.propagate, list(root.handlers), root.level, module._configured))
+    try:
+        yield
+    finally:
+        for module, root, propagate, handlers, level, configured in saved:
+            for handler in [h for h in root.handlers if h not in handlers]:
+                root.removeHandler(handler)
+            for handler in [h for h in handlers if h not in root.handlers]:
+                root.addHandler(handler)
+            root.propagate = propagate
+            root.setLevel(level)
+            module._configured = configured
+
+
 def _run(main, root: Path, argv: list[str], capsys, extra_env: dict | None = None) -> tuple[int, str]:
-    """One ``main(argv)`` with ``root``'s environment; its exit code and its standard output as ``<root>``."""
+    """One ``main(argv)`` with ``root``'s environment; its exit code and its standard output as ``<root>``.
+
+    The packages' logging state is restored after it (``_package_logging_kept``).
+    """
     saved = dict(os.environ)
     os.environ.update({**_environment(root), **(extra_env or {})})
     os.environ.pop("SER_TRAINING_REPAIR_ALLOW_NETWORK", None)
     capsys.readouterr()
     try:
-        try:
-            code = main([str(root / a[len("ROOT/"):]) if a.startswith("ROOT/") else a for a in argv])
-        except SystemExit as exit_:
-            code = exit_.code
+        with _package_logging_kept():
+            try:
+                code = main([str(root / a[len("ROOT/"):]) if a.startswith("ROOT/") else a for a in argv])
+            except SystemExit as exit_:
+                code = exit_.code
     finally:
         os.environ.clear()
         os.environ.update(saved)

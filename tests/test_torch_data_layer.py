@@ -24,6 +24,9 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import json
+import logging
+from collections.abc import Iterator
+from contextlib import contextmanager
 from pathlib import Path
 
 import numpy as np
@@ -449,6 +452,28 @@ def test_embedding_cache_entries_are_shared(tmp_path, writer: str, keyed_by: str
     assert not list(stored.parent.glob("*.tmp.*"))
 
 
+@contextmanager
+def _package_records(caplog, package: str, level: int | str = logging.WARNING) -> Iterator[None]:
+    """``caplog`` at ``level`` with its handler on ``package``'s root logger itself, for the scope.
+
+    The package's ``configure_logging`` (which an in-process CLI run calls)
+    stops that logger propagating, once per process; ``caplog`` listens on the
+    root logger and would then miss the records of any later test in the
+    process. Propagation is off for the scope, so each record reaches the
+    handler once.
+    """
+    logger = logging.getLogger(package)
+    propagate = logger.propagate
+    logger.addHandler(caplog.handler)
+    logger.propagate = False
+    try:
+        with caplog.at_level(level, logger=package):
+            yield
+    finally:
+        logger.removeHandler(caplog.handler)
+        logger.propagate = propagate
+
+
 @pytest.mark.parametrize("package", ["port", "ser_tpu"])
 def test_corrupt_cache_entry_is_dropped(tmp_path, package: str, caplog) -> None:
     cache_type = embedding_cache.EmbeddingCache if package == "port" else jax_cache.EmbeddingCache
@@ -457,7 +482,7 @@ def test_corrupt_cache_entry_is_dropped(tmp_path, package: str, caplog) -> None:
     path = cache._path_for(cache._key("clip.wav", audio))
     path.parent.mkdir(parents=True)
     path.write_bytes(b"PK\x03\x04 truncated")
-    with caplog.at_level("WARNING"):
+    with _package_records(caplog, "ser_tpu_torch" if package == "port" else "ser_tpu", "WARNING"):
         assert cache.load("clip.wav", audio=audio) is None
     assert not path.exists()
     assert "cache_corrupt -> recompute" in caplog.text

@@ -218,7 +218,7 @@ class _Tokenizer:
 def test_transcription_int8_lane_quantizes_once_and_skips_the_kernels(setup, monkeypatch, strategy) -> None:
     _, decoder, _, _, _ = setup
     monkeypatch.setenv("SER_DECODE_INT8", "1")
-    encoder_state = torch_whisper.random_whisper_encoder_state(TORCH_CONFIG, seed=0)
+    encoder_state = torch_whisper.random_whisper_encoder_state(TORCH_CONFIG, seed=0, device="cpu")
     model = torch_whisper.WhisperForTranscription(
         TORCH_CONFIG, encoder_state, decoder.state_dict(), _Tokenizer(), device="cpu", decode_strategy=strategy,
         beam_size=2,

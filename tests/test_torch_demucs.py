@@ -22,6 +22,8 @@ from __future__ import annotations
 
 import dataclasses
 import logging
+from collections.abc import Iterator
+from contextlib import contextmanager
 from functools import partial
 
 import jax
@@ -226,10 +228,32 @@ def test_config_refusals_match_jax(kwargs, match) -> None:
         jdm.config_from_checkpoint_kwargs(kwargs)
 
 
+@contextmanager
+def _package_records(caplog, package: str, level: int | str = logging.WARNING) -> Iterator[None]:
+    """``caplog`` at ``level`` with its handler on ``package``'s root logger itself, for the scope.
+
+    The package's ``configure_logging`` (which an in-process CLI run calls)
+    stops that logger propagating, once per process; ``caplog`` listens on the
+    root logger and would then miss the records of any later test in the
+    process. Propagation is off for the scope, so each record reaches the
+    handler once.
+    """
+    logger = logging.getLogger(package)
+    propagate = logger.propagate
+    logger.addHandler(caplog.handler)
+    logger.propagate = False
+    try:
+        with caplog.at_level(level, logger=package):
+            yield
+    finally:
+        logger.removeHandler(caplog.handler)
+        logger.propagate = propagate
+
+
 def test_config_from_kwargs_matches_jax(caplog) -> None:
     kwargs = {"sources": ["vocals", "other"], "channels": 32, "depth": 3, "norm_starts": 4, "segment": 6,
               "t_dropout": 0.1, "freq_emb": 0.3, "wiener_iters": 0, "mystery_knob": 1}
-    with caplog.at_level(logging.WARNING):
+    with _package_records(caplog, "ser_tpu_torch"):
         ours = tdm.config_from_checkpoint_kwargs(kwargs)
     assert dataclasses.asdict(ours) == dataclasses.asdict(jdm.config_from_checkpoint_kwargs(kwargs))
     assert [r for r in caplog.records if "mystery_knob" in r.getMessage()]

@@ -307,7 +307,7 @@ def test_accurate_research_infer_matches_ser_tpu(research_staged, monkeypatch) -
 
     artifact = next((Path(env["SER_MODELS_FOLDER"])).glob("ser_model_accurate_research_*.pkl"))
     state = jax_artifacts.load_model_artifact(artifact).model.get_state()
-    np.testing.assert_allclose(TorchMLPClassifier.from_state(state).predict_proba(x_ref),
+    np.testing.assert_allclose(TorchMLPClassifier.from_state(state, device="cpu").predict_proba(x_ref),
                                np.asarray(JaxMLPClassifier.from_state(state).predict_proba(x_ref)), rtol=0, atol=PROB_TOL)
     delta = np.abs(x_port - x_ref)
     assert delta.max() <= 1e-4, "the pooled features break the encoder's pin"

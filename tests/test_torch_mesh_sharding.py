@@ -175,7 +175,7 @@ def no_collectives(monkeypatch):
 
 def test_model_axis_one_issues_no_collective_in_the_encoder(no_collectives) -> None:
     config = whisper.WhisperConfig.tiny()
-    state = whisper.random_whisper_encoder_state(config, seed=0)
+    state = whisper.random_whisper_encoder_state(config, seed=0, device="cpu")
     encoder = whisper.build_trainable_whisper_encoder(
         config, state, device=torch.device("cpu"), compute_dtype=torch.float32, mesh=no_collectives
     )

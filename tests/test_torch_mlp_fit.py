@@ -105,7 +105,7 @@ def fitted_pair(request):
     case = FIT_CASES[request.param]
     X, y = _data(len(request.param), case["n"], case["features"], case["classes"])
     theirs = JaxMLPClassifier(**case["kw"]).fit(X, y)
-    ours = TorchMLPClassifier(**case["kw"])
+    ours = TorchMLPClassifier(**case["kw"], device="cpu")
     batch, padded = ours.batch_rows(X.shape[0])
     permutations = _JaxPermutations(case["kw"]["random_state"], padded)
     ours.fit_from(X, y, layers=_jax_initial_layers(ours.layer_dims(X.shape[1], case["classes"]),
@@ -140,7 +140,7 @@ def test_state_round_trips_and_matches_jax_keys(fitted_pair) -> None:
     state = ours.get_state()
     assert sorted(state) == sorted(theirs.get_state())
     assert all(not isinstance(value, np.generic) for value in (state["n_iter"], state["loss"]))
-    again = TorchMLPClassifier.from_state(state)
+    again = TorchMLPClassifier.from_state(state, device="cpu")
     np.testing.assert_array_equal(again.decision_function(X), ours.decision_function(X))
     assert (again.n_iter_, again.loss_, again.hidden_layer_sizes) == (ours.n_iter_, ours.loss_, ours.hidden_layer_sizes)
     np.testing.assert_array_equal(JaxMLPClassifier.from_state(state).predict(X), ours.predict(X))
@@ -178,8 +178,9 @@ def test_from_config_takes_the_settings_device(monkeypatch: pytest.MonkeyPatch, 
 def test_seeded_fit_is_deterministic_and_separates() -> None:
     X, y = _data(5, 120, 16, 4, spread=3.0)
     kw = dict(hidden_layer_sizes=(32,), batch_size=40, max_iter=150, random_state=9)
-    first, second = TorchMLPClassifier(**kw).fit(X, y), TorchMLPClassifier(**kw).fit(X, y)
-    other = TorchMLPClassifier(**{**kw, "random_state": 10}).fit(X, y)
+    first = TorchMLPClassifier(**kw, device="cpu").fit(X, y)
+    second = TorchMLPClassifier(**kw, device="cpu").fit(X, y)
+    other = TorchMLPClassifier(**{**kw, "random_state": 10}, device="cpu").fit(X, y)
     np.testing.assert_array_equal(first.get_state()["weights"][0], second.get_state()["weights"][0])
     assert not np.array_equal(first.get_state()["weights"][0], other.get_state()["weights"][0])
     assert np.mean(first.predict(X) == y) >= 0.95
@@ -194,7 +195,7 @@ def test_seeded_initial_layers_are_glorot_uniform() -> None:
             seen["layers"], seen["perms"] = layers, [permutation(e) for e in range(3)]
             return self
 
-    _Recording(hidden_layer_sizes=(50,), batch_size=16, random_state=1).fit(X, y)
+    _Recording(hidden_layer_sizes=(50,), batch_size=16, random_state=1, device="cpu").fit(X, y)
     for (weight, bias), (fan_in, fan_out) in zip(seen["layers"], [(30, 50), (50, 3)]):
         bound = np.sqrt(6.0 / (fan_in + fan_out))
         assert tuple(weight.shape) == (fan_in, fan_out) and float(weight.abs().max()) <= bound
@@ -210,7 +211,7 @@ def test_bad_inputs_raise_like_jax(case: str) -> None:
     args = {"one-class": (X, ["a"] * 10), "length-mismatch": (X, y[:5]), "empty": (X[:0], y[:0]),
             "not-2d": (X[:, 0], y)}[case]
     with pytest.raises(ValueError) as ours:
-        TorchMLPClassifier(max_iter=2).fit(*args)
+        TorchMLPClassifier(max_iter=2, device="cpu").fit(*args)
     with pytest.raises(ValueError) as theirs:
         JaxMLPClassifier(max_iter=2).fit(*args)
     assert str(ours.value) == str(theirs.value)
@@ -265,7 +266,7 @@ def test_artifacts_load_across_packages(tmp_path, fitted_pair, writer: str) -> N
         metadata = jax_artifacts.build_artifact_metadata(feature_vector_size=n_features, training_samples=len(X),
                                                          labels=theirs.classes_.tolist())
         jax_artifacts.save_model_artifact(jax_artifacts.build_model_artifact(theirs, metadata), path)
-        loaded = artifacts.load_model_artifact(path, expected_backend_id="handcrafted", expected_profile="fast")
+        loaded = artifacts.load_model_artifact(path, expected_backend_id="handcrafted", expected_profile="fast", device="cpu")
         assert isinstance(loaded.model, TorchMLPClassifier)
         np.testing.assert_array_equal(loaded.model.predict(X), theirs.predict(X))
     assert loaded.expected_feature_size == n_features

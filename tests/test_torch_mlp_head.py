@@ -53,7 +53,7 @@ def test_probabilities_and_labels_match_jax_head(hidden) -> None:
     state = _state(n_features=24, hidden=hidden)
     features = np.random.default_rng(1).standard_normal((40, 24))
     jax_head = JaxMLPClassifier.from_state(state)
-    torch_head = TorchMLPClassifier.from_state(state)
+    torch_head = TorchMLPClassifier.from_state(state, device="cpu")
     np.testing.assert_allclose(
         torch_head.decision_function(features), jax_head.decision_function(features), atol=1e-5
     )
@@ -64,7 +64,7 @@ def test_probabilities_and_labels_match_jax_head(hidden) -> None:
 
 def test_from_state_refuses_other_payloads() -> None:
     with pytest.raises(ValueError, match="ser_tpu_mlp"):
-        TorchMLPClassifier.from_state({"kind": "sklearn"})
+        TorchMLPClassifier.from_state({"kind": "sklearn"}, device="cpu")
 
 
 def _write_jax_artifact(path, *, state: dict) -> None:
@@ -90,6 +90,7 @@ def test_loads_an_artifact_written_by_ser_tpu(tmp_path) -> None:
         expected_backend_id="jax_whisper_encoder",
         expected_profile="accurate",
         expected_model_id="openai/whisper-large-v3",
+        device="cpu",
     )
     reference = jax_artifacts.load_model_artifact(path)
     features = np.random.default_rng(4).standard_normal((12, 24))
@@ -111,7 +112,7 @@ def test_compatibility_filters_refuse_a_mismatch(tmp_path, expected) -> None:
     path = tmp_path / "head.pkl"
     _write_jax_artifact(path, state=_state())
     with pytest.raises(artifacts.ArtifactError, match="mismatch"):
-        artifacts.load_model_artifact(path, **expected)
+        artifacts.load_model_artifact(path, **expected, device="cpu")
 
 
 @pytest.mark.parametrize(
@@ -128,7 +129,7 @@ def test_unpickler_refuses_anything_but_numpy_reconstructors(tmp_path, payload, 
     envelope = {"artifact_version": 3, "model": payload, "metadata": {"artifact_version": 3}}
     path.write_bytes(pickle.dumps(envelope))
     with pytest.raises(artifacts.ArtifactError, match=named):
-        artifacts.load_model_artifact(path)
+        artifacts.load_model_artifact(path, device="cpu")
 
 
 def test_version_split_is_refused(tmp_path) -> None:
@@ -138,7 +139,7 @@ def test_version_split_is_refused(tmp_path) -> None:
     envelope["artifact_version"] = 2
     path.write_bytes(pickle.dumps(envelope))
     with pytest.raises(artifacts.ArtifactError, match="versions must match"):
-        artifacts.load_model_artifact(path)
+        artifacts.load_model_artifact(path, device="cpu")
 
 
 @pytest.mark.parametrize("model_id", ["openai/whisper-large-v3", "openai/whisper-small", "Org/My Model v2"])

@@ -175,7 +175,7 @@ def test_legacy_sklearn_head_matches_sklearn(sklearn_neural_network, tmp_path, w
     # No scikit-learn code may run: its estimators cannot be found while the port loads.
     for cls in (sklearn_neural_network.MLPClassifier,):
         monkeypatch.setattr(cls, "__setstate__", lambda *_a: pytest.fail("sklearn code ran"), raising=False)
-    loaded = artifacts.load_model_artifact(path, expected_profile="fast")
+    loaded = artifacts.load_model_artifact(path, expected_profile="fast", device="cpu")
     monkeypatch.undo()
     assert isinstance(loaded.model, TorchMLPClassifier)
     assert loaded.expected_feature_size == (None if wrapping == "bare" else 7)
@@ -204,4 +204,4 @@ def test_other_sklearn_estimators_are_refused(sklearn_neural_network, tmp_path, 
     path = tmp_path / "ser_model.pkl"
     path.write_bytes(pickle.dumps(model))
     with pytest.raises(artifacts.ArtifactError):
-        artifacts.load_model_artifact(path)
+        artifacts.load_model_artifact(path, device="cpu")

@@ -29,6 +29,8 @@ from __future__ import annotations
 import dataclasses
 import logging
 import wave
+from collections.abc import Iterator
+from contextlib import contextmanager
 
 import flax.linen as flax_nn
 import jax
@@ -246,10 +248,32 @@ def test_routing_to_each_separator(staged, models, monkeypatch) -> None:
     jax_routing._NEURAL_PARAM_CACHE.clear()
 
 
+@contextmanager
+def _package_records(caplog, package: str, level: int | str = logging.WARNING) -> Iterator[None]:
+    """``caplog`` at ``level`` with its handler on ``package``'s root logger itself, for the scope.
+
+    The package's ``configure_logging`` (which an in-process CLI run calls)
+    stops that logger propagating, once per process; ``caplog`` listens on the
+    root logger and would then miss the records of any later test in the
+    process. Propagation is off for the scope, so each record reaches the
+    handler once.
+    """
+    logger = logging.getLogger(package)
+    propagate = logger.propagate
+    logger.addHandler(caplog.handler)
+    logger.propagate = False
+    try:
+        with caplog.at_level(level, logger=package):
+            yield
+    finally:
+        logger.removeHandler(caplog.handler)
+        logger.propagate = propagate
+
+
 def test_missing_checkpoint_takes_repet_sim_with_one_warning(staged, tmp_path, caplog) -> None:
     audio = (0.2 * _rand(10, 16000)).astype(np.float32)
     missing = tmp_path / "absent.npz"
-    with caplog.at_level(logging.WARNING):
+    with _package_records(caplog, "ser_tpu_torch"):
         first = routing.separate_vocals_auto(audio, 16000, model_path=missing)
         second = routing.separate_vocals_auto(audio, 16000, model_path=missing)
     np.testing.assert_array_equal(first, routing.separate_vocals(audio, 16000))

@@ -32,7 +32,7 @@ CPU = torch.device("cpu")
 def _encoder() -> torch_whisper.WhisperEncoder:
     config = torch_whisper.WhisperConfig.tiny()
     return torch_whisper.build_trainable_whisper_encoder(
-        config, torch_whisper.random_whisper_encoder_state(config, seed=0), device=CPU,
+        config, torch_whisper.random_whisper_encoder_state(config, seed=0, device="cpu"), device=CPU,
         compute_dtype=torch.float32, remat=True, remat_policy="dots",
     )
 
@@ -82,7 +82,7 @@ def test_save_restore_continue_equals_uninterrupted(tmp_path, make) -> None:
     del first, step_a, head_a, state_a
 
     second, step_b, head_b, state_b = _start(make(1e-3))
-    encoder_params, head_params, opt_state, at = checkpoint.restore_train_state(path)
+    encoder_params, head_params, opt_state, at = checkpoint.restore_train_state(path, map_location="cpu")
     assert at == 2
     second.load_state_dict(encoder_params, strict=True)
     head_b = {name: tensor.requires_grad_() for name, tensor in head_params.items()}
@@ -114,7 +114,7 @@ def test_overwrite_swaps_through_staging_and_leaves_nothing_behind(tmp_path) -> 
     checkpoint.save_train_state(path, step=1, **_small_state(1.0))
     checkpoint.save_train_state(path, step=2, **_small_state(2.0))
     assert sorted(p.name for p in tmp_path.iterdir()) == ["trainstate"]
-    encoder_params, head_params, opt_state, step = checkpoint.restore_train_state(path)
+    encoder_params, head_params, opt_state, step = checkpoint.restore_train_state(path, map_location="cpu")
     assert step == 2 and torch.equal(encoder_params["w"], torch.full((256, 128), 2.0))
     assert set(opt_state["v_row"]) == {"w"} and opt_state["count"] == 0
 
@@ -124,7 +124,7 @@ def test_committed_staging_copy_is_recovered(tmp_path) -> None:
     path = tmp_path / "trainstate"
     checkpoint.save_train_state(path, step=3, **_small_state(3.0))
     path.rename(tmp_path / "trainstate.staging")
-    _, head_params, _, step = checkpoint.restore_train_state(path)
+    _, head_params, _, step = checkpoint.restore_train_state(path, map_location="cpu")
     assert step == 3 and torch.equal(head_params["b"], torch.full((4,), 3.0))
     assert path.exists() and not (tmp_path / "trainstate.staging").exists()
 
@@ -134,13 +134,13 @@ def test_stale_staging_copy_does_not_block_an_overwrite(tmp_path) -> None:
     checkpoint.save_train_state(path, step=1, **_small_state(1.0))
     checkpoint.save_train_state(tmp_path / "trainstate.staging", step=9, **_small_state(9.0))
     checkpoint.save_train_state(path, step=4, **_small_state(4.0))
-    assert checkpoint.restore_train_state(path)[3] == 4
+    assert checkpoint.restore_train_state(path, map_location="cpu")[3] == 4
     assert sorted(p.name for p in tmp_path.iterdir()) == ["trainstate"]
 
 
 def test_missing_checkpoint_raises(tmp_path) -> None:
     with pytest.raises(FileNotFoundError):
-        checkpoint.restore_train_state(tmp_path / "absent")
+        checkpoint.restore_train_state(tmp_path / "absent", map_location="cpu")
 
 
 def test_file_is_weights_only_and_pickles_are_refused(tmp_path) -> None:
@@ -156,11 +156,11 @@ def test_file_is_weights_only_and_pickles_are_refused(tmp_path) -> None:
     evil = tmp_path / "evil"
     torch.save({"format": checkpoint.FORMAT, "step": Payload()}, evil)
     with pytest.raises(pickle.UnpicklingError):
-        checkpoint.restore_train_state(evil)
+        checkpoint.restore_train_state(evil, map_location="cpu")
     other = tmp_path / "other"
     torch.save({"step": 1}, other)
     with pytest.raises(ValueError, match="not a"):
-        checkpoint.restore_train_state(other)
+        checkpoint.restore_train_state(other, map_location="cpu")
 
 
 def _run_script(*args: str) -> str:

@@ -375,7 +375,7 @@ def test_multitask_loss_matches_ser_tpu(seed, n, present, empty, log_scale, mini
     masks = {task: (rng.uniform(size=n) < 0.6).astype(np.float32) for task in present}
     if empty in masks:
         masks[empty][:] = 0.0
-    ours_params = multitask_loss.init_multitask_loss_params(TASKS)
+    ours_params = multitask_loss.init_multitask_loss_params(TASKS, device="cpu")
     theirs_params = jax_loss.init_multitask_loss_params(TASKS)
     assert list(ours_params["log_variances"]) == list(theirs_params["log_variances"])
     ours_params = {"log_variances": {t: torch.tensor(v) for t, v in log_variances.items()}}
@@ -391,7 +391,7 @@ def test_multitask_loss_matches_ser_tpu(seed, n, present, empty, log_scale, mini
 
 
 def test_multitask_loss_gradient_and_contracts() -> None:
-    params = multitask_loss.init_multitask_loss_params(["primary_emotion", "vad"])
+    params = multitask_loss.init_multitask_loss_params(["primary_emotion", "vad"], device="cpu")
     for value in params["log_variances"].values():
         value.requires_grad_()
     loss = multitask_loss.multitask_loss(

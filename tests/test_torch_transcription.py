@@ -242,8 +242,8 @@ def test_retry_loop_matches_jax_on_a_scripted_decode(tiny_models) -> None:
 def test_unported_decode_options_raise() -> None:
     """Beam search and the int8 decode stream, once refused, build as the JAX
     package's options do; an unknown strategy is still refused."""
-    state = torch_whisper.random_whisper_encoder_state(TINY, seed=0)
-    dec = torch_whisper.random_whisper_decoder_state(TINY, seed=0)
+    state = torch_whisper.random_whisper_encoder_state(TINY, seed=0, device="cpu")
+    dec = torch_whisper.random_whisper_decoder_state(TINY, seed=0, device="cpu")
     beam = torch_whisper.WhisperForTranscription(
         TINY, state, dec, TinyTokenizer(), device="cpu", decode_strategy="beam", beam_size=4, length_penalty=0.5
     )

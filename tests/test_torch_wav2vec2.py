@@ -144,10 +144,11 @@ def test_state_dict_round_trips_to_the_flax_tree(name) -> None:
 
 def test_random_state_is_seeded_and_fills_the_model() -> None:
     cfg = w2v.Wav2Vec2Config.tiny()
-    first, again = w2v.random_wav2vec2_state(cfg, seed=3), w2v.random_wav2vec2_state(cfg, seed=3)
+    first = w2v.random_wav2vec2_state(cfg, seed=3, device="cpu")
+    again = w2v.random_wav2vec2_state(cfg, seed=3, device="cpu")
     encoder = w2v.build_wav2vec2_encoder(cfg, first, device="cpu")
     assert all(torch.equal(first[name], again[name]) for name in first)
-    assert not torch.equal(first["layers.0.q.weight"], w2v.random_wav2vec2_state(cfg, seed=4)["layers.0.q.weight"])
+    assert not torch.equal(first["layers.0.q.weight"], w2v.random_wav2vec2_state(cfg, seed=4, device="cpu")["layers.0.q.weight"])
     assert np.all(np.isfinite(_ours(encoder, _waves())))
 
 

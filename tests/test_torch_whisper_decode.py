@@ -67,8 +67,8 @@ def test_state_dict_covers_every_decoder_parameter(setup) -> None:
 
 
 def test_random_decoder_init_is_seeded() -> None:
-    first = torch_whisper.random_whisper_decoder_state(TORCH_CONFIG, seed=3)
-    second = torch_whisper.random_whisper_decoder_state(TORCH_CONFIG, seed=3)
+    first = torch_whisper.random_whisper_decoder_state(TORCH_CONFIG, seed=3, device="cpu")
+    second = torch_whisper.random_whisper_decoder_state(TORCH_CONFIG, seed=3, device="cpu")
     assert all(torch.equal(first[name], second[name]) for name in first)
     assert torch.equal(first["pos_embed"], torch.zeros_like(first["pos_embed"]))
     assert abs(first["tok_embed"].std().item() - 0.02) < 0.002

@@ -82,9 +82,9 @@ def test_bf16_storage_policy(jax_params) -> None:
 
 def test_random_init_is_seeded() -> None:
     config = torch_whisper.WhisperConfig.tiny()
-    first = torch_whisper.random_whisper_encoder_state(config, seed=5)
-    second = torch_whisper.random_whisper_encoder_state(config, seed=5)
-    other = torch_whisper.random_whisper_encoder_state(config, seed=6)
+    first = torch_whisper.random_whisper_encoder_state(config, seed=5, device="cpu")
+    second = torch_whisper.random_whisper_encoder_state(config, seed=5, device="cpu")
+    other = torch_whisper.random_whisper_encoder_state(config, seed=6, device="cpu")
     assert all(torch.equal(first[name], second[name]) for name in first)
     assert not torch.equal(first["layers.0.attn.q.weight"], other["layers.0.attn.q.weight"])
     assert torch.equal(first["final_ln.weight"], torch.ones(64))
