@@ -9,7 +9,12 @@ package's buckets), with the padded frames masked out of attention; frame
 timestamps are interpolated evenly over each chunk's true duration; a
 non-finite result on the valid frames is retried once through the backend's
 float32 encode. ``chunked_encode_many`` pools many clips' chunks into
-cross-clip batches, grouped by bucket, with the same batch caps.
+cross-clip batches, grouped by bucket, with the same batch caps. Under a
+profiler each encode is the spans ``ser.resample``, ``ser.encode`` (the
+padded rows laid out, copied to the card and the encoder launched) and
+``ser.fetch`` (the states to the host, the finite check, frame times and
+assembly), and :func:`count_encode` counts the encoder's calls, rows and
+samples (``utils/profiling.py``).
 
 Differences from the JAX package: ``encode_batch`` returns a float32 tensor
 on the backend's device; ``shard_chunk_batch`` always passes its inputs
@@ -33,6 +38,7 @@ from ser_tpu_torch._internal.pool.device_pool import device_pooling_enabled
 from ser_tpu_torch._internal.repr.backend import EncodedSequence
 from ser_tpu_torch._internal.utils.audio_io import resample_audio
 from ser_tpu_torch._internal.utils.logger import get_logger
+from ser_tpu_torch._internal.utils.profiling import count, span
 
 logger = get_logger(__name__)
 
@@ -117,6 +123,13 @@ def shard_chunk_batch(batch: np.ndarray, lengths: np.ndarray) -> tuple[np.ndarra
     return batch, lengths, batch.shape[0]
 
 
+def count_encode(batch: np.ndarray, audio_samples: int) -> None:
+    """Counts one encoder call over ``batch``'s rows (padding rows included), which hold
+    ``audio_samples`` samples of audio, while a profiler records."""
+    count(encode_calls=1, encode_rows=batch.shape[0], encode_row_samples=batch.size,
+          encode_audio_samples=audio_samples)
+
+
 def _to_host(embeddings: torch.Tensor | np.ndarray) -> np.ndarray:
     if isinstance(embeddings, torch.Tensor):
         return embeddings.detach().to("cpu").numpy()
@@ -156,9 +169,13 @@ def _retry_in_float32(
 ) -> np.ndarray:
     """The reference's retry after a non-finite result: once more through a float32 encode."""
     logger.warning("Non-finite embeddings from %s; retrying in float32.", backend_id)
-    retry_encode = float32_encode_batch() if float32_encode_batch is not None else encode_batch
-    embeddings = _to_host(retry_encode(batch, lengths))
-    if not _valid_frames_finite(embeddings, lengths if checked_lengths is None else checked_lengths, frames_for_length):
+    checked = lengths if checked_lengths is None else checked_lengths
+    with span("ser.encode"):
+        retry_encode = float32_encode_batch() if float32_encode_batch is not None else encode_batch
+        count_encode(batch, int(checked.sum()))
+        raw = retry_encode(batch, lengths)
+    embeddings = _to_host(raw)
+    if not _valid_frames_finite(embeddings, checked, frames_for_length):
         raise ValueError(f"Backend {backend_id} produced non-finite embeddings.")
     return embeddings
 
@@ -190,7 +207,8 @@ def chunked_encode(
     """
     if audio.ndim != 1 or audio.size == 0:
         raise ValueError("audio must be non-empty mono.")
-    audio16k = resample_audio(np.asarray(audio, dtype=np.float32), sample_rate, ENCODER_SAMPLE_RATE)
+    with span("ser.resample"):
+        audio16k = resample_audio(np.asarray(audio, dtype=np.float32), sample_rate, ENCODER_SAMPLE_RATE)
     # Tail chunks shorter than the conv receptive field yield zero frames;
     # emitting a fully-masked garbage row instead would poison clip-end
     # features. Their audio tail is < one frame (~25 ms) — drop them.
@@ -199,14 +217,6 @@ def chunked_encode(
         raise ValueError(
             f"Clip ({audio16k.size} samples) is shorter than the {backend_id} encoder receptive field."
         )
-    bucket = max(bucket_samples(length) for _, length in chunks)
-    batch = np.zeros((len(chunks), bucket), dtype=np.float32)
-    lengths = np.zeros(len(chunks), dtype=np.int32)
-    for row, (start, length) in enumerate(chunks):
-        batch[row, :length] = audio16k[start : start + length]
-        lengths[row] = length
-    sharded_batch, sharded_lengths, true_rows = shard_chunk_batch(batch, lengths)
-
     n_valids = [max(1, frames_for_length(length)) for _, length in chunks]
     times = [_frame_times(start, length, n_valid) for (start, length), n_valid in zip(chunks, n_valids)]
     retry = {
@@ -216,34 +226,45 @@ def chunked_encode(
         "backend_id": backend_id,
     }
 
-    embeddings = None
-    embeddings_batch = None
-    raw = encode_batch(sharded_batch, sharded_lengths)[:true_rows]
-    if device_pooling_enabled() and isinstance(raw, torch.Tensor):
-        # The frames stay on the device for the device pool; one gather and
-        # one finite reduction, and the flag is the only value fetched.
-        f_max = int(raw.shape[1])
-        valid_idx = np.concatenate([row * f_max + np.arange(n) for row, n in enumerate(n_valids)])
-        gathered, finite = _gather_valid_finite(raw, torch.from_numpy(valid_idx).to(raw.device))
-        if bool(finite):
-            embeddings = gathered
-        else:
-            embeddings_batch = _retry_in_float32(batch, lengths, **retry)
-    else:
-        embeddings_batch = _to_host(raw)
-        if not _valid_frames_finite(embeddings_batch, lengths, frames_for_length):
-            embeddings_batch = _retry_in_float32(batch, lengths, **retry)
-    if embeddings is None:
-        embeddings = np.concatenate(
-            [embeddings_batch[row, :n_valid] for row, n_valid in enumerate(n_valids)]
-        ).astype(np.float32)
+    with span("ser.encode"):
+        bucket = max(bucket_samples(length) for _, length in chunks)
+        batch = np.zeros((len(chunks), bucket), dtype=np.float32)
+        lengths = np.zeros(len(chunks), dtype=np.int32)
+        for row, (start, length) in enumerate(chunks):
+            batch[row, :length] = audio16k[start : start + length]
+            lengths[row] = length
+        sharded_batch, sharded_lengths, true_rows = shard_chunk_batch(batch, lengths)
+        count_encode(batch, int(lengths.sum()))
+        raw = encode_batch(sharded_batch, sharded_lengths)[:true_rows]
 
-    return EncodedSequence(
-        embeddings=embeddings,
-        frame_start_seconds=np.concatenate([starts for starts, _ in times]).astype(np.float64),
-        frame_end_seconds=np.concatenate([ends for _, ends in times]).astype(np.float64),
-        backend_id=backend_id,
-    )
+    with span("ser.fetch"):
+        embeddings = None
+        embeddings_batch = None
+        if device_pooling_enabled() and isinstance(raw, torch.Tensor):
+            # The frames stay on the device for the device pool; one gather and
+            # one finite reduction, and the flag is the only value fetched.
+            f_max = int(raw.shape[1])
+            valid_idx = np.concatenate([row * f_max + np.arange(n) for row, n in enumerate(n_valids)])
+            gathered, finite = _gather_valid_finite(raw, torch.from_numpy(valid_idx).to(raw.device))
+            if bool(finite):
+                embeddings = gathered
+            else:
+                embeddings_batch = _retry_in_float32(batch, lengths, **retry)
+        else:
+            embeddings_batch = _to_host(raw)
+            if not _valid_frames_finite(embeddings_batch, lengths, frames_for_length):
+                embeddings_batch = _retry_in_float32(batch, lengths, **retry)
+        if embeddings is None:
+            embeddings = np.concatenate(
+                [embeddings_batch[row, :n_valid] for row, n_valid in enumerate(n_valids)]
+            ).astype(np.float32)
+
+        return EncodedSequence(
+            embeddings=embeddings,
+            frame_start_seconds=np.concatenate([starts for starts, _ in times]).astype(np.float64),
+            frame_end_seconds=np.concatenate([ends for _, ends in times]).astype(np.float64),
+            backend_id=backend_id,
+        )
 
 
 def chunked_encode_many(
@@ -268,22 +289,23 @@ def chunked_encode_many(
     """
     resampled: list[np.ndarray] = []
     work: list[tuple[int, int, int]] = []  # (clip_index, start_sample, length)
-    for clip_index, (audio, sr) in enumerate(clips):
-        if audio.ndim != 1 or audio.size == 0:
-            raise ValueError("Every clip must be non-empty mono audio.")
-        audio16k = resample_audio(np.asarray(audio, dtype=np.float32), sr, ENCODER_SAMPLE_RATE)
-        resampled.append(audio16k)
-        clip_work = [
-            (clip_index, start, length)
-            for start, length in plan_chunks(audio16k.size)
-            if frames_for_length(length) > 0
-        ]
-        if not clip_work:
-            raise ValueError(
-                f"Clip {clip_index} ({audio16k.size} samples) is shorter than "
-                f"the {backend_id} encoder receptive field."
-            )
-        work.extend(clip_work)
+    with span("ser.resample"):
+        for clip_index, (audio, sr) in enumerate(clips):
+            if audio.ndim != 1 or audio.size == 0:
+                raise ValueError("Every clip must be non-empty mono audio.")
+            audio16k = resample_audio(np.asarray(audio, dtype=np.float32), sr, ENCODER_SAMPLE_RATE)
+            resampled.append(audio16k)
+            clip_work = [
+                (clip_index, start, length)
+                for start, length in plan_chunks(audio16k.size)
+                if frames_for_length(length) > 0
+            ]
+            if not clip_work:
+                raise ValueError(
+                    f"Clip {clip_index} ({audio16k.size} samples) is shorter than "
+                    f"the {backend_id} encoder receptive field."
+                )
+            work.extend(clip_work)
 
     by_bucket: dict[int, list[int]] = {}
     for item_index, (_, _, length) in enumerate(work):
@@ -297,56 +319,61 @@ def chunked_encode_many(
         batch_cap = max(1, min(max_batch_chunks, int(attention_score_budget // (frames_per_chunk**2))))
         for batch_start in range(0, len(item_indices), batch_cap):
             batch_items = item_indices[batch_start : batch_start + batch_cap]
-            # Fixed row count per (bucket, cap): silent rows pad a remainder batch.
-            batch = np.zeros((batch_cap, bucket), dtype=np.float32)
-            lengths = np.zeros(batch_cap, dtype=np.int32)
-            for row, item_index in enumerate(batch_items):
-                clip_index, start, length = work[item_index]
-                batch[row, :length] = resampled[clip_index][start : start + length]
-                lengths[row] = length
-            # Padding rows reuse the last real row's length so
-            # frames_for_length stays positive for every row.
-            lengths[len(batch_items) :] = lengths[max(0, len(batch_items) - 1)]
-            sharded_batch, sharded_lengths, true_rows = shard_chunk_batch(batch, lengths)
-            out = _to_host(encode_batch(sharded_batch, sharded_lengths)[:true_rows])
-            real_lengths = lengths[: len(batch_items)]
-            if not _valid_frames_finite(out, real_lengths, frames_for_length):
-                out = _retry_in_float32(
-                    batch,
-                    lengths,
-                    encode_batch=encode_batch,
-                    float32_encode_batch=float32_encode_batch,
-                    frames_for_length=frames_for_length,
-                    backend_id=backend_id,
-                    checked_lengths=real_lengths,
-                )
-            for row, item_index in enumerate(batch_items):
-                chunk_embeddings[item_index] = out[row]
+            with span("ser.encode"):
+                # Fixed row count per (bucket, cap): silent rows pad a remainder batch.
+                batch = np.zeros((batch_cap, bucket), dtype=np.float32)
+                lengths = np.zeros(batch_cap, dtype=np.int32)
+                for row, item_index in enumerate(batch_items):
+                    clip_index, start, length = work[item_index]
+                    batch[row, :length] = resampled[clip_index][start : start + length]
+                    lengths[row] = length
+                real_lengths = lengths[: len(batch_items)]
+                count_encode(batch, int(real_lengths.sum()))
+                # Padding rows reuse the last real row's length so
+                # frames_for_length stays positive for every row.
+                lengths[len(batch_items) :] = lengths[max(0, len(batch_items) - 1)]
+                sharded_batch, sharded_lengths, true_rows = shard_chunk_batch(batch, lengths)
+                raw = encode_batch(sharded_batch, sharded_lengths)[:true_rows]
+            with span("ser.fetch"):
+                out = _to_host(raw)
+                if not _valid_frames_finite(out, real_lengths, frames_for_length):
+                    out = _retry_in_float32(
+                        batch,
+                        lengths,
+                        encode_batch=encode_batch,
+                        float32_encode_batch=float32_encode_batch,
+                        frames_for_length=frames_for_length,
+                        backend_id=backend_id,
+                        checked_lengths=real_lengths,
+                    )
+                for row, item_index in enumerate(batch_items):
+                    chunk_embeddings[item_index] = out[row]
 
     sequences: list[EncodedSequence] = []
     work_index = 0
-    for audio16k in resampled:
-        embeddings, starts_s, ends_s = [], [], []
-        for start, length in plan_chunks(audio16k.size):
-            n_valid = frames_for_length(length)
-            if n_valid <= 0:
-                continue
-            embeddings.append(chunk_embeddings[work_index][:n_valid])
-            work_index += 1
-            frame_starts, frame_ends = _frame_times(start, length, n_valid)
-            starts_s.append(frame_starts)
-            ends_s.append(frame_ends)
-        stacked = np.concatenate(embeddings).astype(np.float32)
-        if not np.all(np.isfinite(stacked)):
-            raise ValueError(f"Backend {backend_id} produced non-finite embeddings.")
-        sequences.append(
-            EncodedSequence(
-                embeddings=stacked,
-                frame_start_seconds=np.concatenate(starts_s).astype(np.float64),
-                frame_end_seconds=np.concatenate(ends_s).astype(np.float64),
-                backend_id=backend_id,
+    with span("ser.fetch"):
+        for audio16k in resampled:
+            embeddings, starts_s, ends_s = [], [], []
+            for start, length in plan_chunks(audio16k.size):
+                n_valid = frames_for_length(length)
+                if n_valid <= 0:
+                    continue
+                embeddings.append(chunk_embeddings[work_index][:n_valid])
+                work_index += 1
+                frame_starts, frame_ends = _frame_times(start, length, n_valid)
+                starts_s.append(frame_starts)
+                ends_s.append(frame_ends)
+            stacked = np.concatenate(embeddings).astype(np.float32)
+            if not np.all(np.isfinite(stacked)):
+                raise ValueError(f"Backend {backend_id} produced non-finite embeddings.")
+            sequences.append(
+                EncodedSequence(
+                    embeddings=stacked,
+                    frame_start_seconds=np.concatenate(starts_s).astype(np.float64),
+                    frame_end_seconds=np.concatenate(ends_s).astype(np.float64),
+                    backend_id=backend_id,
+                )
             )
-        )
     return sequences
 
 
@@ -356,6 +383,7 @@ __all__ = [
     "bucket_samples",
     "chunked_encode",
     "chunked_encode_many",
+    "count_encode",
     "plan_chunks",
     "random_init_seed",
     "resolve_local_model_dir",

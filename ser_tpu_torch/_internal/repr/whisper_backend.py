@@ -7,7 +7,8 @@ call; the frame and timestamp arithmetic stays on the host in float64 and is
 bit-identical to the JAX backend's. ``dtype="int8"`` is the opt-in W8A8
 lane: the projection products in int8 (``models/quant.py``, quantized once
 when the encoder is built), everything else in bf16 on the card (float32 on
-the CPU), as the JAX backend runs it.
+the CPU), as the JAX backend runs it. Under a profiler an encode is the spans
+``ser.resample``, ``ser.encode`` and ``ser.fetch``, as ``encoder_backend``'s are.
 """
 
 from __future__ import annotations
@@ -25,10 +26,11 @@ from ser_tpu_torch._internal.repr.backend import (
     PoolingWindow,
     window_mean_pool,
 )
-from ser_tpu_torch._internal.repr.encoder_backend import random_init_seed, resolve_local_model_dir
+from ser_tpu_torch._internal.repr.encoder_backend import count_encode, random_init_seed, resolve_local_model_dir
 from ser_tpu_torch._internal.runtime.errors import RuntimeDependencyError
 from ser_tpu_torch._internal.utils.audio_io import resample_audio
 from ser_tpu_torch._internal.utils.logger import get_logger
+from ser_tpu_torch._internal.utils.profiling import span
 from ser_tpu_torch.models import whisper as whisper_model
 from ser_tpu_torch.models.convert import whisper_encoder_state_dict
 
@@ -97,40 +99,45 @@ class WhisperEncoderBackend:
         """Encodes audio: all 30 s windows in one batched call, frames at 20 ms."""
         if audio.ndim != 1 or audio.size == 0:
             raise ValueError("audio must be non-empty mono.")
-        audio16k = resample_audio(
-            np.asarray(audio, dtype=np.float32), sample_rate, whisper_model.SAMPLE_RATE
-        )
+        with span("ser.resample"):
+            audio16k = resample_audio(
+                np.asarray(audio, dtype=np.float32), sample_rate, whisper_model.SAMPLE_RATE
+            )
         chunk = whisper_model.CHUNK_SAMPLES
         n_chunks = max(1, int(np.ceil(audio16k.size / chunk)))
-        batch = np.zeros((n_chunks, chunk), dtype=np.float32)
-        for row in range(n_chunks):
-            piece = audio16k[row * chunk : (row + 1) * chunk]
-            batch[row, : piece.size] = piece
+        with span("ser.encode"):
+            batch = np.zeros((n_chunks, chunk), dtype=np.float32)
+            for row in range(n_chunks):
+                piece = audio16k[row * chunk : (row + 1) * chunk]
+                batch[row, : piece.size] = piece
+            count_encode(batch, audio16k.size)
+            chunks = torch.from_numpy(batch).to(self._device)
+            states = whisper_model.encode_mel_chunks(self._encoder, chunks)
 
-        chunks = torch.from_numpy(batch).to(self._device)
-        states = whisper_model.encode_mel_chunks(self._encoder, chunks).cpu().numpy()
-        if not np.all(np.isfinite(states)):
-            raise ValueError("Whisper encoder produced non-finite embeddings.")
+        with span("ser.fetch"):
+            states = states.cpu().numpy()
+            if not np.all(np.isfinite(states)):
+                raise ValueError("Whisper encoder produced non-finite embeddings.")
 
-        n_states = states.shape[1]  # 1500 per 30 s window
-        embeddings, starts, ends = [], [], []
-        for row in range(n_chunks):
-            chunk_samples = min(chunk, audio16k.size - row * chunk)
-            duration = chunk_samples / whisper_model.SAMPLE_RATE
-            n_valid = max(1, int(round(n_states * duration / whisper_model.CHUNK_SECONDS)))
-            frame_duration = duration / n_valid
-            base = row * chunk / whisper_model.SAMPLE_RATE
-            frame_starts = base + frame_duration * np.arange(n_valid)
-            embeddings.append(states[row, :n_valid])
-            starts.append(frame_starts)
-            ends.append(frame_starts + frame_duration)
+            n_states = states.shape[1]  # 1500 per 30 s window
+            embeddings, starts, ends = [], [], []
+            for row in range(n_chunks):
+                chunk_samples = min(chunk, audio16k.size - row * chunk)
+                duration = chunk_samples / whisper_model.SAMPLE_RATE
+                n_valid = max(1, int(round(n_states * duration / whisper_model.CHUNK_SECONDS)))
+                frame_duration = duration / n_valid
+                base = row * chunk / whisper_model.SAMPLE_RATE
+                frame_starts = base + frame_duration * np.arange(n_valid)
+                embeddings.append(states[row, :n_valid])
+                starts.append(frame_starts)
+                ends.append(frame_starts + frame_duration)
 
-        return EncodedSequence(
-            embeddings=np.concatenate(embeddings).astype(np.float32),
-            frame_start_seconds=np.concatenate(starts).astype(np.float64),
-            frame_end_seconds=np.concatenate(ends).astype(np.float64),
-            backend_id=self.backend_id,
-        )
+            return EncodedSequence(
+                embeddings=np.concatenate(embeddings).astype(np.float32),
+                frame_start_seconds=np.concatenate(starts).astype(np.float64),
+                frame_end_seconds=np.concatenate(ends).astype(np.float64),
+                backend_id=self.backend_id,
+            )
 
     def pool(self, encoded: EncodedSequence, windows: Sequence[PoolingWindow]) -> FeatureMatrix:
         return window_mean_pool(encoded, windows)

@@ -2,7 +2,8 @@
 
 Counterpart of ``ser_tpu/_internal/runtime/phases.py`` for the phases of the
 accurate profile's inference, transcript included: the same names accumulate
-into ``InferenceExecution.phase_timings_seconds``.
+into ``InferenceExecution.phase_timings_seconds``. Each phase is also a span,
+``ser.phase.<name>``, on a device trace's clock (``utils/profiling.py``).
 """
 
 from __future__ import annotations
@@ -11,9 +12,7 @@ import time
 from collections.abc import Iterator
 from contextlib import contextmanager
 
-from ser_tpu_torch._internal.utils.logger import get_logger
-
-logger = get_logger(__name__)
+from ser_tpu_torch._internal.utils.profiling import span
 
 PHASE_WORKFLOW_TOTAL = "workflow_total"
 PHASE_EMOTION_SETUP = "emotion_setup"
@@ -55,15 +54,14 @@ def phase_label(phase_name: str) -> str:
 
 @contextmanager
 def timed_phase(phase: str, timings: dict[str, float]) -> Iterator[None]:
-    """Adds the time spent in the block to ``timings[phase]``, also on failure."""
-    logger.debug("phase %s started", phase)
+    """Adds the time spent in the block to ``timings[phase]``, also on failure; under a
+    profiler the block is the span ``ser.phase.<phase>``."""
     started = time.perf_counter()
     try:
-        yield
+        with span(f"ser.phase.{phase}"):
+            yield
     finally:
-        elapsed = time.perf_counter() - started
-        timings[phase] = timings.get(phase, 0.0) + elapsed
-        logger.debug("phase %s ended after %.3fs", phase, elapsed)
+        timings[phase] = timings.get(phase, 0.0) + time.perf_counter() - started
 
 
 __all__ = [

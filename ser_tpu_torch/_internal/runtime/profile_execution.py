@@ -4,7 +4,8 @@ Copied from ``ser_tpu/_internal/runtime/profile_execution.py``: mean/std
 (every windowed profile's strategy) or mean pooling, each on the device when
 the encode left the frames there (``SER_DEVICE_POOLING=1``). The profile
 supplies the backend and the
-postprocessing config.
+postprocessing config. Under a profiler the pooling is the span ``ser.pool``,
+the head and the postprocessing ``ser.classify`` (``utils/profiling.py``).
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from ser_tpu_torch._internal.runtime.postprocessing import (
     postprocess_frame_predictions,
 )
 from ser_tpu_torch._internal.utils.logger import get_logger
+from ser_tpu_torch._internal.utils.profiling import span
 from ser_tpu_torch.runtime.schema import FramePrediction, InferenceResult
 
 logger = get_logger(__name__)
@@ -63,12 +65,13 @@ def run_windowed_inference_once(
     """
     encode = encode_fn if encode_fn is not None else backend.encode_sequence
     encoded = encode(audio, sample_rate)
-    windows = temporal_pooling_windows(
-        encoded,
-        window_size_seconds=pool_window_size_seconds,
-        window_stride_seconds=pool_window_stride_seconds,
-    )
-    features = mean_std_pool(encoded, windows) if pooling_strategy == "mean_std" else _mean_pool(encoded, windows)
+    with span("ser.pool"):
+        windows = temporal_pooling_windows(
+            encoded,
+            window_size_seconds=pool_window_size_seconds,
+            window_stride_seconds=pool_window_stride_seconds,
+        )
+        features = mean_std_pool(encoded, windows) if pooling_strategy == "mean_std" else _mean_pool(encoded, windows)
 
     if expected_feature_size is not None and features.shape[1] != expected_feature_size:
         raise ValueError(
@@ -76,23 +79,24 @@ def run_windowed_inference_once(
             f"Expected {expected_feature_size}, got {features.shape[1]}."
         )
 
-    predicted, confidences, probabilities = predict_frames(
-        model, features, len(windows), logger=logger
-    )
-    frames = [
-        FramePrediction(
-            start_seconds=float(window.start_seconds),
-            end_seconds=float(window.end_seconds),
-            emotion=predicted[i],
-            confidence=confidences[i],
-            probabilities=probabilities[i],
+    with span("ser.classify"):
+        predicted, confidences, probabilities = predict_frames(
+            model, features, len(windows), logger=logger
         )
-        for i, window in enumerate(windows)
-    ]
-    segments = postprocess_frame_predictions(frames, config=postprocessing_config)
-    return InferenceResult(
-        schema_version=output_schema_version, segments=segments, frames=frames
-    )
+        frames = [
+            FramePrediction(
+                start_seconds=float(window.start_seconds),
+                end_seconds=float(window.end_seconds),
+                emotion=predicted[i],
+                confidence=confidences[i],
+                probabilities=probabilities[i],
+            )
+            for i, window in enumerate(windows)
+        ]
+        segments = postprocess_frame_predictions(frames, config=postprocessing_config)
+        return InferenceResult(
+            schema_version=output_schema_version, segments=segments, frames=frames
+        )
 
 
 __all__ = ["PoolingStrategy", "run_windowed_inference_once"]

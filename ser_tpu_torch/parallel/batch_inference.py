@@ -7,7 +7,9 @@ medium and accurate-research profiles ``chunked_encode_many``, which batches
 chunks across clips; the accurate profile encodes each clip's 30 s windows
 in one batch), and the deterministic window → pool → predict → postprocess
 pass runs per clip. On the card the accurate encode runs kernels K1 and K2,
-medium's masked K2 (K2-f32 on its float32 retry).
+medium's masked K2 (K2-f32 on its float32 retry). Under a profiler each call
+is the span ``ser.infer_many``, around ``ser.decode`` and the encode's and the
+per-clip pass's stage spans (``utils/profiling.py``).
 
 The JAX package, one controller over its devices, shards the cross-clip
 batches over the mesh's data axis. Here each process drives one device, so
@@ -36,6 +38,7 @@ from ser_tpu_torch._internal.runtime.postprocessing import build_segment_postpro
 from ser_tpu_torch._internal.runtime.profile_execution import run_windowed_inference_once
 from ser_tpu_torch._internal.utils.audio_io import read_audio_file
 from ser_tpu_torch._internal.utils.logger import get_logger
+from ser_tpu_torch._internal.utils.profiling import span
 from ser_tpu_torch.parallel.mesh import mesh_shape_for
 from ser_tpu_torch.profiles import ProfileName, require_ported
 from ser_tpu_torch.runtime.schema import InferenceResult
@@ -65,38 +68,39 @@ def infer_many(
     encode/predict failures raise, since they indicate a systemic problem
     (on every rank, when the files are split over a process group).
     """
-    settings = settings if settings is not None else reload_settings()
-    spec = require_ported(profile)
-    if profile == "fast":
-        raise ValueError("Batch inference targets encoder profiles; use api.infer for fast.")
+    with span("ser.infer_many"):
+        settings = settings if settings is not None else reload_settings()
+        spec = require_ported(profile)
+        if profile == "fast":
+            raise ValueError("Batch inference targets encoder profiles; use api.infer for fast.")
 
-    # The serving path's gates (backend_hooks.build_backend_hooks): batch
-    # inference must not become a side door around a profile's enable flag
-    # or a restricted backend's license consent.
-    from ser_tpu_torch._internal.runtime import restricted_backends
-    from ser_tpu_torch._internal.runtime.backend_hooks import _profile_enabled
+        # The serving path's gates (backend_hooks.build_backend_hooks): batch
+        # inference must not become a side door around a profile's enable flag
+        # or a restricted backend's license consent.
+        from ser_tpu_torch._internal.runtime import restricted_backends
+        from ser_tpu_torch._internal.runtime.backend_hooks import _profile_enabled
 
-    if not _profile_enabled(profile, settings):
-        raise ValueError(f"Profile {profile!r} is disabled (enable it via its runtime flag).")
-    if spec.backend_id in restricted_backends.RESTRICTED_BACKEND_POLICIES:
-        restricted_backends.ensure_backend_access(spec.backend_id, settings=settings)
+        if not _profile_enabled(profile, settings):
+            raise ValueError(f"Profile {profile!r} is disabled (enable it via its runtime flag).")
+        if spec.backend_id in restricted_backends.RESTRICTED_BACKEND_POLICIES:
+            restricted_backends.ensure_backend_access(spec.backend_id, settings=settings)
 
-    split = _data_split(settings)
-    if split is None:
-        return [row for _, row in _indexed_rows(list(enumerate(file_paths)), profile, settings, decode_workers)]
-    data_index, parts = split
-    try:
-        mine = list(enumerate(file_paths))[data_index::parts]
-        outcome = (_indexed_rows(mine, profile, settings, decode_workers), None)
-    except Exception as err:  # noqa: BLE001 - raised on every rank after the gather
-        outcome = ([], f"{type(err).__name__}: {err}")
-    gathered: list = [None] * dist.get_world_size()
-    dist.all_gather_object(gathered, (data_index, outcome))
-    failures = [f"data rank {index}: {error}" for index, (_, error) in gathered if error is not None]
-    if failures:
-        raise RuntimeError("Batch inference failed: " + "; ".join(failures))
-    rows = {row_index: row for _, (indexed, _) in gathered for row_index, row in indexed}
-    return [rows[row_index] for row_index in sorted(rows)]
+        split = _data_split(settings)
+        if split is None:
+            return [row for _, row in _indexed_rows(list(enumerate(file_paths)), profile, settings, decode_workers)]
+        data_index, parts = split
+        try:
+            mine = list(enumerate(file_paths))[data_index::parts]
+            outcome = (_indexed_rows(mine, profile, settings, decode_workers), None)
+        except Exception as err:  # noqa: BLE001 - raised on every rank after the gather
+            outcome = ([], f"{type(err).__name__}: {err}")
+        gathered: list = [None] * dist.get_world_size()
+        dist.all_gather_object(gathered, (data_index, outcome))
+        failures = [f"data rank {index}: {error}" for index, (_, error) in gathered if error is not None]
+        if failures:
+            raise RuntimeError("Batch inference failed: " + "; ".join(failures))
+        rows = {row_index: row for _, (indexed, _) in gathered for row_index, row in indexed}
+        return [rows[row_index] for row_index in sorted(rows)]
 
 
 def _data_split(settings: AppConfig) -> tuple[int, int] | None:
@@ -139,7 +143,8 @@ def _indexed_rows(
             rows[index] = BatchInferenceResult(path, None, error=f"{type(err).__name__}: {err}")
             return None
 
-    with ThreadPoolExecutor(max_workers=max(1, decode_workers)) as pool:
+    # The span waits on the decode threads from the calling thread, which is the one a trace sees.
+    with span("ser.decode"), ThreadPoolExecutor(max_workers=max(1, decode_workers)) as pool:
         for item in pool.map(decode, indexed_paths):
             if item is not None:
                 decoded.append(item)

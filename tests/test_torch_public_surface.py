@@ -45,6 +45,7 @@ EXCLUDED_NAMES: dict[tuple[str, str], tuple[int, str | None]] = {
     ("models/param_utils.py", "cast_params_bf16"): (37, None),
     ("models/whisper.py", "decoder_logits"): (38, None),
     ("models/whisper.py", "greedy_decode_on_device"): (38, None),
+    ("_internal/utils/profiling.py", "annotate"): (43, "span"),
 }
 
 

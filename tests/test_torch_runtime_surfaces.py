@@ -9,7 +9,7 @@ restore; the exit code of each exception class in each workflow, and
 (bit for bit, the nearest-rank p95 included); ``list_profiles`` and
 ``load_profile`` on the same settings (which profiles pass, which refuse), and
 the scoped settings a workflow's pipeline builder sees; the ``utils`` facade.
-``device_trace`` writes a Chrome trace naming its annotated span.
+``device_trace`` writes a Chrome trace naming a ``span`` inside it.
 """
 
 from __future__ import annotations
@@ -251,10 +251,10 @@ def test_utils_facade_matches() -> None:
 def test_device_trace_writes_a_chrome_trace(tmp_path) -> None:
     import torch
 
-    from ser_tpu_torch._internal.utils.profiling import TRACE_FILE_NAME, annotate, device_trace
+    from ser_tpu_torch._internal.utils.profiling import TRACE_FILE_NAME, device_trace, span
 
     with device_trace(tmp_path / "trace"):
-        with annotate("operator-span"):
+        with span("operator-span"):
             torch.ones(64, 64).matmul(torch.ones(64, 64)).sum()
     trace = json.loads((tmp_path / "trace" / TRACE_FILE_NAME).read_text())
     assert any(event.get("name") == "operator-span" for event in trace["traceEvents"])
