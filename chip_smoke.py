@@ -20,7 +20,18 @@ per source, in parallel), then, one phase per line:
    at 80 mels, a waveform off 16-byte alignment); with its time, the old
    route's (matmul STFT + spectrum form), ``torch.stft`` + spectrum form's
    and the plain version's, each read five times in turns (median, lowest,
-   highest), and its bound;
+   highest), and its bound; then ``resample``: the port's own kernel
+   ``resample_rows`` (no TPU counterpart) at a 600 s 48 kHz file into
+   Whisper's 20 windows, ``mixed-files``' largest bucket batch and the file
+   at 44.1 kHz, against its plain version (float64 sums) with a planted
+   one-sample-late row, with its time, the plain version's, its byte bound,
+   torch's ``conv1d`` route to the same rows where the ratio is 1/down, and
+   the host's ``resample_poly`` over the same clips; the kernel at 1/1 and
+   at 16000/7919 (the form that reads device memory), its launch counter,
+   the wrapper's refusals, and a traced ``infer_many`` of two 48 kHz clips
+   whose rows are made on the card (``resample_card_samples``, no
+   ``resample_host_samples``, spans ``ser.resample``, ``ser.encode``,
+   ``ser.fetch`` in turn);
 3. K2 (flash attention) at the encoder's shapes, with and without a key mask,
    and at T = 1409 (one valid row in the last 128-row tile), against its plain
    version in float32, with SDPA's time as the yardstick; K2-f32 (its float32
@@ -862,6 +873,238 @@ def phase_k1() -> dict:
         "library_ms": None,
     }
     return {"fused": fused, "spectrum": spectrum}
+
+
+# resample_rows (csrc/resample.cu), max abs error and relative L2 error against its plain version
+# (float64 sums on the card, cast to float32) at audio levels (peak 0.8): the kernel sums in float32,
+# about 1e-7 of a sample. The planted fault, rows one 16 kHz sample late (a wrong alignment), is off
+# by the signal's change from one sample to the next, 1e-2 and more.
+RESAMPLE_MAX_ABS = 1e-5
+RESAMPLE_REL_L2 = 1e-6
+
+
+def _resample_case(name: str, rate: int, clip_seconds: list[float], row_samples: int, n_rows: int) -> dict:
+    """One shape of resample_rows: clips of ``clip_seconds`` at ``rate`` cut into rows of ``row_samples``
+    (up to ``n_rows``, padding rows after them): the kernel against its plain version, a planted late
+    start, the kernel's time (five readings) and the plain version's, the kernel's byte bound and
+    share, and the host's resample_poly over the same clips."""
+    import numpy as np
+    import torch
+    from scipy.signal import resample_poly
+
+    from ser_tpu_torch.ops import resample
+
+    up, down = resample.ratio(rate, 16000)
+    rng = np.random.default_rng(rate)
+    clips = []
+    for seconds in clip_seconds:
+        t = np.arange(int(seconds * rate)) / rate
+        audio = 0.3 * rng.standard_normal(t.size) + 0.3 * np.sin(2 * np.pi * 440.0 * t)
+        clips.append((0.8 * audio / np.abs(audio).max()).astype(np.float32))
+    offsets = np.concatenate([[0], np.cumsum([c.size for c in clips])[:-1]])
+    placements = []
+    for offset, clip in zip(offsets, clips):
+        n16 = resample.resampled_length(clip.size, up, down)
+        for start in range(0, n16, row_samples):
+            placements.append((int(offset), clip.size, start, min(row_samples, n16 - start)))
+    placements = placements[:n_rows]
+    rows_np = resample.row_descriptors(placements, row_samples, up, down, n_rows=n_rows)
+    source = torch.from_numpy(np.concatenate(clips)).cuda()
+    rows = torch.from_numpy(rows_np).cuda()
+
+    made = resample.resample_rows(source, rows, up, down, row_samples)
+    plain = resample.resample_rows_reference(source, rows, up, down, row_samples)
+    late = rows.clone()
+    late[:, 2] += (late[:, 3] > 0).long()
+    late[:, 3] = torch.minimum(late[:, 3], late[:, 1] * up // down - late[:, 2]).clamp(min=0)
+    planted = resample.resample_rows_reference(source, late, up, down, row_samples)
+    torch.cuda.synchronize()
+    err = (made - plain).abs().max().item()
+    rel = ((made.double() - plain.double()).norm() / plain.double().norm()).item()
+    planted_err = (planted - plain).abs().max().item()
+    padding_zero = all(not made[b, int(v):].any() for b, v in enumerate(rows_np[:, 3]))
+    again = resample.resample_rows(source, rows, up, down, row_samples)
+    same_bits = bool(torch.equal(made, again))
+    if not (err <= RESAMPLE_MAX_ABS and rel <= RESAMPLE_REL_L2 and padding_zero and same_bits):
+        raise AssertionError(f"resample_rows disagrees with its plain version at {name}: max abs {err}, "
+                             f"rel {rel}, padding zero {padding_zero}, same bits {same_bits}")
+    if not planted_err > RESAMPLE_MAX_ABS:
+        raise AssertionError(f"resample_rows' limit would pass rows one sample late at {name}: {planted_err}")
+
+    # The kernel read five times (median, lowest, highest); the plain version, whose host waits on
+    # the card (its row count), by span_ms.
+    readings = [cuda_ms(lambda: resample.resample_rows(source, rows, up, down, row_samples)) for _ in range(5)]
+    kernel = {"ms": statistics.median(readings), "min_ms": min(readings), "max_ms": max(readings)}
+    plain_ms = span_ms(lambda: resample.resample_rows_reference(source, rows, up, down, row_samples))
+    # The bytes the work needs: each clip's samples that the rows reach read once, the rows written once.
+    used = sum({offset: length for offset, length, _, _ in placements}.values())
+    bytes_moved = 4 * used + 4 * n_rows * row_samples + rows_np.nbytes + resample.kernel_table(up, down).nbytes
+    kt = resample.polyphase_table(up, down).shape[1]
+    flops = 2.0 * kt * int(rows_np[:, 3].sum())
+    bound, bound_by = bound_ms(bytes_moved=bytes_moved, flops=flops, peak_flops=PEAK_F32_FLOPS)
+    library_ms = library_err = None
+    if up == 1:
+        library = _conv1d_rows(source, placements, down, row_samples, n_rows)
+        library_err = (library - plain).abs().max().item()
+        if not library_err <= RESAMPLE_MAX_ABS:
+            raise AssertionError(f"the conv1d route disagrees with the plain version at {name}: {library_err}")
+        # Up to 11 convolutions and 22 copies a call: the host's launches may outlast cuda_ms's hold.
+        library_ms = span_ms(lambda: _conv1d_rows(source, placements, down, row_samples, n_rows), iters=10)
+    started = time.perf_counter()
+    for clip in clips:
+        resample_poly(clip.astype(np.float64), up, down)
+    host_ms = (time.perf_counter() - started) * 1e3
+    ms = kernel["ms"]
+    say("resample", case=name, ratio=f"{up}/{down}", rows=f"{n_rows}x{row_samples}", taps_per_output=kt,
+        card=json.dumps(nvidia_smi_line()), ms=spread(kernel), plain_ms=f"{plain_ms:.4f}",
+        bound_ms=f"{bound:.4f}", bound_by=bound_by, bound_share=f"{bound / ms:.3f}",
+        gbytes_per_s=f"{bytes_moved / ms / 1e6:.0f}", mbytes=f"{bytes_moved / 1e6:.1f}",
+        host_resample_poly_ms=f"{host_ms:.1f}", max_abs_err=err, rel_l2_err=rel, planted_late_err=planted_err,
+        library_ms=None if library_ms is None else f"{library_ms:.4f}", library_max_abs_err=library_err)
+    return {"case": name, "ms": ms, "ms_range": [kernel["min_ms"], kernel["max_ms"]],
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by, "max_abs_err": err,
+            "rel_l2_err": rel, "host_resample_poly_ms": host_ms, "library_ms": library_ms}
+
+
+def _conv1d_rows(source, placements, down: int, row_samples: int, n_rows: int):
+    """The rows of ``resample_rows`` at a ratio of 1/down by torch's own ops (TF32 off): each clip
+    the placements reach zero-extended by the filter's half length and filtered by ``conv1d`` at
+    stride ``down``, then each row's stretch copied into zeroed rows."""
+    import torch
+    import torch.nn.functional as F
+
+    from ser_tpu_torch.ops import resample
+
+    half = resample.half_length(1, down)
+    weight = torch.from_numpy(resample.filter_taps(1, down)[::-1].astype("float32")).to(source.device).view(1, 1, -1)
+    out = torch.zeros((n_rows, row_samples), dtype=torch.float32, device=source.device)
+    filtered = {}
+    allow_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for row, (offset, length, start, valid) in enumerate(placements):
+            if offset not in filtered:
+                clip = F.pad(source[offset: offset + length].view(1, 1, -1), (half, half + down))
+                filtered[offset] = F.conv1d(clip, weight, stride=down).view(-1)
+            out[row, :valid] = filtered[offset][start: start + valid]
+    finally:
+        torch.backends.cudnn.allow_tf32 = allow_tf32
+    return out
+
+
+def _resample_card_checks() -> dict:
+    """The kernel's launch counter, the wrapper's refusals on the card, and a traced ``infer_many`` of two
+    48 kHz clips (2.3 s and 31 s, the second two windows) whose rows are made on the card."""
+    import torch
+    from torch.profiler import ProfilerActivity
+
+    from ser_tpu_torch._internal.config.artifact_naming import profile_artifact_file_name
+    from ser_tpu_torch._internal.config.bootstrap import build_settings
+    from ser_tpu_torch._internal.repr import encoders
+    from ser_tpu_torch._internal.utils import profiling
+    from ser_tpu_torch.ops import resample
+    from ser_tpu_torch.parallel.batch_inference import infer_many
+
+    card = torch.device("cuda")
+    source = torch.zeros(48000, device=card)
+    rows = torch.tensor([[0, 48000, 0, 16000], [0, 0, 0, 0]], dtype=torch.int64, device=card)
+    before = resample.COUNTER.launches
+    resample.resample_rows(source, rows, 1, 3, 16000)
+    resample.resample_rows(source, rows, 1, 3, 16000)
+    if resample.COUNTER.launches != before + 2:
+        raise AssertionError(f"two launches advanced the counter by {resample.COUNTER.launches - before}")
+    refusals = {
+        "rows on the host": (ValueError, lambda: resample.resample_rows(source, rows.cpu(), 1, 3, 16000)),
+        "source on the host": (ValueError, lambda: resample.resample_rows(source.cpu(), rows, 1, 3, 16000)),
+        "half source": (TypeError, lambda: resample.resample_rows(source.half(), rows, 1, 3, 16000)),
+        "int32 rows": (TypeError, lambda: resample.resample_rows(source, rows.int(), 1, 3, 16000)),
+        "strided source": (ValueError,
+                           lambda: resample.resample_rows(torch.zeros(96000, device=card)[::2], rows, 1, 3, 16000)),
+    }
+    for what, (error, call) in refusals.items():
+        try:
+            call()
+        except error:
+            continue
+        raise AssertionError(f"resample_rows took {what}")
+
+    scratch_root = REPO / "build"
+    scratch_root.mkdir(exist_ok=True)
+    os.environ.update({"SER_ALLOW_RANDOM_INIT": "1", "SER_RANDOM_INIT_SIZE": "full"})
+    with tempfile.TemporaryDirectory(dir=scratch_root, prefix="chip_smoke_resample_") as tmp:
+        root = Path(tmp)
+        _write_head_envelope(root / "models" / profile_artifact_file_name(profile="accurate",
+                                                                          model_id="openai/whisper-large-v3"),
+                             feature_size=2 * 1280)
+        settings = build_settings({"SER_ENABLE_ACCURATE_PROFILE": "1", "SER_MODELS_FOLDER": str(root / "models"),
+                                   "SER_CACHE_DIR": str(root / "cache")})
+        paths, made = [], 0
+        for index, seconds in enumerate((2.3, 31.0)):
+            paths.append(str(root / f"clip{index}.wav"))
+            _write_clip(Path(paths[-1]), seconds, 48000, seed=30 + index)
+            made += resample.resampled_length(int(seconds * 48000), 1, 3)
+        try:
+            infer_many(paths, profile="accurate", settings=settings)  # warm: the build and the encoder
+            profiling.reset_counts()
+            launches = resample.COUNTER.launches
+            with torch.profiler.profile(activities=[ProfilerActivity.CPU]) as traced:
+                results = infer_many(paths, profile="accurate", settings=settings)
+            counts = profiling.counts()
+        finally:
+            profiling.reset_counts()
+            encoders._BACKEND_CACHE.clear()
+    stages = [e.name for e in sorted(traced.events(), key=lambda e: e.time_range.start)
+              if e.name in ("ser.resample", "ser.encode", "ser.fetch")]
+    reading = {"launches": resample.COUNTER.launches - launches, "card_samples": counts["resample_card_samples"],
+               "host_samples": counts["resample_host_samples"], "expected_card_samples": made,
+               "stages": stages}
+    say("resample-infer-many", refusals=json.dumps(sorted(refusals)), **{k: json.dumps(v) for k, v in reading.items()})
+    if any(row.error is not None for row in results):
+        raise AssertionError(f"infer_many failed: {[row.error for row in results]}")
+    if (reading["launches"], reading["card_samples"], reading["host_samples"]) != (2, made, 0) \
+            or stages != ["ser.resample", "ser.encode", "ser.fetch"] * 2:
+        raise AssertionError(f"the traced infer_many did not make its rows on the card: {reading}")
+    return reading
+
+
+def phase_resample() -> dict:
+    """resample_rows at the main path's shapes: one 600 s file at 48 kHz into Whisper's 20 windows
+    (large-v3.long-files' longest), xlsr-300m.mixed-files' largest bucket batch (22 rows of the 30 s
+    bucket: two rows of each of ten 60 s clips, the second starting inside its clip, a 20 s clip's
+    row and a padding row), and the 600 s file at 44.1 kHz; then at 1/1 (a 40 s 16 kHz clip) and at
+    16000/7919 (a tile's span too long for shared memory), and :func:`_resample_card_checks`."""
+    from ser_tpu_torch.ops import kernel_build
+
+    for line in kernel_build.ptxas_report("resample").splitlines():
+        say("resample-ptxas", info=json.dumps(line.strip()))
+    cases = [
+        _resample_case("long-file-48k", 48000, [600.0], 480000, 20),
+        _resample_case("bucket-batch-48k", 48000, [60.0] * 10 + [20.0], 480000, 22),
+        _resample_case("long-file-44k1", 44100, [600.0], 480000, 20),
+        _resample_case("copy-16k", 16000, [40.0], 480000, 3),
+        _resample_case("device-memory-7919", 7919, [3.0], 480000, 2),
+    ]
+    checks = _resample_card_checks()
+    first = cases[0]
+    return {
+        "name": "resample_rows",
+        "route": "cuda",
+        "source": "ser_tpu_torch/csrc/resample.cu",
+        "replaces": "none (port-only: the JAX package resamples on the host, "
+                    "ser_tpu/_internal/utils/audio_io.py::resample_audio)",
+        "max_abs_err": max(c["max_abs_err"] for c in cases),
+        "tolerance": RESAMPLE_MAX_ABS,
+        "tolerance_on": "max abs error of the rows against the plain version (float64 sums)",
+        "ms": first["ms"],
+        "ms_range": first["ms_range"],
+        "plain_ms": first["plain_ms"],
+        "bound_ms": first["bound_ms"],
+        "bound_by": first["bound_by"],
+        "library_ms": first["library_ms"],
+        "library": "torch conv1d at stride 3 per clip, the rows copied out (TF32 off)",
+        "cases": cases,
+        "card_checks": checks,
+    }
 
 
 # A sequence length with one valid key and query in the kernels' last 128-row tile.
@@ -2318,7 +2561,7 @@ def phase_infer() -> dict:
     from ser_tpu_torch._internal.config.bootstrap import build_settings
     from ser_tpu_torch._internal.config.artifact_naming import profile_artifact_file_name
     from ser_tpu_torch.models import attention
-    from ser_tpu_torch.ops import log_mel
+    from ser_tpu_torch.ops import log_mel, resample
 
     scratch_root = REPO / "build"
     scratch_root.mkdir(exist_ok=True)
@@ -2349,7 +2592,7 @@ def phase_infer() -> dict:
             torch.cuda.synchronize()
             return execution, time.perf_counter() - started
 
-        counters = (log_mel.FUSED_COUNTER, log_mel.COUNTER, attention.COUNTER)
+        counters = (log_mel.FUSED_COUNTER, log_mel.COUNTER, attention.COUNTER, resample.COUNTER)
         for counter in counters:
             counter.launches = 0
         executions = [run(clip) for clip, _ in clips]
@@ -2363,7 +2606,8 @@ def phase_infer() -> dict:
             warm_latency_s=f"{warm_s:.4f}", frames=len(execution.detailed_result.frames),
             segments=len(segments), labels=json.dumps(sorted({s.emotion for s in segments})))
     say("infer-launches", **launches)
-    expected = {"stft_power_mel_log": len(clips), "power_mel_log": 0, "flash_attention_fwd": 32 * len(clips)}
+    expected = {"stft_power_mel_log": len(clips), "power_mel_log": 0, "flash_attention_fwd": 32 * len(clips),
+                "resample_rows": len(clips)}
     if launches != expected:
         raise AssertionError(f"main path launches {launches}, expected {expected}")
     return launches
@@ -3510,7 +3754,7 @@ def phase_int8_encoder() -> dict:
     from ser_tpu_torch._internal.config.bootstrap import build_settings
     from ser_tpu_torch.models import attention, quant
     from ser_tpu_torch.models import whisper as wm
-    from ser_tpu_torch.ops import log_mel
+    from ser_tpu_torch.ops import log_mel, resample
 
     phase_started = time.perf_counter()
     config = wm.WhisperConfig()
@@ -3592,7 +3836,7 @@ def phase_int8_encoder() -> dict:
             torch.cuda.synchronize()
             return execution, time.perf_counter() - started
 
-        counters = (log_mel.FUSED_COUNTER, log_mel.COUNTER, attention.COUNTER)
+        counters = (log_mel.FUSED_COUNTER, log_mel.COUNTER, attention.COUNTER, resample.COUNTER)
         for counter in counters:
             counter.launches = 0
         executions = [run(clip) for clip, _ in clips]
@@ -3603,7 +3847,7 @@ def phase_int8_encoder() -> dict:
         say("int8-infer", clip=clip.name, seconds=seconds, cold_latency_s=f"{cold_s:.4f}", warm_latency_s=f"{warm_s:.4f}",
             segments=len(execution.detailed_result.segments))
     expected = {"stft_power_mel_log": len(clips), "power_mel_log": 0,
-                "flash_attention_fwd": config.encoder_layers * len(clips)}
+                "flash_attention_fwd": config.encoder_layers * len(clips), "resample_rows": len(clips)}
     say("int8-infer-launches", **launches)
     if launches != expected:
         raise AssertionError(f"int8 infer launches {launches}, expected {expected}")
@@ -5434,10 +5678,10 @@ def phase_operator() -> dict:
     from ser_tpu_torch._internal.utils.audio_io import read_audio_file
     from ser_tpu_torch._internal.utils.profiling import TRACE_FILE_NAME, device_trace
     from ser_tpu_torch.models import attention
-    from ser_tpu_torch.ops import log_mel
+    from ser_tpu_torch.ops import log_mel, resample
 
     phase_started = time.perf_counter()
-    counters = (log_mel.FUSED_COUNTER, log_mel.COUNTER, attention.COUNTER, attention.F32_COUNTER)
+    counters = (log_mel.FUSED_COUNTER, log_mel.COUNTER, attention.COUNTER, attention.F32_COUNTER, resample.COUNTER)
     scratch_root = REPO / "build"
     scratch_root.mkdir(exist_ok=True)
     os.environ.update({"SER_ALLOW_RANDOM_INIT": "1", "SER_RANDOM_INIT_SIZE": "full"})
@@ -5533,7 +5777,7 @@ def phase_operator() -> dict:
         decision = decisions[0] if len(decisions) == 1 else None
         windows = len(corpus) + OPERATOR_STABILITY_REQUESTS  # one 30 s window a 3 s clip
         expected = {"stft_power_mel_log": windows, "power_mel_log": 0, "flash_attention_fwd": 32 * windows,
-                    "flash_attention_f32": 0}
+                    "flash_attention_f32": 0, "resample_rows": windows}
         say("operator-gate", seconds=f"{gate_s:.3f}", exit_code=exit_code, clips=len(corpus),
             promote=None if decision is None else decision.promote,
             baseline=json.dumps(None if decision is None else vars(decision.baseline)),
@@ -6220,6 +6464,8 @@ def main() -> int:
         env = phase_environment()
         phase = mark("K1")
         k1 = phase_k1()
+        phase = mark("resample")
+        resample_kernel = phase_resample()
         phase = mark("K2")
         k2 = phase_k2()
         phase = mark("K2-f32")
@@ -6307,6 +6553,7 @@ def main() -> int:
     # (full-budget) transcribe_words call. Each path's counts are set to 0 just
     # before it and read just after.
     k1["fused"].update(launches=launches["stft_power_mel_log"], launches_per_encode=per_encode["k1_per_encode"])
+    resample_kernel.update(launches=launches["resample_rows"], launches_per_encode=1)
     k1["spectrum"].update(launches=launches["power_mel_log"],
                           launches_per_encode=per_encode["k1_spectrum_form_per_encode"])
     k2.update(launches=launches["flash_attention_fwd"], launches_per_encode=per_encode["k2_per_encode"],
@@ -6386,10 +6633,10 @@ def main() -> int:
     for kernel in (k1["fused"], k1["spectrum"], k2, k2_f32, k2_bwd, k3, k4, k5):
         kernel.update(device_defaults_launches=device_defaults["launches"].get(kernel["name"], 0))
     # The operator's path: launches of the quality gate's workflow (its encodes and stability requests).
-    for kernel in (k1["fused"], k1["spectrum"], k2, k2_f32, k2_bwd, k3, k4, k5):
+    for kernel in (k1["fused"], k1["spectrum"], k2, k2_f32, k2_bwd, k3, k4, k5, resample_kernel):
         kernel.update(operator_launches=operator["launches"].get(kernel["name"], 0))
     say("run", wall_s=f"{time.perf_counter() - run_started:.1f}")
-    print(json.dumps({"kernels": [k1["fused"], k1["spectrum"], k2, k2_f32, k2_bwd, k3, k4, k5]}))
+    print(json.dumps({"kernels": [k1["fused"], k1["spectrum"], k2, k2_f32, k2_bwd, k3, k4, k5, resample_kernel]}))
     print(env["smi"])
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -134,14 +134,15 @@ class XlsrBackend:
             self._config, state, device=self._device, compute_dtype=torch.float32
         )
 
-    def _encode_batch(self, batch: np.ndarray, lengths: np.ndarray) -> torch.Tensor:
+    def _encode_batch(self, batch: torch.Tensor | np.ndarray, lengths: np.ndarray) -> torch.Tensor:
         """Batched masked encode: (B, L) samples → (B, F, d) float32 on the device.
 
-        The valid-frame mask comes from the lengths; padded frames are masked
-        out of attention and arbitrary in the output.
+        A batch already on the device (the chunked encode's rows) is taken as
+        it is. The valid-frame mask comes from the lengths; padded frames are
+        masked out of attention and arbitrary in the output.
         """
         cfg = self._config
-        chunks = torch.from_numpy(np.ascontiguousarray(batch, dtype=np.float32)).to(self._device)
+        chunks = torch.as_tensor(batch, dtype=torch.float32, device=self._device)
         n_frames = max(1, cfg.frames_for_samples(chunks.shape[1]))
         valid = (np.asarray(lengths, dtype=np.int64) - cfg.frame_receptive_samples) // cfg.frame_stride_samples + 1
         mask = torch.from_numpy(np.arange(n_frames)[None, :] < valid[:, None]).to(self._device)
@@ -160,6 +161,7 @@ class XlsrBackend:
             encode_batch=self._encode_batch,
             frames_for_length=self._frames_for_length,
             backend_id=self.backend_id,
+            device=self._device,
             float32_encode_batch=self._float32_encode_batch,
         )
 
@@ -170,6 +172,7 @@ class XlsrBackend:
             encode_batch=self._encode_batch,
             frames_for_length=self._frames_for_length,
             backend_id=self.backend_id,
+            device=self._device,
             float32_encode_batch=self._float32_encode_batch,
         )
 

@@ -7,8 +7,11 @@ call; the frame and timestamp arithmetic stays on the host in float64 and is
 bit-identical to the JAX backend's. ``dtype="int8"`` is the opt-in W8A8
 lane: the projection products in int8 (``models/quant.py``, quantized once
 when the encoder is built), everything else in bf16 on the card (float32 on
-the CPU), as the JAX backend runs it. Under a profiler an encode is the spans
-``ser.resample``, ``ser.encode`` and ``ser.fetch``, as ``encoder_backend``'s are.
+the CPU), as the JAX backend runs it. A clip's samples go to the backend's
+device once and one launch of ``resample_rows`` lays out its padded 16 kHz
+windows there (``encoder_backend.StagedClips``). Under a profiler an encode is
+the spans ``ser.resample``, ``ser.encode`` and ``ser.fetch``, as
+``encoder_backend``'s are.
 """
 
 from __future__ import annotations
@@ -26,9 +29,14 @@ from ser_tpu_torch._internal.repr.backend import (
     PoolingWindow,
     window_mean_pool,
 )
-from ser_tpu_torch._internal.repr.encoder_backend import count_encode, random_init_seed, resolve_local_model_dir
+from ser_tpu_torch._internal.repr.encoder_backend import (
+    StagedClips,
+    count_encode,
+    encoder_length,
+    random_init_seed,
+    resolve_local_model_dir,
+)
 from ser_tpu_torch._internal.runtime.errors import RuntimeDependencyError
-from ser_tpu_torch._internal.utils.audio_io import resample_audio
 from ser_tpu_torch._internal.utils.logger import get_logger
 from ser_tpu_torch._internal.utils.profiling import span
 from ser_tpu_torch.models import whisper as whisper_model
@@ -99,19 +107,14 @@ class WhisperEncoderBackend:
         """Encodes audio: all 30 s windows in one batched call, frames at 20 ms."""
         if audio.ndim != 1 or audio.size == 0:
             raise ValueError("audio must be non-empty mono.")
-        with span("ser.resample"):
-            audio16k = resample_audio(
-                np.asarray(audio, dtype=np.float32), sample_rate, whisper_model.SAMPLE_RATE
-            )
+        n_samples = encoder_length(audio.size, sample_rate)
         chunk = whisper_model.CHUNK_SAMPLES
-        n_chunks = max(1, int(np.ceil(audio16k.size / chunk)))
+        n_chunks = max(1, int(np.ceil(n_samples / chunk)))
+        with span("ser.resample"):
+            windows = [(0, row * chunk, min(chunk, n_samples - row * chunk)) for row in range(n_chunks)]
+            chunks = StagedClips([(audio, sample_rate)], self._device).rows(windows, chunk)
         with span("ser.encode"):
-            batch = np.zeros((n_chunks, chunk), dtype=np.float32)
-            for row in range(n_chunks):
-                piece = audio16k[row * chunk : (row + 1) * chunk]
-                batch[row, : piece.size] = piece
-            count_encode(batch, audio16k.size)
-            chunks = torch.from_numpy(batch).to(self._device)
+            count_encode(chunks, n_samples)
             states = whisper_model.encode_mel_chunks(self._encoder, chunks)
 
         with span("ser.fetch"):
@@ -122,7 +125,7 @@ class WhisperEncoderBackend:
             n_states = states.shape[1]  # 1500 per 30 s window
             embeddings, starts, ends = [], [], []
             for row in range(n_chunks):
-                chunk_samples = min(chunk, audio16k.size - row * chunk)
+                chunk_samples = min(chunk, n_samples - row * chunk)
                 duration = chunk_samples / whisper_model.SAMPLE_RATE
                 n_valid = max(1, int(round(n_states * duration / whisper_model.CHUNK_SECONDS)))
                 frame_duration = duration / n_valid

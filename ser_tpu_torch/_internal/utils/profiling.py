@@ -35,8 +35,17 @@ TRACE_FILE_NAME = "trace.json"
 
 #: The counters :func:`count` keeps: encoder forward calls (a float32 retry
 #: included), their rows (padding rows included), the 16 kHz samples those
-#: rows hold with their padding, and the samples of audio in them.
-COUNTER_NAMES = ("encode_calls", "encode_rows", "encode_row_samples", "encode_audio_samples")
+#: rows hold with their padding, and the samples of audio in them; and the
+#: 16 kHz samples that the encoders' row layout made on the card and on the
+#: host (``encoder_backend.StagedClips.rows``).
+COUNTER_NAMES = (
+    "encode_calls",
+    "encode_rows",
+    "encode_row_samples",
+    "encode_audio_samples",
+    "resample_card_samples",
+    "resample_host_samples",
+)
 
 _OFF = nullcontext()
 #: A host event of the profiler's own function scope. ``record_function``'s user

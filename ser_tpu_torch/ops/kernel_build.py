@@ -69,6 +69,9 @@ ENTRY_POINTS = {
         ),
         "decode_step_clusters": ("ser_decode_step_clusters", [_INT] * 6 + [_POINTER]),
     },
+    "resample": {
+        "resample_rows": ("ser_resample_rows", [_POINTER] * 4 + [_INT] * 6 + [_POINTER]),
+    },
 }
 
 _ENTRIES: dict[str, Callable[..., int]] = {}

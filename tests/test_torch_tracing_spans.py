@@ -7,7 +7,8 @@ own ``SER_ALLOW_RANDOM_INIT`` draw) over three short WAVs at 48 and 16 kHz:
 - every stage span lies inside the call's root span ``ser.infer_many``, as
   often as the call's files and encoder calls give;
 - the counters hold exactly the encoder calls, rows and samples that the
-  resampled lengths give;
+  resampled lengths give, and the 16 kHz samples the row layout made, all on
+  the host here;
 - with no profiler on, no span is entered, nothing is counted, and the rows
   are those of the profiled run.
 
@@ -123,8 +124,9 @@ def test_stage_spans_nest_in_the_root_span(staged):
         # One encode a file: each file's windows are one encoder call.
         encodes = {"ser.resample": files, "ser.encode": files, "ser.fetch": files}
     else:
-        # One resampling pass over the call's clips, one encode a bucket, and the assembly's fetch.
-        encodes = {"ser.resample": 1, "ser.encode": files, "ser.fetch": files + 1}
+        # One copy of the call's clips and one row layout a bucket, one encode a bucket, and the
+        # assembly's fetch.
+        encodes = {"ser.resample": 1 + files, "ser.encode": files, "ser.fetch": files + 1}
     assert found == {"ser.decode": 1, **encodes, "ser.pool": files, "ser.classify": files}
 
 
@@ -142,6 +144,8 @@ def test_counters_hold_the_encoders_rows_and_samples(staged):
         "encode_rows": sum(rows),
         "encode_row_samples": sum(row_samples),
         "encode_audio_samples": sum(lengths),
+        "resample_card_samples": 0,
+        "resample_host_samples": sum(lengths),
     }
 
 

@@ -175,19 +175,19 @@ def test_retry_takes_the_float32_encode_once_and_raises_if_it_fails_too() -> Non
 
     encoded = encoder_backend.chunked_encode(
         audio, 16000, encode_batch=nan_encode, frames_for_length=lambda n: (n - 400) // 320 + 1,
-        backend_id="jax_xlsr", float32_encode_batch=float32_encode,
+        backend_id="jax_xlsr", device="cpu", float32_encode_batch=float32_encode,
     )
     assert switched == [True] and shapes == [(1, 32000)]
     assert encoded.embeddings.shape == (99, 3) and np.all(encoded.embeddings == 1.0)
     with pytest.raises(ValueError, match="non-finite"):
         encoder_backend.chunked_encode(
             audio, 16000, encode_batch=nan_encode, frames_for_length=lambda n: (n - 400) // 320 + 1,
-            backend_id="jax_xlsr",
+            backend_id="jax_xlsr", device="cpu",
         )
     with pytest.raises(ValueError, match="non-finite"):
         encoder_backend.chunked_encode_many(
             [(audio, 16000)], encode_batch=nan_encode, frames_for_length=lambda n: (n - 400) // 320 + 1,
-            backend_id="jax_xlsr",
+            backend_id="jax_xlsr", device="cpu",
         )
 
 
